@@ -1,8 +1,15 @@
 """On-card smoke test of the PyTorch port (``repro_torch``): builds the
 hand-written CUDA kernels from this checkout, holds each against its plain
-PyTorch version at the main path's shapes, drives the main path
-(``SampledKMeans(spec).fit(x)`` then ``predict(x)``) at the paper's
-500k-point / k=1000 workload, and checks the result.
+PyTorch version at its paths' shapes, and drives the port's paths, each
+with the kernels' launch counts set to 0 just before it and read just
+after:
+
+  * the clustering main path (``SampledKMeans(spec).fit(x)`` then
+    ``predict(x)``) at the paper's 500k-point / k=1000 workload, and the
+    same fit through the unfused ``cuda`` backend;
+  * the IVF/PQ index (``build_index`` then ``search``) at
+    ``benchmarks/specs/index_200k.json`` and ``index_5m.json``, with
+    recall@10 against the exact search.
 
     python3 chip_smoke.py          # needs one CUDA device (sm_90a) and nvcc
 
@@ -16,8 +23,8 @@ the JAX package.
 from __future__ import annotations
 
 import dataclasses
+import itertools
 import json
-import statistics
 import subprocess
 import sys
 import time
@@ -27,12 +34,15 @@ import numpy as np
 import torch
 
 ROOT = Path(__file__).resolve().parent
-SPEC_FILE = ROOT / "benchmarks" / "specs" / "paper_500k.json"
+SPECS = ROOT / "benchmarks" / "specs"
+SPEC_FILE = SPECS / "paper_500k.json"
 
 # published H100 SXM peaks (NVIDIA data sheet, dense, 700 W): FP32 outside
 # the tensor cores and HBM3 bandwidth
 FP32_PEAK = 67e12          # FLOP/s
 HBM_BYTES_PER_S = 3.35e12  # B/s
+L2_BYTES = 50 * 2**20      # the H100's L2 cache
+SPIN_CYCLES = 200_000_000  # ~0.1 s at the H100's clock: time to queue calls
 
 
 def emit(phase: str, **fields) -> None:
@@ -44,21 +54,67 @@ def check(cond: bool, what: str) -> None:
         raise AssertionError(what)
 
 
-def time_ms(fn, *, warmup: int = 2, iters: int = 10) -> float:
-    """Median device time of ``fn()`` in ms, by CUDA events around each
-    call, after ``warmup`` untimed calls."""
-    for _ in range(warmup):
-        fn()
-    times = []
+def call_ms(fn, *, iters: int = 20) -> float:
+    """Time per call of ``fn()`` in ms, host work included: CUDA events
+    around ``iters`` back-to-back calls after a warm-up call."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
     for _ in range(iters):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
         fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def n_read(t: torch.Tensor) -> int:
+    """Elements a kernel reads of ``t`` (once, for a batch broadcast)."""
+    return t[:1].numel() if t.stride(0) == 0 else t.numel()
+
+
+def _copy(t: torch.Tensor) -> torch.Tensor:
+    """A fresh copy of ``t``; a batch broadcast stays one."""
+    return t[:1].clone().expand_as(t) if t.stride(0) == 0 else t.clone()
+
+
+def rotating(fn, *inputs):
+    """A no-argument call of ``fn`` that cycles through copies of
+    ``inputs``, enough that one call's inputs have left the L2 cache by the
+    time it is made again (the copies together hold over twice the L2).
+    Each call then reads its inputs from HBM, as the byte bound assumes."""
+    size = sum(n_read(t) * t.element_size() for t in inputs)
+    sets = [inputs] + [tuple(_copy(t) for t in inputs)
+                       for _ in range(-(-2 * L2_BYTES // size))]
+    turn = itertools.count()
+    return lambda: fn(*sets[next(turn) % len(sets)])
+
+
+def device_ms(fn, *, iters: int = 20) -> float:
+    """Device time per call of ``fn()`` in ms: CUDA events around ``iters``
+    back-to-back calls, queued behind a spin kernel (``torch.cuda._sleep``)
+    that keeps the card busy while the host queues them, so the card never
+    waits on the host between calls."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(SPIN_CYCLES)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def bound_ms(ops: float, n_bytes: float) -> tuple[float, str]:
+    """Least time for ``ops`` FP32 operations and ``n_bytes`` of device
+    memory traffic: the larger of the two over the card's peaks."""
+    t_ops = ops / FP32_PEAK * 1e3
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
 def pair_bound_ms(b: int, m: int, k: int, d: int, in_bytes: int,
@@ -67,10 +123,7 @@ def pair_bound_ms(b: int, m: int, k: int, d: int, in_bytes: int,
     over the FP32 peak and its bytes over the HBM rate.  Work per (point,
     center) pair: 2d for the cross term (d multiply-adds), then the norm
     add, the subtract of 2 x.c and the clamp (+3) — 7 at d=2."""
-    ops = b * m * k * (2 * d + 3)
-    t_ops = ops / FP32_PEAK * 1e3
-    t_bytes = (in_bytes + out_bytes) / HBM_BYTES_PER_S * 1e3
-    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+    return bound_ms(b * m * k * (2 * d + 3), in_bytes + out_bytes)
 
 
 # ---------------------------------------------------------------------------
@@ -156,6 +209,142 @@ def assign_parity(name, x, c):
                 max_dist_err=float((dist - rdist).abs().amax()))
 
 
+def centroid_parity(name, x, w, c):
+    """The centroid kernel against its plain version on the ids the
+    assignment kernel gives: counts exactly (integer weights), sums within
+    1e-3 absolute, a repeated launch bit-identical."""
+    from repro_torch.kernels import assign, centroid, ref
+    k = c.shape[1]
+    idx, _ = assign.assign_argmin(x, c)
+    sums, counts = centroid.centroid_update(x, idx, w, k)
+    rsums, rcounts = ref.centroid_update_ref(x, idx, w, k)
+    check(torch.equal(counts, rcounts), f"{name}: counts differ")
+    err = float((sums - rsums).abs().amax())
+    check(err <= 1e-3, f"{name}: sums off by {err}")
+    again = centroid.centroid_update(x, idx, w, k)
+    check(torch.equal(again[0], sums) and torch.equal(again[1], counts),
+          f"{name}: a repeated launch is not bit-identical")
+    return dict(case=name, shape=list(x.shape) + [k], dtype=str(x.dtype),
+                max_abs_err=err)
+
+
+def scan_parity(name, luts, codes):
+    """The ADC scan kernel against its plain version: within 1e-5
+    relative (the tables hold squared distances, >= 0), a repeated launch
+    bit-identical."""
+    from repro_torch.kernels import ref, scan
+    scan.check_codes(codes, luts.shape[2])
+    out = scan.adc_scan_cuda(luts, codes)
+    want = ref.adc_scan_ref(luts, codes)
+    abs_err = (out - want).abs()
+    rel = float((abs_err / want.abs().clamp_min(1e-30)).amax())
+    check(rel <= 1e-5, f"{name}: relative error {rel}")
+    check(torch.equal(scan.adc_scan_cuda(luts, codes), out),
+          f"{name}: a repeated launch is not bit-identical")
+    return dict(case=name, shape=list(codes.shape) + [luts.shape[2]],
+                lut_dtype=str(luts.dtype), code_dtype=str(codes.dtype),
+                max_abs_err=float(abs_err.amax()), max_rel_err=rel)
+
+
+def reset_launches():
+    from repro_torch.kernels import assign, centroid, lloyd, scan
+    for mod in (assign, centroid, lloyd, scan):
+        mod.launches = 0
+
+
+def read_launches() -> dict:
+    from repro_torch.kernels import assign, centroid, lloyd, scan
+    return {"lloyd_step": lloyd.launches, "assign_argmin": assign.launches,
+            "centroid_update": centroid.launches, "adc_scan": scan.launches}
+
+
+def index_workload(spec_file: Path):
+    """An index spec file's spec, corpus source and queries, as
+    benchmarks/bench_index.py builds them (numpy, from the workload's
+    seed)."""
+    from repro_torch.data import IterSource, SyntheticSource
+    from repro_torch.index import IndexSpec
+    payload = json.loads(spec_file.read_text())
+    ispec = IndexSpec.from_dict(payload["index_spec"])
+    w = payload["workload"]
+    chunk_points = ispec.coarse.chunk.chunk_points
+    synth = SyntheticSource(w["n"], dim=w["dim"], n_clusters=w["n_clusters"],
+                            seed=w["seed"])
+    src = (IterSource(lambda: synth.chunks(chunk_points), dim=w["dim"],
+                      n_points=w["n"])
+           if w["source"] == "iter" else synth)
+    rng = np.random.default_rng(w["seed"] + 1)
+    queries = (synth.centers[rng.integers(0, w["n_clusters"], w["queries"])]
+               + rng.normal(0, w["query_noise"], (w["queries"], w["dim"]))
+               ).astype(np.float32)
+    return ispec, w, src, torch.from_numpy(queries).cuda()
+
+
+def build_and_sweep(spec_file: Path, nprobes, repeats: int):
+    """Build the index of a spec file's workload and search it at each
+    nprobe: build seconds, queries/s (each of ``repeats`` after a warm-up,
+    and the best) and recall@k against the exact search, with the kernels' launches
+    counted over the build and the searches."""
+    from repro_torch.index import build_index, exact_search, recall_at_k
+    ispec, w, src, queries = index_workload(spec_file)
+    k, q_block = w["k"], w["q_block"]
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    index, stats = build_index(src, ispec, w["seed"])
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    sweep = []
+    for nprobe in nprobes:
+        index.search(queries, k, nprobe=nprobe, q_block=q_block)
+        times = []
+        for _ in range(repeats):
+            t0 = time.perf_counter()
+            d, ids = index.search(queries, k, nprobe=nprobe, q_block=q_block)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        sweep.append(dict(nprobe=nprobe, qps=len(queries) / min(times),
+                          qps_repeats=[len(queries) / t for t in times],
+                          ids=ids, dists=d))
+    launches = read_launches()
+    t0 = time.perf_counter()
+    _, true_ids = exact_search(src, queries, k,
+                               chunk_points=ispec.coarse.chunk.chunk_points)
+    torch.cuda.synchronize()
+    exact_s = time.perf_counter() - t0
+    for p in sweep:
+        p["recall"] = recall_at_k(p["ids"], true_ids)
+    check(index.n_points == w["n"] and stats.n_points == w["n"],
+          f"{spec_file.name}: indexed {index.n_points} of {w['n']} rows")
+    for p in sweep:
+        check(bool(torch.isfinite(p["dists"]).all())
+              and bool((p["ids"] >= 0).all()),
+              f"{spec_file.name}: missing neighbours at nprobe "
+              f"{p['nprobe']}")
+    return ispec, w, queries, index, stats, build_s, exact_s, sweep, launches
+
+
+def probed_scan_inputs(index, queries, nprobe):
+    """The ADC scan's (B, m, C) tables and (B, cap, m) codes for one query
+    block at ``nprobe``, as ``search`` hands them to the kernel."""
+    from repro_torch.index.ivf import _probe_cells
+    from repro_torch.index.pq import build_luts
+    cells = _probe_cells(queries, index.coarse_centers, nprobe)
+    luts = build_luts(queries, cells, index.coarse_centers, index.codebooks)
+    q, p = cells.shape
+    m, c = index.codebooks.shape[:2]
+    codes = index.codes[cells.long()].reshape(q * p, index.cap, m)
+    return luts.reshape(q * p, m, c), codes
+
+
+def scan_bound_ms(luts, codes) -> tuple[float, str]:
+    """Bytes: every code once, every table once, every output once;
+    operations: one add per code."""
+    b, l, m = codes.shape
+    return bound_ms(b * l * m, codes.numel() + luts.numel()
+                    * luts.element_size() + b * l * 4)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -166,7 +355,7 @@ def main() -> int:
                                   feature_scale, relative_error,
                                   standard_kmeans)
     from repro_torch.data import blobs
-    from repro_torch.kernels import assign, build, lloyd, ref
+    from repro_torch.kernels import assign, build, centroid, lloyd, ref, scan
     from repro_torch.telemetry import RecordingLogger
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -202,6 +391,11 @@ def main() -> int:
              lloyd_parity("lloyd_d200", *_case(1, 300, 50, 200, seed=5)),
              lloyd_parity("lloyd_bf16", *_case(2, 5000, 100, 8, seed=6,
                                                dtype=torch.bfloat16))]
+    # the PQ codebook fits: all subspaces as lanes, 1-D codebooks of 256
+    pq200k = _case(64, 32768, 256, 1, seed=10)
+    pq5m = _case(32, 65536, 256, 1, seed=11)
+    cases += [lloyd_parity("lloyd_pq_200k", *pq200k),
+              lloyd_parity("lloyd_pq_5m", *pq5m)]
     predict_x = torch.rand((1, 500_000, 2), device="cuda",
                            generator=torch.Generator("cuda").manual_seed(7))
     predict_c = predict_x[:, ::500].contiguous()          # 1000 centers
@@ -211,6 +405,22 @@ def main() -> int:
               assign_parity("assign_bf16",
                             *_case(2, 5000, 100, 8, seed=9,
                                    dtype=torch.bfloat16)[::2])]
+    cases += [centroid_parity("centroid_local", *local),
+              centroid_parity("centroid_merge", *merge),
+              centroid_parity("centroid_pq_200k", *pq200k),
+              centroid_parity("centroid_pq_5m", *pq5m),
+              centroid_parity("centroid_d64", *_case(2, 517, 300, 64,
+                                                     seed=12)),
+              centroid_parity("centroid_bf16",
+                              *_case(2, 5000, 100, 8, seed=13,
+                                     dtype=torch.bfloat16))]
+    g = torch.Generator("cuda").manual_seed(14)
+    luts16 = torch.rand((64, 64, 16), generator=g, device="cuda")
+    codes16 = torch.randint(0, 16, (64, 1500, 64), generator=g,
+                            device="cuda", dtype=torch.uint8)
+    cases += [scan_parity("scan_bits4", luts16, codes16),
+              scan_parity("scan_bits4_int32_codes", luts16, codes16.int()),
+              scan_parity("scan_bits4_bf16", luts16.bfloat16(), codes16)]
     torch.cuda.synchronize()
     emit("parity", cases=cases)
 
@@ -223,14 +433,13 @@ def main() -> int:
     warm.predict(x)
     torch.cuda.synchronize()
 
-    lloyd.launches = 0
-    assign.launches = 0
+    reset_launches()
     t0 = time.perf_counter()
     est = SampledKMeans(spec).fit(x, seed=0)
     labels = est.predict(x)
     torch.cuda.synchronize()
     fit_predict_s = time.perf_counter() - t0
-    launches = {"lloyd_step": lloyd.launches, "assign_argmin": assign.launches}
+    launches = read_launches()
     check(launches["lloyd_step"] > 0 and launches["assign_argmin"] > 0,
           f"the main path skipped a kernel: {launches}")
 
@@ -311,31 +520,169 @@ def main() -> int:
           "two kmeans++ fits with one seed differ")
     emit("determinism", bit_identical=True)
 
-    # -- 7. kernel times at the main path's shapes --------------------------
+    # -- 7. the unfused cuda backend at paper_500k --------------------------
+    cuda_spec = spec.replace(backend="cuda")
+    warm_cuda = SampledKMeans(cuda_spec).fit(x, seed=0)
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    est_cuda = SampledKMeans(cuda_spec).fit(x, seed=0)
+    torch.cuda.synchronize()
+    cuda_fit_s = time.perf_counter() - t0
+    cuda_launches = read_launches()
+    check(cuda_launches["centroid_update"] > 0
+          and cuda_launches["assign_argmin"] > 0
+          and cuda_launches["lloyd_step"] == 0,
+          f"the cuda backend skipped a kernel: {cuda_launches}")
+    cuda_sse = float(est_cuda.sse_)
+    cuda_rel = relative_error(cuda_sse, float(std.sse))
+    check(cuda_rel < 0.10, f"cuda backend SSE {cuda_sse} vs standard "
+          f"{float(std.sse)}: relative error {cuda_rel}")
+    check(torch.equal(warm_cuda.centers_, est_cuda.centers_)
+          and torch.equal(warm_cuda.sse_, est_cuda.sse_),
+          "two kmeans++ fits with one seed differ (cuda backend)")
+    coarse = landmark(2000, 20)
+    ua, ub = (SampledKMeans(coarse.replace(backend=be)).fit(x, seed=0).result_
+              for be in ("cuda", "cuda_fused"))
+    unfused_rel = abs(float(ua.sse) - float(ub.sse)) / float(ub.sse)
+    check(unfused_rel <= 1e-4, f"landmark SSE: cuda {float(ua.sse)} vs "
+          f"cuda_fused {float(ub.sse)}")
+    emit("cuda_backend", fit_s=cuda_fit_s, launches=cuda_launches,
+         sse=cuda_sse, standard_sse=float(std.sse), relative_error=cuda_rel,
+         bit_identical=True, landmark_sse_cuda=float(ua.sse),
+         landmark_sse_cuda_fused=float(ub.sse), landmark_rel=unfused_rel)
+
+    # -- 8. the IVF/PQ index at index_200k -----------------------------------
+    repeats2 = 3
+    (ispec, w2, q2, index2, stats2, build2_s, exact2_s, sweep2,
+     index_launches) = build_and_sweep(SPECS / "index_200k.json",
+                                       [1, 2, 4, 8], repeats2)
+    check(all(index_launches[n] > 0 for n in
+              ("adc_scan", "lloyd_step", "assign_argmin")),
+          f"the index path skipped a kernel: {index_launches}")
+    recall2 = {p["nprobe"]: p["recall"] for p in sweep2}
+    check(recall2[2] >= 0.95, f"index_200k recall@10 at nprobe=2: "
+          f"{recall2[2]}")
+    scan200k = probed_scan_inputs(index2, q2[:w2["q_block"]], 2)
+    cases += [scan_parity("scan_index_200k", *scan200k),
+              scan_parity("scan_index_200k_bf16",
+                          scan200k[0].bfloat16(), scan200k[1])]
+    emit("index_200k", n=w2["n"], dim=w2["dim"], nlist=ispec.nlist,
+         n_subspaces=ispec.pq.n_subspaces, cap=index2.cap,
+         build_s=build2_s, stats=stats2._asdict(), exact_search_s=exact2_s,
+         repeats=repeats2, launches=index_launches,
+         sweep=[dict(nprobe=p["nprobe"], qps=p["qps"],
+                     qps_repeats=p["qps_repeats"], recall=p["recall"])
+                for p in sweep2],
+         scan_parity=cases[-2:])
+
+    # -- 9. the IVF/PQ index at index_5m, the repo's largest ---------------
+    import repro_torch.index.ivf as ivf_mod
+    (ispec5, w5, q5, index5, stats5, build5_s, exact5_s, sweep5,
+     launches5) = build_and_sweep(SPECS / "index_5m.json", [2], 1)
+    check(all(launches5[n] > 0 for n in
+              ("adc_scan", "lloyd_step", "assign_argmin")),
+          f"the index_5m path skipped a kernel: {launches5}")
+    # the same search with the plain scan in place of the kernel
+    ivf_mod.adc_scan_cuda = ref.adc_scan_ref
+    try:
+        plain_d, plain_i = index5.search(q5, w5["k"], nprobe=2,
+                                         q_block=w5["q_block"])
+    finally:
+        ivf_mod.adc_scan_cuda = scan.adc_scan_cuda
+    kern_d, kern_i = sweep5[0]["dists"], sweep5[0]["ids"]
+    rel5 = float(((kern_d - plain_d).abs()
+                  / plain_d.abs().clamp_min(1e-30)).amax())
+    check(rel5 <= 1e-5, f"index_5m: kernel vs plain scan distances "
+          f"{rel5} relative")
+    swapped = kern_i != plain_i
+    n_swapped = int(swapped.sum())
+    if n_swapped:
+        near = torch.zeros_like(swapped)
+        close = torch.isclose(plain_d[:, 1:], plain_d[:, :-1], rtol=1e-5,
+                              atol=0.0)
+        near[:, 1:] |= close
+        near[:, :-1] |= close
+        check(bool(near[swapped].all()), f"index_5m: {n_swapped} ids "
+              f"differ between kernel and plain scan, not at near-ties")
+    scan5m = probed_scan_inputs(index5, q5[:w5["q_block"]], 2)
+    cases += [scan_parity("scan_index_5m", *scan5m)]
+    emit("index_5m", n=w5["n"], dim=w5["dim"], nlist=ispec5.nlist,
+         n_subspaces=ispec5.pq.n_subspaces, cap=index5.cap,
+         source=w5["source"], build_s=build5_s, stats=stats5._asdict(),
+         exact_search_s=exact5_s, launches=launches5,
+         qps=sweep5[0]["qps"], recall_at_10=sweep5[0]["recall"],
+         kernel_vs_plain_scan=dict(max_rel_dist_err=rel5,
+                                   ids_swapped_at_near_ties=n_swapped),
+         scan_parity=cases[-1])
+    torch.cuda.synchronize()
+
+    # -- 10. kernel times at the paths' shapes ------------------------------
+    # ms / plain_ms / library_ms: device time per call, with the inputs in
+    # HBM (rotated copies); call_ms: the kernel's time per call with its
+    # wrapper's host work.  ``library`` is (function, its inputs).
+    def timed(shape_name, inputs, kernel, plain, bound, library=None,
+              **dims):
+        b_ms, by = bound
+        return dict(
+            shape=shape_name, **dims, ms=device_ms(rotating(kernel, *inputs)),
+            call_ms=call_ms(rotating(kernel, *inputs)),
+            plain_ms=device_ms(rotating(plain, *inputs), iters=3),
+            library_ms=(None if library is None
+                        else device_ms(rotating(library[0], *library[1]))),
+            bound_ms=b_ms, bound_by=by)
+
     def lloyd_entry(shape_name, xw, wl, cl):
         bb, mm, dd = xw.shape
         kk = cl.shape[1]
-        in_bytes = (xw[:1].numel() if xw.stride(0) == 0 else xw.numel()) * 4 \
-            + (wl[:1].numel() if wl.stride(0) == 0 else wl.numel()) * 4 \
-            + cl.numel() * 4
+        in_bytes = (n_read(xw) + n_read(wl) + cl.numel()) * 4
         out_bytes = bb * mm * 8 + bb * kk * (dd + 1) * 4 + bb * 4
-        bound, by = pair_bound_ms(bb, mm, kk, dd, in_bytes, out_bytes)
-        return dict(shape=shape_name, b=bb, m=mm, k=kk, d=dd,
-                    ms=time_ms(lambda: lloyd.lloyd_step(xw, wl, cl)),
-                    plain_ms=time_ms(lambda: ref.lloyd_step_ref(xw, wl, cl),
-                                     warmup=1, iters=3),
-                    bound_ms=bound, bound_by=by)
+        return timed(shape_name, (xw, wl, cl), lloyd.lloyd_step,
+                     ref.lloyd_step_ref,
+                     pair_bound_ms(bb, mm, kk, dd, in_bytes, out_bytes),
+                     b=bb, m=mm, k=kk, d=dd)
 
+    # the cuda backend's centroid pass on the assignment kernel's ids;
+    # bytes: x, ids and w read once, sums and counts written once
+    def centroid_entry(shape_name, xw, wl, cl):
+        bb, mm, dd = xw.shape
+        kk = cl.shape[1]
+        ids, _ = assign.assign_argmin(xw, cl)
+        flat = (ids.long() + kk * torch.arange(bb, device="cuda")[:, None]
+                ).reshape(-1)
+        wx = (xw.float() * wl.float()[..., None]).reshape(-1, dd)
+        return timed(
+            shape_name, (xw, ids, wl),
+            lambda *t: centroid.centroid_update(*t, kk),
+            lambda *t: ref.centroid_update_ref(*t, kk),
+            bound_ms(bb * mm * (2 * dd + 1),
+                     (n_read(xw) + n_read(wl) + ids.numel()) * 4
+                     + bb * kk * (dd + 1) * 4),
+            library=(lambda f, v: torch.zeros(bb * kk, dd, device="cuda"
+                                              ).index_add_(0, f, v),
+                     (flat, wx)),
+            b=bb, m=mm, k=kk, d=dd)
+
+    def scan_entry(shape_name, luts, codes):
+        b, l, m = codes.shape
+        return timed(shape_name, (luts, codes), scan.adc_scan_cuda,
+                     ref.adc_scan_ref, scan_bound_ms(luts, codes), b=b, l=l,
+                     m=m, c=luts.shape[2])
+
+    c_local = centroid_entry("local", *local)
+    c_merge = centroid_entry("merge", *merge)
+    c_pq = centroid_entry("pq_200k", *pq200k)
+    s_200k = scan_entry("index_200k nprobe=2", *scan200k)
+    s_5m = scan_entry("index_5m nprobe=2", *scan5m)
     l_local = lloyd_entry("local", *local)
     l_merge = lloyd_entry("merge", *merge)
-    in_b = predict_x.numel() * 4 + predict_c.numel() * 4
-    a_bound, a_by = pair_bound_ms(1, 500_000, 1000, 2, in_b, 500_000 * 8)
-    a_pred = dict(shape="predict", b=1, m=500_000, k=1000, d=2,
-                  ms=time_ms(lambda: assign.assign_argmin(predict_x,
-                                                          predict_c)),
-                  plain_ms=time_ms(lambda: ref.assign_argmin_ref(
-                      predict_x, predict_c), warmup=1, iters=3),
-                  bound_ms=a_bound, bound_by=a_by)
+    l_pq = lloyd_entry("pq_200k", *pq200k)
+    a_pred = timed("predict", (predict_x, predict_c), assign.assign_argmin,
+                   ref.assign_argmin_ref,
+                   pair_bound_ms(1, 500_000, 1000, 2,
+                                 (predict_x.numel() + predict_c.numel()) * 4,
+                                 500_000 * 8),
+                   b=1, m=500_000, k=1000, d=2)
     errs = {c["case"]: c for c in cases}
     kernels = [
         dict(name="lloyd_step", route="cuda",
@@ -346,7 +693,7 @@ def main() -> int:
                              errs["lloyd_merge"]["max_sum_err"]),
              ms=l_local["ms"], plain_ms=l_local["plain_ms"],
              bound_ms=l_local["bound_ms"], bound_by=l_local["bound_by"],
-             library_ms=None, shapes=[l_local, l_merge]),
+             library_ms=None, shapes=[l_local, l_merge, l_pq]),
         dict(name="assign_argmin", route="cuda",
              source="src/repro_torch/kernels/csrc/assign.cu",
              replaces="src/repro/kernels/assign.py:87",
@@ -355,6 +702,24 @@ def main() -> int:
              ms=a_pred["ms"], plain_ms=a_pred["plain_ms"],
              bound_ms=a_pred["bound_ms"], bound_by=a_pred["bound_by"],
              library_ms=None, shapes=[a_pred]),
+        dict(name="centroid_update", route="cuda",
+             source="src/repro_torch/kernels/csrc/centroid.cu",
+             replaces="src/repro/kernels/centroid.py:60",
+             launches=cuda_launches["centroid_update"],
+             max_abs_err=max(errs["centroid_local"]["max_abs_err"],
+                             errs["centroid_merge"]["max_abs_err"]),
+             ms=c_local["ms"], plain_ms=c_local["plain_ms"],
+             bound_ms=c_local["bound_ms"], bound_by=c_local["bound_by"],
+             library_ms=c_local["library_ms"],
+             shapes=[c_local, c_merge, c_pq]),
+        dict(name="adc_scan", route="cuda",
+             source="src/repro_torch/kernels/csrc/adc_scan.cu",
+             replaces="src/repro/kernels/scan.py:105",
+             launches=index_launches["adc_scan"],
+             max_abs_err=errs["scan_index_200k"]["max_abs_err"],
+             ms=s_200k["ms"], plain_ms=s_200k["plain_ms"],
+             bound_ms=s_200k["bound_ms"], bound_by=s_200k["bound_by"],
+             library_ms=None, shapes=[s_200k, s_5m]),
     ]
     emit("done", seconds=time.perf_counter() - t_all)
     print(smi)

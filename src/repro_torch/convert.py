@@ -1,11 +1,12 @@
 """Carry state across from the JAX package to the port.
 
-A clustering system's "weights" are its spec and its fitted centers.  The
-JAX package serialises a spec with ``ClusterSpec.to_dict()`` and its
-results are arrays; here those become the port's objects, so a fit made
-with the JAX package serves ``predict``/``transform``/``score`` from the
-port.  Only plain Python and numpy cross over: nothing here imports the
-JAX package.
+A clustering system's "weights" are its spec and its fitted centers, and
+for the IVF/PQ index its quantizers and inverted lists.  The JAX package
+serialises a spec with ``to_dict()`` and its results are arrays; here those
+become the port's objects, so a fit made with the JAX package serves
+``predict``/``transform``/``score`` from the port, and an index built with
+it serves ``search``.  Only plain Python and numpy cross over: nothing here
+imports the JAX package.
 """
 from __future__ import annotations
 
@@ -18,6 +19,7 @@ from repro_torch.api import SampledKMeans
 from repro_torch.core.device import resolve_device
 from repro_torch.core.pipeline import SampledClusteringResult
 from repro_torch.core.spec import ClusterSpec
+from repro_torch.index import IndexSpec, IVFIndex
 
 
 def spec_from_reference(d: Mapping[str, Any]) -> ClusterSpec:
@@ -55,3 +57,40 @@ def estimator_from_numpy(spec_dict: Mapping[str, Any], centers, *,
                          f"(k={est.spec.merge.k}, d), got {tuple(c.shape)}")
     est.centers_ = c
     return est
+
+
+def index_from_jax(spec_dict: Mapping[str, Any], coarse_centers, codebooks,
+                   codes, ids, counts, *,
+                   device: "torch.device | str | None" = None) -> IVFIndex:
+    """The port's :class:`IVFIndex` on ``device`` (``None``: the CUDA
+    device) from a JAX-package index: its ``IndexSpec.to_dict()`` and the
+    numpy arrays of its ``coarse_centers`` (nlist, d), ``codebooks``
+    (m, C, d/m), ``codes`` (nlist, cap, m), ``ids`` (nlist, cap) and
+    ``counts`` (nlist,)."""
+    dev = resolve_device(device)
+
+    def t(a, dtype):
+        return torch.as_tensor(np.array(a), dtype=dtype, device=dev)
+
+    spec = IndexSpec.from_dict(spec_dict)
+    index = IVFIndex(spec=spec,
+                     coarse_centers=t(coarse_centers, torch.float32),
+                     codebooks=t(codebooks, torch.float32),
+                     codes=t(codes, torch.uint8),
+                     ids=t(ids, torch.int32),
+                     counts=t(counts, torch.int32))
+    m, c, ds = index.codebooks.shape
+    nlist, d = index.coarse_centers.shape
+    if (m != spec.pq.n_subspaces or c != spec.pq.n_codes or m * ds != d
+            or nlist != spec.nlist or index.codes.shape[0] != nlist
+            or index.codes.shape[2] != m
+            or tuple(index.ids.shape) != tuple(index.codes.shape[:2])
+            or tuple(index.counts.shape) != (nlist,)):
+        raise ValueError(
+            f"index_from_jax: arrays do not match the spec (nlist="
+            f"{spec.nlist}, m={spec.pq.n_subspaces}, C={spec.pq.n_codes}): "
+            f"centers {tuple(index.coarse_centers.shape)}, codebooks "
+            f"{tuple(index.codebooks.shape)}, codes "
+            f"{tuple(index.codes.shape)}, ids {tuple(index.ids.shape)}, "
+            f"counts {tuple(index.counts.shape)}")
+    return index

@@ -10,7 +10,7 @@ Public API (the names of :mod:`repro.core` that this slice ports):
   register_partitioner / get_partitioner — subclustering registry (equal |
                                            unequal, paper Algorithms 1/2)
   get_backend, register_backend          — LloydBackend registry (torch |
-                                           cuda_fused | auto)
+                                           cuda | cuda_fused | auto)
   fit_from_spec                          — spec-driven single-device pipeline
   chunk_fold / local_stage / reduce_pool / merge_pool — its stages
   sampled_kmeans, standard_kmeans        — thin adapters
@@ -19,8 +19,9 @@ Public API (the names of :mod:`repro.core` that this slice ports):
 The estimator facade (`SampledKMeans`) lives one level up in
 :mod:`repro_torch.api`.
 """
-from .backend import (CudaFusedBackend, LloydBackend, LloydStats,
-                      available_backends, get_backend, register_backend)
+from .backend import (CudaBackend, CudaFusedBackend, LloydBackend,
+                      LloydStats, available_backends, get_backend,
+                      register_backend)
 from .kmeans import (KMeansResult, available_inits, get_init, kmeans,
                      kmeans_batched, kmeans_parallel_init, kmeans_pp_init,
                      landmark_init, pairwise_sqdist, random_init,
@@ -49,6 +50,7 @@ __all__ = [
     "SampledClusteringResult", "fit_from_spec", "sampled_kmeans",
     "standard_kmeans", "local_stage", "reduce_pool", "chunk_fold",
     "merge_pool", "sse", "min_sqdist", "map_row_blocks", "relative_error",
-    "clustering_accuracy", "LloydBackend", "CudaFusedBackend", "LloydStats",
+    "clustering_accuracy", "LloydBackend", "CudaBackend", "CudaFusedBackend",
+    "LloydStats",
     "get_backend", "register_backend", "available_backends",
 ]

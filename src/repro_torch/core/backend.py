@@ -17,11 +17,16 @@ partitions of the local stage or the restarts of the merge.  A backend owns
 Built-in backends:
 
   ``torch``       the plain PyTorch versions (:mod:`repro_torch.kernels.ref`)
-  ``cuda_fused``  the hand-written kernels: ``csrc/lloyd.cu`` for ``step``,
-                  ``csrc/assign.cu`` for ``assign``/``assign_points``
-                  (given CPU tensors, their wrappers run the plain versions)
+  ``cuda``        unfused kernels: ``step`` is ``csrc/assign.cu`` then
+                  ``csrc/centroid.cu`` (two passes over the points), and
+                  ``csrc/assign.cu`` serves ``assign``/``assign_points``
+  ``cuda_fused``  ``step`` is the fused ``csrc/lloyd.cu`` (one pass); the
+                  rest as ``cuda``
   ``auto``        ``REPRO_KMEANS_BACKEND`` if set, else ``cuda_fused`` for
                   CUDA tensors and ``torch`` for CPU tensors
+
+Given CPU tensors, the kernel wrappers of ``cuda``/``cuda_fused`` run the
+plain versions.
 
 ``register_backend`` adds custom entries.
 """
@@ -109,14 +114,16 @@ class LloydBackend:
         return f"<LloydBackend {self.name}>"
 
 
-class CudaFusedBackend(LloydBackend):
-    """The hand-written Hopper kernels: one fused pass per Lloyd iteration
-    (``kernels/lloyd.py``) and the assignment kernel for ``assign`` and the
-    query path (``kernels/assign.py``).  Neither kernel forms the (m, k)
-    distance matrix, so ``assign_points`` launches once for all rows of a
-    CUDA tensor whatever ``block`` says."""
+class CudaBackend(LloydBackend):
+    """Unfused Hopper kernels, the counterpart of the JAX package's
+    ``pallas`` backend: each Lloyd step is an assignment pass
+    (``kernels/assign.py``) and a centroid-update pass
+    (``kernels/centroid.py``), so it reads the points twice.  The
+    assignment kernel also serves ``assign`` and the query path; it never
+    forms the (m, k) distance matrix, so ``assign_points`` launches once
+    for all rows of a CUDA tensor whatever ``block`` says."""
 
-    name = "cuda_fused"
+    name = "cuda"
 
     def assign(self, prep: Prepared, centers: torch.Tensor
                ) -> tuple[torch.Tensor, torch.Tensor]:
@@ -124,8 +131,12 @@ class CudaFusedBackend(LloydBackend):
         return assign_argmin(prep.x, centers)
 
     def step(self, prep: Prepared, centers: torch.Tensor) -> LloydStats:
-        from repro_torch.kernels.lloyd import lloyd_step
-        return LloydStats(*lloyd_step(prep.x, prep.w, centers))
+        from repro_torch.kernels.centroid import centroid_update
+        idx, dist = self.assign(prep, centers)
+        sums, counts = centroid_update(prep.x, idx, prep.w, centers.shape[1])
+        w = prep.w.float()
+        sse = torch.where(w != 0, dist * w, 0.0).sum(-1)
+        return LloydStats(sums, counts, sse, idx, dist)
 
     def assign_points(self, x: torch.Tensor, centers: torch.Tensor, *,
                       block: Optional[int] = None
@@ -135,10 +146,22 @@ class CudaFusedBackend(LloydBackend):
         return super().assign_points(x, centers, block=block)
 
 
+class CudaFusedBackend(CudaBackend):
+    """The fused backend: one pass per Lloyd iteration (``kernels/lloyd.py``:
+    assignment, weighted statistics and SSE together)."""
+
+    name = "cuda_fused"
+
+    def step(self, prep: Prepared, centers: torch.Tensor) -> LloydStats:
+        from repro_torch.kernels.lloyd import lloyd_step
+        return LloydStats(*lloyd_step(prep.x, prep.w, centers))
+
+
 BackendSpec = Union[str, LloydBackend, None]
 
 _REGISTRY: dict[str, Callable[[], LloydBackend]] = {
     "torch": LloydBackend,
+    "cuda": CudaBackend,
     "cuda_fused": CudaFusedBackend,
 }
 

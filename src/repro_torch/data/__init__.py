@@ -1,4 +1,8 @@
-"""Data for the PyTorch port: the paper's synthetic workload generator."""
+"""Data for the PyTorch port: the paper's synthetic workload generator and
+the chunked data sources of the out-of-core paths."""
+from .source import (ArraySource, DataSource, IterSource, SyntheticSource,
+                     as_source, prefetch_to_device)
 from .synthetic import blobs
 
-__all__ = ["blobs"]
+__all__ = ["blobs", "DataSource", "ArraySource", "IterSource",
+           "SyntheticSource", "as_source", "prefetch_to_device"]

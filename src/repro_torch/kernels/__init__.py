@@ -1,15 +1,25 @@
 """Hand-written CUDA kernels of the PyTorch port, for Hopper (sm_90a).
 
-  lloyd.py / csrc/lloyd.cu    — fused Lloyd step: assignment + raw weighted
-                                sums/counts + SSE in one pass (replaces
-                                repro/kernels/lloyd.py::lloyd_step_pallas)
-  assign.py / csrc/assign.cu  — nearest-center assignment (replaces
-                                repro/kernels/assign.py::assign_argmin_pallas)
-  csrc/distance.cuh           — the distance scan both kernels share
-  ref.py                      — the plain PyTorch versions (CPU path, tests,
-                                on-card parity)
-  tiles.py                    — the launch contract (TileError, tile sizes)
-  build.py                    — nvcc build at first use, ctypes loading
+  lloyd.py / csrc/lloyd.cu       — fused Lloyd step: assignment + raw
+                                   weighted sums/counts + SSE in one pass
+                                   (replaces repro/kernels/lloyd.py::
+                                   lloyd_step_pallas)
+  assign.py / csrc/assign.cu     — nearest-center assignment (replaces
+                                   repro/kernels/assign.py::
+                                   assign_argmin_pallas)
+  centroid.py / csrc/centroid.cu — weighted centroid update, the unfused
+                                   backend's second pass (replaces
+                                   repro/kernels/centroid.py::
+                                   centroid_update_pallas)
+  scan.py / csrc/adc_scan.cu     — the IVF/PQ ADC scan (replaces
+                                   repro/kernels/scan.py::adc_scan_pallas)
+  csrc/distance.cuh              — loads, center staging, the distance scan
+  csrc/accumulate.cuh            — the per-block statistics and their
+                                   fixed-order reduction (Lloyd, centroid)
+  ref.py                         — the plain PyTorch versions (CPU path,
+                                   tests, on-card parity)
+  tiles.py                       — the launch contract (TileError, tiles)
+  build.py                       — nvcc build at first use, ctypes loading
 
 Importing this package builds nothing and touches no device: a kernel is
 built the first time its wrapper is given a CUDA tensor.  For CPU tensors
@@ -17,7 +27,10 @@ the wrappers run the plain versions; for CUDA tensors they launch the
 kernel or raise.
 """
 from .assign import assign_argmin
+from .centroid import centroid_update
 from .lloyd import lloyd_step
+from .scan import adc_scan_cuda
 from .tiles import TileError
 
-__all__ = ["assign_argmin", "lloyd_step", "TileError"]
+__all__ = ["assign_argmin", "centroid_update", "lloyd_step", "adc_scan_cuda",
+           "TileError"]

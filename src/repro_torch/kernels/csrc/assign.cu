@@ -63,12 +63,8 @@ int launch(const void* x, int64_t x_bs, int x_bf16, const void* c,
            int32_t* idx, float* dist, cudaStream_t stream) {
   const size_t smem =
       static_cast<size_t>(bk) * center_stride(DP, d) * sizeof(float);
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        assign_kernel<DP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (e != cudaSuccess) return static_cast<int>(e);
-  }
+  const cudaError_t e = allow_smem(assign_kernel<DP>, smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
   const dim3 grid((M + kThreads - 1) / kThreads, B);
   assign_kernel<DP><<<grid, kThreads, smem, stream>>>(
       x, x_bs, x_bf16, c, c_bs, c_bf16, M, K, d, bk, idx, dist);

@@ -1,6 +1,7 @@
-// Device code shared by the assign and Lloyd kernels: loading points and
-// centers (f32 or bf16, upcast to f32), staging a center tile in shared
-// memory, and the running argmin of one point over a staged tile.
+// Code shared by the port's kernels: loading points and centers (f32 or
+// bf16, upcast to f32), staging a center tile in shared memory, the running
+// argmin of one point over a staged tile (assign and Lloyd kernels), and the
+// opt-in to more than 48 KB of dynamic shared memory.
 //
 // Semantics (held by the plain versions in repro_torch/kernels/ref.py):
 //   d2 = max(|x|^2 + |c|^2 - 2 x.c, 0) in fp32, the expanded form of the JAX
@@ -22,6 +23,15 @@ constexpr int kThreads = 256;
 __device__ __forceinline__ float load_f32(const void* p, int64_t i, int bf16) {
   return bf16 ? __bfloat162float(static_cast<const __nv_bfloat16*>(p)[i])
               : static_cast<const float*>(p)[i];
+}
+
+// Dynamic shared memory above the default 48 KB needs an opt-in per kernel.
+template <typename Kernel>
+inline cudaError_t allow_smem(Kernel kernel, size_t bytes) {
+  if (bytes <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(kernel,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              static_cast<int>(bytes));
 }
 
 // Floats per staged center.  DP > 0: the point is held in DP registers and

@@ -9,6 +9,7 @@ they are a check, not a yardstick of speed.
 Semantics shared with the kernels: fp32 throughout (bf16 inputs upcast),
 ``d2 = max(|x|^2 + |c|^2 - 2 x.c, 0)``, ties to the lowest center index,
 and rows with ``w = 0`` add nothing to ``sums``, ``counts`` or ``sse``.
+The ADC scan sums one table entry per subspace, in f32.
 """
 from __future__ import annotations
 
@@ -36,13 +37,15 @@ def assign_argmin_ref(x: torch.Tensor, c: torch.Tensor
 
 def centroid_update_ref(x: torch.Tensor, idx: torch.Tensor, w: torch.Tensor,
                         k: int) -> tuple[torch.Tensor, torch.Tensor]:
-    """Raw weighted per-cluster sums (B, k, d) and counts (B, k), f32."""
+    """Raw weighted per-cluster sums (B, k, d) and counts (B, k), f32.  A
+    row adds nothing when its weight is 0 or its id lies outside [0, k)
+    (as with the JAX package's one-hot)."""
     b, m, d = x.shape
     w = w.float()
-    live = w != 0
+    live = (w != 0) & (idx >= 0) & (idx < k)
     wx = torch.where(live[..., None], x.float() * w[..., None], 0.0)
-    flat = (idx.long() + k * torch.arange(b, device=x.device)[:, None]
-            ).reshape(-1)
+    flat = (torch.where(live, idx.long(), 0)
+            + k * torch.arange(b, device=x.device)[:, None]).reshape(-1)
     sums = torch.zeros(b * k, d, device=x.device).index_add_(
         0, flat, wx.reshape(-1, d))
     counts = torch.zeros(b * k, device=x.device).index_add_(
@@ -60,3 +63,11 @@ def lloyd_step_ref(x: torch.Tensor, w: torch.Tensor, c: torch.Tensor
     wf = w.float()
     sse = torch.where(wf != 0, dist * wf, 0.0).sum(-1)
     return sums, counts, sse, idx, dist
+
+
+def adc_scan_ref(luts: torch.Tensor, codes: torch.Tensor) -> torch.Tensor:
+    """ADC scan: (B, m, C) lookup tables and (B, L, m) integer codes ->
+    (B, L) f32 distances ``sum_j lut[b, j, codes[b, l, j]]``, by one gather
+    over the code axis and a sum over ``j``."""
+    idx = codes.long().transpose(1, 2)                    # (B, m, L)
+    return torch.gather(luts.float(), 2, idx).sum(1)      # (B, L)

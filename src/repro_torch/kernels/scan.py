@@ -1,0 +1,86 @@
+"""The ADC (asymmetric distance computation) scan — the IVF/PQ query hot
+loop (``csrc/adc_scan.cu``).
+
+A product-quantized database stores each vector as ``m`` small codes; a
+query meets a candidate through per-subspace lookup tables:
+``dist(q, x) = sum_j lut[j, code_j(x)]``.  :func:`adc_scan_cuda` replaces
+``repro/kernels/scan.py::adc_scan_pallas``: for CPU tensors it runs the
+plain version (:func:`repro_torch.kernels.ref.adc_scan_ref`), for CUDA
+tensors it launches the kernel or raises; ``launches`` counts kernel
+launches.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from . import build
+from .ref import adc_scan_ref
+from .tiles import check_scan_inputs, code_vector_bytes, tile_blocks
+
+launches = 0      # CUDA launches of this kernel since import (or reset)
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_L = ctypes.c_longlong
+_LIB = None
+
+
+def _lib() -> ctypes.CDLL:
+    global _LIB
+    if _LIB is None:
+        lib = build.load("adc_scan")
+        lib.repro_adc_scan.argtypes = [
+            _P, _L, _I, _P, _L,                     # luts, codes
+            _I, _I, _I, _I, _I, _I,                 # B L m C vec G
+            _P, _P]                                 # out stream
+        lib.repro_adc_scan.restype = _I
+        lib.repro_adc_scan_error_string.argtypes = [_I]
+        lib.repro_adc_scan_error_string.restype = ctypes.c_char_p
+        _LIB = lib
+    return _LIB
+
+
+def adc_scan_cuda(luts: torch.Tensor, codes: torch.Tensor) -> torch.Tensor:
+    """ADC scan of a batch: (B, m, C) f32/bf16 tables and (B, L, m) uint8
+    (or int32, cast to uint8) codes in ``[0, C)`` -> (B, L) f32 distances,
+    each the f32 sum of one table entry per subspace in increasing
+    subspace order.  The caller masks invalid candidate slots."""
+    if isinstance(codes, torch.Tensor) and codes.dtype == torch.int32:
+        codes = codes.to(torch.uint8)
+    b, l, m, c = check_scan_inputs("adc_scan", luts, codes)
+    if luts.device.type == "cpu":
+        return adc_scan_ref(luts, codes)
+    if luts.device.type != "cuda":
+        raise ValueError(f"adc_scan: unsupported device {luts.device}")
+    dev = luts.device
+    sm_count = torch.cuda.get_device_properties(dev).multi_processor_count
+    out = torch.empty((b, l), device=dev, dtype=torch.float32)
+    lib = _lib()
+    with torch.cuda.device(dev):
+        err = lib.repro_adc_scan(
+            luts.data_ptr(), luts.stride(0), luts.dtype == torch.bfloat16,
+            codes.data_ptr(), codes.stride(0), b, l, m, c,
+            code_vector_bytes(m, codes.data_ptr(), codes.stride(0)),
+            tile_blocks(b, l, sm_count), out.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream)
+    if err:
+        raise RuntimeError(
+            f"adc_scan: kernel launch failed with CUDA error {err} "
+            f"({lib.repro_adc_scan_error_string(err).decode()}) at "
+            f"(B, L, m, C) = {(b, l, m, c)}")
+    global launches
+    launches += 1
+    return out
+
+
+def check_codes(codes: torch.Tensor, c: int) -> None:
+    """Raise ``ValueError`` unless every code lies in ``[0, c)``.  A check
+    for tests and debugging: it reads every code and synchronises, so no
+    launch makes it."""
+    lo, hi = int(codes.min()), int(codes.max())
+    if lo < 0 or hi >= c:
+        raise ValueError(f"adc_scan: codes span [{lo}, {hi}], outside "
+                         f"[0, {c})")
+

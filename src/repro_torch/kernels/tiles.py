@@ -1,6 +1,6 @@
 """The GPU tile contract of the port's kernels — ONE place for the launch
-shapes that ``csrc/assign.cu`` and ``csrc/lloyd.cu`` are given, and for the
-checks their wrappers make before a launch.
+shapes that the kernels in ``csrc/`` are given, and for the checks their
+wrappers make before a launch.
 
   * One point per thread, ``THREADS`` points per tile: ragged M is masked
     in the kernel, so the points are never padded.
@@ -11,9 +11,14 @@ checks their wrappers make before a launch.
     the work of ``d=2``.
   * Centers are staged in shared memory ``center_tile(k, d)`` at a time;
     ragged K is never visited.
-  * The Lloyd kernel runs ``lloyd_blocks(...)`` blocks per batch entry and
-    keeps each block's (K, d+1) accumulator in shared memory when
-    ``acc_in_smem(k, d)``.
+  * The accumulating kernels (``lloyd.cu``, ``centroid.cu``) run
+    ``lloyd_blocks(...)`` blocks per batch entry (``tile_blocks`` capped by
+    their scratch) and keep each block's
+    (K, d+1) accumulator in shared memory when ``acc_in_smem(k, d)``.
+  * The ADC scan (``adc_scan.cu``) stages one (m, C) f32 lookup table per
+    block in shared memory (``scan_smem_bytes``, at most
+    ``MAX_SMEM_BYTES``), runs ``tile_blocks(...)`` blocks per batch entry,
+    and reads each candidate's codes ``code_vector_bytes(...)`` at a time.
 
 A shape outside the contract raises :class:`TileError` (a ``ValueError``)
 before anything is launched.
@@ -29,6 +34,8 @@ ACC_SMEM_BYTES = 96 * 1024        # largest accumulator kept in shared memory
 SCRATCH_BYTES = 256 * 2 ** 20     # bound on the Lloyd kernel's partials
 BLOCKS_PER_SM = 4                 # Lloyd blocks the grid aims at per SM
 MAX_BATCH = 65535                 # the grid's y extent
+MAX_SMEM_BYTES = 232448           # a block's opt-in shared memory on sm_90
+FLOATS = (torch.float32, torch.bfloat16)   # point, weight and table types
 
 
 class TileError(ValueError):
@@ -75,14 +82,71 @@ def acc_in_smem(k: int, d: int) -> bool:
     return 4 * k * (d + 1) <= ACC_SMEM_BYTES
 
 
+def tile_blocks(b: int, m: int, sm_count: int) -> int:
+    """Blocks per batch entry of a kernel whose blocks walk the entry's
+    ``THREADS``-row tiles g, g + G, ...: enough for about ``BLOCKS_PER_SM``
+    blocks on every SM, never more than the entry has tiles."""
+    return min(-(-m // THREADS), max(1, -(-BLOCKS_PER_SM * sm_count // b)))
+
+
 def lloyd_blocks(b: int, m: int, k: int, d: int, sm_count: int) -> int:
-    """Blocks per batch entry of the Lloyd kernel: enough for about
-    ``BLOCKS_PER_SM`` blocks on every SM, never more than the entry has
-    tiles, and few enough that the (B, G, K, d+1) partials stay within
+    """Blocks per batch entry of the accumulating kernels: ``tile_blocks``,
+    and few enough that the (B, G, K, d+1) partials stay within
     ``SCRATCH_BYTES``."""
-    n_tiles = -(-m // THREADS)
-    g = min(n_tiles, max(1, -(-BLOCKS_PER_SM * sm_count // b)))
-    return max(1, min(g, SCRATCH_BYTES // (4 * b * k * (d + 1))))
+    return max(1, min(tile_blocks(b, m, sm_count),
+                      SCRATCH_BYTES // (4 * b * k * (d + 1))))
+
+
+def scan_smem_bytes(m: int, c: int) -> int:
+    """Shared memory of one ADC-scan block: the (m, C) f32 lookup table."""
+    return 4 * m * c
+
+
+def code_vector_bytes(m: int, ptr: int, batch_stride: int) -> int:
+    """Bytes per code load of the ADC scan: 16 (``uint4``) or 4 when every
+    candidate row of ``m`` uint8 codes starts at such a multiple, else 1."""
+    for v in (16, 4):
+        if m % v == 0 and ptr % v == 0 and batch_stride % v == 0:
+            return v
+    return 1
+
+
+def _check_tensors(kernel: str, named, dtypes, device) -> None:
+    """Each ``(name, t)`` is a tensor of one of ``dtypes`` on ``device``."""
+    for name, t in named:
+        if not isinstance(t, torch.Tensor):
+            raise TypeError(f"{kernel}: {name} must be a torch.Tensor, got "
+                            f"{type(t).__name__}")
+        if t.dtype not in dtypes:
+            raise TypeError(f"{kernel}: {name} must be one of "
+                            f"{[str(d) for d in dtypes]}, got {t.dtype}")
+        if t.device != device:
+            raise ValueError(f"{kernel}: {name} is on {t.device}, the first "
+                             f"input on {device}")
+
+
+def _check_batch(kernel: str, b: int) -> None:
+    if b > MAX_BATCH:
+        raise TileError(f"{kernel}: batch {b} exceeds the grid's "
+                        f"{MAX_BATCH}", extent=b, block=MAX_BATCH)
+
+
+def _check_rows(kernel: str, name: str, t, n: int, width: int) -> None:
+    """Rows of ``width`` elements of a (B, n, width) tensor are contiguous
+    (the batch stride is free)."""
+    if (width > 1 and t.stride(2) != 1) or (n > 1 and t.stride(1) != width):
+        raise ValueError(f"{kernel}: {name} rows must be contiguous "
+                         f"(strides {t.stride()})")
+
+
+def _check_vector(kernel: str, name: str, t, shape: tuple) -> None:
+    """``t`` is (B, M) with contiguous rows."""
+    if tuple(t.shape) != shape:
+        raise ValueError(f"{kernel}: {name} must be {shape}, got "
+                         f"{tuple(t.shape)}")
+    if shape[1] > 1 and t.stride(1) != 1:
+        raise ValueError(f"{kernel}: {name} rows must be contiguous (strides "
+                         f"{t.stride()})")
 
 
 def check_inputs(kernel: str, x, c, w=None) -> tuple[int, int, int, int]:
@@ -91,18 +155,8 @@ def check_inputs(kernel: str, x, c, w=None) -> tuple[int, int, int, int]:
     stride is free, so ``expand`` may share one point set across restarts).
     Returns ``(B, M, K, d)``; raises ``TypeError`` / ``ValueError`` /
     :class:`TileError` on anything else."""
-    ok = (torch.float32, torch.bfloat16)
     named = [("x", x), ("c", c)] + ([("w", w)] if w is not None else [])
-    for name, t in named:
-        if not isinstance(t, torch.Tensor):
-            raise TypeError(f"{kernel}: {name} must be a torch.Tensor, got "
-                            f"{type(t).__name__}")
-        if t.dtype not in ok:
-            raise TypeError(f"{kernel}: {name} must be float32 or bfloat16, "
-                            f"got {t.dtype}")
-        if t.device != x.device:
-            raise ValueError(f"{kernel}: {name} is on {t.device}, x on "
-                             f"{x.device}")
+    _check_tensors(kernel, named, FLOATS, x.device)
     if x.dim() != 3 or c.dim() != 3:
         raise ValueError(f"{kernel}: x must be (B, M, d) and c (B, K, d), "
                          f"got {tuple(x.shape)} and {tuple(c.shape)}")
@@ -111,21 +165,63 @@ def check_inputs(kernel: str, x, c, w=None) -> tuple[int, int, int, int]:
     if c.shape[0] != b or c.shape[2] != d:
         raise ValueError(f"{kernel}: c {tuple(c.shape)} does not match x "
                          f"{tuple(x.shape)}")
-    if w is not None and tuple(w.shape) != (b, m):
-        raise ValueError(f"{kernel}: w must be {(b, m)}, got "
-                         f"{tuple(w.shape)}")
+    if w is not None:
+        _check_vector(kernel, "w", w, (b, m))
     if min(b, m, k, d) < 1:
         raise ValueError(f"{kernel}: empty input (B, M, K, d) = "
                          f"{(b, m, k, d)}")
-    if b > MAX_BATCH:
-        raise TileError(f"{kernel}: batch {b} exceeds the grid's "
-                        f"{MAX_BATCH}", extent=b, block=MAX_BATCH)
-    rows = [("x", x, m, d), ("c", c, k, d)]
-    for name, t, n, width in rows:
-        if (width > 1 and t.stride(2) != 1) or (n > 1 and t.stride(1) != width):
-            raise ValueError(f"{kernel}: {name} rows must be contiguous "
-                             f"(strides {t.stride()})")
-    if w is not None and m > 1 and w.stride(1) != 1:
-        raise ValueError(f"{kernel}: w rows must be contiguous (strides "
-                         f"{w.stride()})")
+    _check_batch(kernel, b)
+    _check_rows(kernel, "x", x, m, d)
+    _check_rows(kernel, "c", c, k, d)
     return b, m, k, d
+
+
+def check_update_inputs(kernel: str, x, idx, w, k: int
+                        ) -> tuple[int, int, int]:
+    """Validate a centroid-update call: ``x`` (B, M, d) f32/bf16 with
+    contiguous rows, ``idx`` (B, M) int32 and ``w`` (B, M) f32/bf16 with
+    contiguous rows, one device, ``k >= 1``.  Returns ``(B, M, d)``."""
+    _check_tensors(kernel, [("x", x), ("w", w)], FLOATS, x.device)
+    _check_tensors(kernel, [("idx", idx)], (torch.int32,), x.device)
+    if x.dim() != 3:
+        raise ValueError(f"{kernel}: x must be (B, M, d), got "
+                         f"{tuple(x.shape)}")
+    b, m, d = x.shape
+    _check_vector(kernel, "idx", idx, (b, m))
+    _check_vector(kernel, "w", w, (b, m))
+    if min(b, m, k, d) < 1:
+        raise ValueError(f"{kernel}: empty input (B, M, k, d) = "
+                         f"{(b, m, k, d)}")
+    _check_batch(kernel, b)
+    _check_rows(kernel, "x", x, m, d)
+    return b, m, d
+
+
+def check_scan_inputs(kernel: str, luts, codes) -> tuple[int, int, int, int]:
+    """Validate an ADC-scan call: ``luts`` (B, m, C) f32/bf16, each (m, C)
+    table contiguous, ``C <= 256``; ``codes`` (B, L, m) uint8 with
+    contiguous rows; one device; the table fits a block's shared memory.
+    Returns ``(B, L, m, C)``."""
+    _check_tensors(kernel, [("luts", luts)], FLOATS, luts.device)
+    _check_tensors(kernel, [("codes", codes)], (torch.uint8,), luts.device)
+    if luts.dim() != 3 or codes.dim() != 3:
+        raise ValueError(f"{kernel}: luts must be (B, m, C) and codes "
+                         f"(B, L, m), got {tuple(luts.shape)} and "
+                         f"{tuple(codes.shape)}")
+    b, m, c = luts.shape
+    l = codes.shape[1]
+    if codes.shape[0] != b or codes.shape[2] != m:
+        raise ValueError(f"{kernel}: codes {tuple(codes.shape)} do not "
+                         f"match luts {tuple(luts.shape)}")
+    if min(b, l, m, c) < 1 or c > 256:
+        raise ValueError(f"{kernel}: need B, L, m >= 1 and 1 <= C <= 256 "
+                         f"(uint8 codes), got (B, L, m, C) = {(b, l, m, c)}")
+    _check_batch(kernel, b)
+    if scan_smem_bytes(m, c) > MAX_SMEM_BYTES:
+        raise TileError(f"{kernel}: an (m, C) = {(m, c)} f32 table takes "
+                        f"{scan_smem_bytes(m, c)} bytes of shared memory, "
+                        f"above the block's {MAX_SMEM_BYTES}",
+                        extent=scan_smem_bytes(m, c), block=MAX_SMEM_BYTES)
+    _check_rows(kernel, "luts", luts, m, c)
+    _check_rows(kernel, "codes", codes, l, m)
+    return b, l, m, c

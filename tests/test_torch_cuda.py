@@ -100,3 +100,83 @@ def test_fit_runs_through_the_kernels(dev):
     assert torch.equal(est.centers_, again.centers_)
     full = standard_kmeans(pts, 6, iters=30, seed=0)
     assert relative_error(float(est.sse_), float(full.sse)) < 0.10
+
+
+@pytest.mark.parametrize("b,m,k,d", [(1, 64, 3, 4), (3, 257, 7, 16),
+                                     (2, 1000, 256, 1), (2, 500, 300, 64),
+                                     (1, 300, 40, 200), (2, 2000, 5000, 2)])
+def test_centroid_kernel_matches_plain(dev, b, m, k, d):
+    from repro_torch.kernels import centroid, ref
+    x, w, _ = _inputs(dev, b, m, k, d, seed=3)
+    g = torch.Generator(device=dev).manual_seed(4)
+    idx = torch.randint(0, k, (b, m), generator=g, device=dev,
+                        dtype=torch.int32)
+    idx[:, ::9] = -1                  # masked ids outside [0, k) add nothing
+    idx[:, 4::9] = k
+    before = centroid.launches
+    sums, counts = centroid.centroid_update(x, idx, w, k)
+    assert centroid.launches == before + 1
+    want = ref.centroid_update_ref(x, idx, w, k)
+    assert torch.equal(counts, want[1])          # integer weights: exact
+    torch.testing.assert_close(sums, want[0], rtol=1e-4, atol=1e-4)
+    again = centroid.centroid_update(x, idx, w, k)
+    assert torch.equal(again[0], sums) and torch.equal(again[1], counts)
+
+
+@pytest.mark.parametrize("b,l,m,c", [(1, 7, 1, 16), (3, 100, 8, 256),
+                                     (4, 513, 32, 16), (128, 1500, 64, 256),
+                                     (2, 300, 5, 256)])
+def test_adc_scan_kernel_matches_plain(dev, b, l, m, c):
+    from repro_torch.kernels import ref, scan
+    g = torch.Generator(device=dev).manual_seed(5)
+    luts = torch.rand((b, m, c), generator=g, device=dev)
+    codes = torch.randint(0, c, (b, l, m), generator=g, device=dev,
+                          dtype=torch.uint8)
+    want = ref.adc_scan_ref(luts, codes)
+    before = scan.launches
+    got = scan.adc_scan_cuda(luts, codes)
+    assert scan.launches == before + 1
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-6)
+    torch.testing.assert_close(scan.adc_scan_cuda(luts, codes.int()), want,
+                               rtol=1e-5, atol=1e-6)
+    lb = luts.bfloat16()
+    torch.testing.assert_close(scan.adc_scan_cuda(lb, codes),
+                               ref.adc_scan_ref(lb, codes), rtol=1e-5,
+                               atol=1e-6)
+    # rows that do not start on a 16-byte boundary take narrower loads
+    off = torch.empty(b * l * m + 1, dtype=torch.uint8, device=dev)[1:]
+    off.copy_(codes.reshape(-1))
+    torch.testing.assert_close(scan.adc_scan_cuda(luts, off.view(b, l, m)),
+                               want, rtol=1e-5, atol=1e-6)
+
+
+def test_cuda_backend_fit_and_index_run_through_the_kernels(dev):
+    import numpy as np
+    from repro_torch.api import SampledKMeans
+    from repro_torch.core import ClusterSpec
+    from repro_torch.data import blobs
+    from repro_torch.index import (IndexSpec, build_index, exact_search,
+                                   recall_at_k)
+    from repro_torch.kernels import assign, centroid, lloyd, scan
+    pts = blobs(3000, n_clusters=6, dim=2, seed=3)[0]
+    spec = ClusterSpec.make(6, n_sub=6, compression=5, backend="cuda")
+    l0, c0 = lloyd.launches, centroid.launches
+    est = SampledKMeans(spec).fit(pts, seed=0)
+    assert lloyd.launches == l0 and centroid.launches - c0 == 37
+    again = SampledKMeans(spec).fit(pts, seed=0)
+    assert torch.equal(est.centers_, again.centers_)
+    rng = np.random.default_rng(3)
+    centers = rng.uniform(0, 10, (16, 8)).astype(np.float32)
+    x = (centers[rng.integers(0, 16, 6000)]
+         + rng.normal(0, 0.35, (6000, 8))).astype(np.float32)
+    q = (centers[rng.integers(0, 16, 48)]
+         + rng.normal(0, 0.35, (48, 8))).astype(np.float32)
+    ispec = IndexSpec.make(nlist=16, n_subspaces=8, bits=8, nprobe=4,
+                           train_points=1500, n_sub=4, chunk_points=1024)
+    s0, a0, l0 = scan.launches, assign.launches, lloyd.launches
+    index, _ = build_index(x, ispec, 5)
+    _, ids = index.search(q, k=10)
+    assert scan.launches > s0 and assign.launches > a0
+    assert lloyd.launches > l0
+    _, true_ids = exact_search(x, q, k=10)
+    assert recall_at_k(ids, true_ids) >= 0.9
