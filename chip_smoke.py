@@ -9,7 +9,14 @@ after:
     same fit through the unfused ``cuda`` backend;
   * the IVF/PQ index (``build_index`` then ``search``) at
     ``benchmarks/specs/index_200k.json`` and ``index_5m.json``, with
-    recall@10 against the exact search.
+    recall@10 against the exact search;
+  * clustered-KV decode serving: ``ServeEngine`` over llama3-8b at full
+    width (random bf16 weights from a seed) with the ``long_500k`` cache
+    (8192 centroids + a 1024-token window per layer and kv head), two
+    512-token requests with a window refresh every 256 tokens; the
+    attention quality of ``compress_kv_cache`` + the cluster-attention
+    kernel on ``benchmarks/bench_cluster_attn.py``'s keys; and one request
+    through the launcher (``python -m repro_torch.launch.serve``).
 
     python3 chip_smoke.py          # needs one CUDA device (sm_90a) and nvcc
 
@@ -146,14 +153,29 @@ def _case(b, m, k, d, *, dtype=torch.float32, share_x=False, seed=0):
     return x.to(dtype), w.to(dtype), c.contiguous().to(dtype)
 
 
-def _check_assignment(name, x, c, idx, dist, ridx, rdist):
+def dot_rounding_bound(x, c) -> float:
+    """Worst-case f32 rounding error of the expanded-form distance
+    |x|^2 + |c|^2 - 2 x.c at width d: the three length-d sums each err by
+    at most about d eps times the sum of their terms' magnitudes (Higham's
+    bound), so (d + 2) eps (|x|^2 + |c|^2 + 2 |x| |c|) at the largest
+    norms.  At the paper's d = 2 the default bound of
+    :func:`_check_assignment` is tighter; at d = 128 this one applies."""
+    x2 = float((x.float() ** 2).sum(-1).amax())
+    c2 = float((c.float() ** 2).sum(-1).amax())
+    eps = torch.finfo(torch.float32).eps
+    return (x.shape[-1] + 2) * eps * (x2 + c2 + 2 * (x2 * c2) ** 0.5)
+
+
+def _check_assignment(name, x, c, idx, dist, ridx, rdist, cancel=None):
     """Distances at rtol 1e-4 (plus the expanded form's cancellation
-    error, a few ulps of |x|^2 + |c|^2); a label may differ from the plain
-    one only where the plain distances to the two candidates differ by
-    less than 1e-5 relative (a near-tie under reordered arithmetic)."""
+    error ``cancel``, by default a few ulps of |x|^2 + |c|^2); a label may
+    differ from the plain one only where the plain distances to the two
+    candidates differ by less than 1e-5 relative plus ``cancel`` (a
+    near-tie under reordered arithmetic)."""
     xf, cf = x.float(), c.float()
-    scale = float((xf * xf).sum(-1).amax() + (cf * cf).sum(-1).amax())
-    cancel = 4 * torch.finfo(torch.float32).eps * scale
+    if cancel is None:
+        scale = float((xf * xf).sum(-1).amax() + (cf * cf).sum(-1).amax())
+        cancel = 4 * torch.finfo(torch.float32).eps * scale
     derr = ((dist - rdist).abs() - 1e-4 * rdist.abs()).amax()
     check(float(derr) <= cancel, f"{name}: dist off by {float(derr)}")
     diff = (idx != ridx).nonzero(as_tuple=True)
@@ -170,11 +192,11 @@ def _check_assignment(name, x, c, idx, dist, ridx, rdist):
     return n_diff
 
 
-def lloyd_parity(name, x, w, c):
+def lloyd_parity(name, x, w, c, cancel=None):
     from repro_torch.kernels import lloyd, ref
     sums, counts, sse, idx, dist = lloyd.lloyd_step(x, w, c)
     rsums, rcounts, rsse, ridx, rdist = ref.lloyd_step_ref(x, w, c)
-    n_diff = _check_assignment(name, x, c, idx, dist, ridx, rdist)
+    n_diff = _check_assignment(name, x, c, idx, dist, ridx, rdist, cancel)
     # the statistics against the plain accumulation of the kernel's own
     # labels: counts exactly (integer weights), sums at rtol/atol 1e-4 of
     # their scale
@@ -212,14 +234,16 @@ def assign_parity(name, x, c):
 def centroid_parity(name, x, w, c):
     """The centroid kernel against its plain version on the ids the
     assignment kernel gives: counts exactly (integer weights), sums within
-    1e-3 absolute, a repeated launch bit-identical."""
+    1e-3 absolute, a repeated launch bit-identical.  The plain version runs
+    in f64: in f32 its CUDA ``index_add_`` adds in an order that changes
+    from run to run, and its own rounding took up half the tolerance."""
     from repro_torch.kernels import assign, centroid, ref
     k = c.shape[1]
     idx, _ = assign.assign_argmin(x, c)
     sums, counts = centroid.centroid_update(x, idx, w, k)
-    rsums, rcounts = ref.centroid_update_ref(x, idx, w, k)
-    check(torch.equal(counts, rcounts), f"{name}: counts differ")
-    err = float((sums - rsums).abs().amax())
+    rsums, rcounts = ref.centroid_update_ref(x.double(), idx, w.double(), k)
+    check(torch.equal(counts.double(), rcounts), f"{name}: counts differ")
+    err = float((sums.double() - rsums).abs().amax())
     check(err <= 1e-3, f"{name}: sums off by {err}")
     again = centroid.centroid_update(x, idx, w, k)
     check(torch.equal(again[0], sums) and torch.equal(again[1], counts),
@@ -246,16 +270,55 @@ def scan_parity(name, luts, codes):
                 max_abs_err=float(abs_err.amax()), max_rel_err=rel)
 
 
+def attn_parity(name, q, kc, vc, counts, scale):
+    """The cluster-attention kernel against its plain version: the state
+    ``(acc, m, l)`` and the normalised output within 3e-4 (absolute, or
+    relative to |acc| and l), a repeated launch bit-identical."""
+    from repro_torch.kernels import cluster_attn, ref
+    got = cluster_attn.cluster_attn_partial(q, kc, vc, counts, scale)
+    want = ref.cluster_attn_decode_ref(q, kc, vc, counts, scale)
+    errs = {}
+    for what, g_, w_ in zip(("acc", "m", "l"), got, want):
+        err = float(((g_ - w_).abs() - 3e-4 * w_.abs()).amax())
+        check(err <= 3e-4, f"{name}: {what} off by {err}")
+        errs[what] = float((g_ - w_).abs().amax())
+    out = got[0] / got[2].clamp_min(1e-30)[..., None]
+    rout = want[0] / want[2].clamp_min(1e-30)[..., None]
+    errs["out"] = float((out - rout).abs().amax())
+    check(errs["out"] <= 3e-4, f"{name}: output off by {errs['out']}")
+    again = cluster_attn.cluster_attn_partial(q, kc, vc, counts, scale)
+    check(all(torch.equal(a, b) for a, b in zip(got, again)),
+          f"{name}: a repeated launch is not bit-identical")
+    return dict(case=name, shape=list(q.shape) + list(kc.shape[1:3]),
+                dtype=str(kc.dtype), max_abs_err=errs["out"],
+                state_max_abs_err=errs)
+
+
+def attn_case(b, h, hkv, nc, dh, *, dtype=torch.float32, seed=0):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    q = torch.randn((b, h, dh), generator=g, device="cuda").to(dtype)
+    kc = torch.randn((b, hkv, nc, dh), generator=g, device="cuda").to(dtype)
+    vc = torch.randn((b, hkv, nc, dh), generator=g, device="cuda").to(dtype)
+    cnt = torch.randint(0, 50, (b, hkv, nc), generator=g,
+                        device="cuda").float()
+    return q, kc, vc, cnt
+
+
+def _kernel_modules() -> dict:
+    """Each kernel's wrapper module, by the kernel's name."""
+    from repro_torch.kernels import assign, centroid, cluster_attn, lloyd, scan
+    return {"lloyd_step": lloyd, "assign_argmin": assign,
+            "centroid_update": centroid, "adc_scan": scan,
+            "cluster_attn": cluster_attn}
+
+
 def reset_launches():
-    from repro_torch.kernels import assign, centroid, lloyd, scan
-    for mod in (assign, centroid, lloyd, scan):
+    for mod in _kernel_modules().values():
         mod.launches = 0
 
 
 def read_launches() -> dict:
-    from repro_torch.kernels import assign, centroid, lloyd, scan
-    return {"lloyd_step": lloyd.launches, "assign_argmin": assign.launches,
-            "centroid_update": centroid.launches, "adc_scan": scan.launches}
+    return {name: mod.launches for name, mod in _kernel_modules().items()}
 
 
 def index_workload(spec_file: Path):
@@ -345,6 +408,245 @@ def scan_bound_ms(luts, codes) -> tuple[float, str]:
                     * luts.element_size() + b * l * 4)
 
 
+# ---------------------------------------------------------------------------
+# clustered-KV decode serving (llama3-8b, long_500k)
+# ---------------------------------------------------------------------------
+
+SERVE_SEED = 0
+PROMPT_LEN = 512       # tokens per request (prefill by decode steps)
+GEN_TOKENS = 32
+RECOMPRESS_EVERY = 256
+
+# The JAX package's relative error of the same clustered attention against
+# exact attention (benchmarks/bench_cluster_attn.py, its jnp reference, run
+# on a CPU with ``PYTHONPATH=src python -m benchmarks.run --only
+# cluster_attn``); the port's kernel must stay within 1.25x + 0.01 of it.
+JAX_ATTN_REL_ERR = {8: 0.3724, 64: 0.4155}
+
+
+def attn_bound_ms(q, kc, vc, counts) -> tuple[float, str]:
+    """Bytes: q, kc, vc and counts read once, (acc, m, l) written once;
+    operations: per (query head, centroid) 2 dh for the logit, 2 dh for
+    the value sum and about 4 for the bias, max and exponential."""
+    b, h, dh = q.shape
+    nc = kc.shape[2]
+    in_bytes = (q.numel() * q.element_size() + kc.numel() * kc.element_size()
+                + vc.numel() * vc.element_size() + counts.numel() * 4)
+    out_bytes = b * h * (dh + 2) * 4
+    return bound_ms(b * h * nc * (4 * dh + 4), in_bytes + out_bytes)
+
+
+def layer0_query(model, token: torch.Tensor, pos: int) -> torch.Tensor:
+    """The (B, H, dh) query that layer 0 forms for ``token`` at ``pos``."""
+    from repro_torch.models.attention import _qkv
+    from repro_torch.models.layers import rms_norm, rope_tables
+    cfg, blk = model.cfg, model.blocks[0]
+    x = model.embed[token.long()]
+    xn = rms_norm(x, blk.ln1, cfg.norm_eps)
+    cos, sin = rope_tables(torch.tensor([pos], device=token.device), cfg.dh,
+                           cfg.rope_theta)
+    q, _, _ = _qkv(blk.attn, xn, blk.dims, cos, sin)
+    return q.reshape(q.shape[0], cfg.n_heads, cfg.dh)
+
+
+def decode_profile(model, shape, steps: int = 4) -> dict:
+    """Where a clustered decode step's time goes: the wall time per step
+    (``steps`` steps with no synchronisation between them, unprofiled),
+    the device's busy time per step (the kernels' device time summed by
+    ``torch.profiler`` over ``steps`` more steps; the profiler slows the
+    host, not the kernels), the idle share, and the kernels that take the
+    most device time (the kernel names are the library's or ours)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    caches = model.init_caches(1, shape, "clustered")
+    tok = torch.zeros((1, 1), dtype=torch.long, device="cuda")
+    for i in range(steps):                       # warm-up
+        model.decode_step(tok, caches, i, cache_kind="clustered")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(steps, 2 * steps):
+        model.decode_step(tok, caches, i, cache_kind="clustered")
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) / steps
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for i in range(2 * steps, 3 * steps):
+            model.decode_step(tok, caches, i, cache_kind="clustered")
+        torch.cuda.synchronize()
+    # the kernels' own rows: an operator's row repeats the device time of
+    # the kernels it launched
+    rows = [(r.key, r.count // steps, r.self_device_time_total / steps / 1e3)
+            for r in prof.key_averages() if r.device_type == DeviceType.CUDA]
+    busy = sum(ms for _, _, ms in rows)
+    top = sorted((r for r in rows if r[2] > 0), key=lambda r: -r[2])[:8]
+    return dict(steps=steps, wall_ms_per_step=wall * 1e3,
+                device_busy_ms_per_step=busy,
+                idle_share=max(0.0, 1.0 - busy / (wall * 1e3)),
+                top_kernels=[dict(name=k[:80], per_step=n, ms_per_step=ms)
+                             for k, n, ms in top])
+
+
+def serve_long_500k():
+    """Two identical requests through ``ServeEngine`` at full width with
+    the ``long_500k`` clustered cache: per request the prefill and decode
+    times, each refresh's time, live centroids and mass, the peak device
+    memory and the kernels' launches."""
+    from repro_torch.configs import SHAPES, get_config
+    from repro_torch.core.device import derive_seed
+    from repro_torch.models import build_model
+    from repro_torch.serve import ServeConfig, ServeEngine
+    from repro_torch.telemetry import RecordingLogger
+
+    cfg, shape = get_config("llama3-8b"), SHAPES["long_500k"]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    model = build_model(cfg).init_params(SERVE_SEED)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    check(model.embed.dtype == torch.bfloat16, "weights are not bf16")
+    log = RecordingLogger()
+    eng = ServeEngine(cfg, shape, model,
+                      ServeConfig(max_tokens=GEN_TOKENS,
+                                  recompress_every=RECOMPRESS_EVERY),
+                      logger=log)
+    check(eng.kind == "clustered", f"cache kind {eng.kind}")
+    refreshes, last = [], {}
+    maybe_recompress = eng._maybe_recompress
+
+    def recording(caches, pos):       # counts live centroids and mass
+        out = maybe_recompress(caches, pos)
+        if out is not caches:         # a refresh ran
+            cnt = out["blocks"]["counts"]
+            live = (cnt > 0).sum(-1)
+            lane_mass = cnt.sum(-1)
+            refreshes.append(dict(
+                pos=pos, live_min=int(live.min()), live_max=int(live.max()),
+                live_total=int(live.sum()), mass=float(lane_mass.sum()),
+                mass_per_lane_ok=bool((lane_mass == pos).all())))
+            last.update(out["blocks"])
+        return out
+
+    eng._maybe_recompress = recording
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(derive_seed(SERVE_SEED, 1))
+    prompt = torch.randint(0, cfg.vocab, (1, PROMPT_LEN), generator=gen,
+                           device="cuda")
+    steps = PROMPT_LEN + GEN_TOKENS
+    requests, answers = [], []
+    for _ in range(2):
+        log.events.clear()
+        refreshes.clear()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        t0 = time.perf_counter()
+        answers.append(eng.generate(prompt))
+        torch.cuda.synchronize()
+        total_s = time.perf_counter() - t0
+        launches = read_launches()
+        decode_s = sum(e["dur"] for e in log.named("decode_rate"))
+        requests.append(dict(
+            total_s=total_s, prefill_s=total_s - decode_s,
+            prefill_tokens_per_s=PROMPT_LEN / (total_s - decode_s),
+            decode_s=decode_s, decode_tokens_per_s=GEN_TOKENS / decode_s,
+            refresh_s=[e["dur"] for e in log.named("recompress")],
+            refreshes=list(refreshes),
+            peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9,
+            launches=launches))
+        check(launches["cluster_attn"] == cfg.n_layers * steps,
+              f"cluster_attn launched {launches['cluster_attn']} times, "
+              f"not {cfg.n_layers} layers x {steps} steps")
+        check(launches["lloyd_step"] > 0 and launches["centroid_update"] > 0,
+              f"the refresh skipped a kernel: {launches}")
+        n_refresh = steps // RECOMPRESS_EVERY
+        check(len(refreshes) == n_refresh
+              and all(r["mass_per_lane_ok"] for r in refreshes),
+              f"refresh mass differs from the tokens folded: {refreshes}")
+    check(np.array_equal(answers[0], answers[1]),
+          "two identical requests gave different answers")
+    check(answers[0].shape == (1, GEN_TOKENS)
+          and int(answers[0].min()) >= 0
+          and int(answers[0].max()) < cfg.padded_vocab, "bad tokens")
+    profile = decode_profile(model, shape)
+    # the served layer-0 cache after the last refresh, with a decode query
+    q = layer0_query(model, prompt[:, -1:], PROMPT_LEN)
+    parity = attn_parity("attn_served_layer0", q, last["kc"][0],
+                         last["vc"][0], last["counts"][0], cfg.dh ** -0.5)
+    emit("serve_long_500k", arch=cfg.name, shape=shape.name,
+         n_params=sum(p.numel() for p in model.parameters()),
+         n_centroids=shape.seq_len // shape.cluster_compression,
+         window=shape.cluster_window, prompt_len=PROMPT_LEN,
+         gen_tokens=GEN_TOKENS, recompress_every=RECOMPRESS_EVERY,
+         init_s=init_s, requests=requests, answer=answers[0][0].tolist(),
+         identical_answers=True, decode_profile=profile,
+         served_cache_parity=parity)
+    return requests, parity
+
+
+def attn_quality():
+    """benchmarks/bench_cluster_attn.py's setup through the port: drifting
+    keys (numpy, seed 0), ``compress_kv_cache`` at c = 8 and 64, then the
+    cluster-attention kernel; relative error against exact attention."""
+    from repro_torch.kernels import cluster_attn, ref
+    from repro_torch.models.attention import compress_kv_cache
+    rng = np.random.default_rng(0)
+    b, kv, s, dh, h = 1, 8, 8192, 128, 32
+    drift = np.cumsum(rng.normal(0, 0.05, (b, kv, s, dh)), axis=2)
+    k = (drift + 0.4 * rng.normal(size=(b, kv, s, dh))).astype(np.float32)
+    v = rng.normal(size=(b, kv, s, dh)).astype(np.float32)
+    q = rng.normal(size=(b, h, dh)).astype(np.float32)
+    k, v, q = (torch.from_numpy(a).cuda() for a in (k, v, q))
+    scale = dh ** -0.5
+    logits = torch.einsum("bkgd,bksd->bkgs", q.reshape(b, kv, h // kv, dh),
+                          k) * scale
+    exact = torch.einsum("bkgs,bksd->bkgd", torch.softmax(logits, -1),
+                         v).reshape(b, h, dh)
+    rows = []
+    for c in (8, 64):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        kc, vc, counts = compress_kv_cache(k, v, chunk=max(4 * c, 64),
+                                           compression=c, iters=8)
+        torch.cuda.synchronize()
+        compress_s = time.perf_counter() - t0
+        check(bool((counts.sum(-1) == s).all()),
+              f"c={c}: counts do not sum to {s}")
+        approx = cluster_attn.cluster_attn_decode(q, kc, vc, counts, scale)
+        err = float((approx - exact).norm() / exact.norm())
+        acc, _, l = ref.cluster_attn_decode_ref(q, kc, vc, counts, scale)
+        plain = (acc / l[..., None]).reshape(b, h, dh)
+        want = JAX_ATTN_REL_ERR[c]
+        check(err <= 1.25 * want + 0.01, f"c={c}: relative error {err}, the "
+              f"JAX package's {want}")
+        rows.append(dict(c=c, rel_err=err, jax_rel_err=want,
+                         compress_s=compress_s,
+                         kernel_vs_plain=float((approx - plain).abs().amax()),
+                         n_centroids=kc.shape[2]))
+    emit("attn_quality", rows=rows)
+    return rows
+
+
+def launcher_request():
+    """One request through the launcher's entry point (full cache, full
+    width): ``python -m repro_torch.launch.serve --arch llama3-8b
+    --prompt-len 64 --gen 16 --batch 2``, called in this process."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import main as serve_main
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    out = serve_main(["--arch", "llama3-8b", "--prompt-len", "64", "--gen",
+                      "16", "--batch", "2"])
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    vocab = get_config("llama3-8b").padded_vocab
+    check(out.shape == (2, 16) and int(out.min()) >= 0
+          and int(out.max()) < vocab, f"launcher gave {out}")
+    emit("launcher", argv="--arch llama3-8b --prompt-len 64 --gen 16 "
+         "--batch 2", seconds=seconds, launches=read_launches(),
+         tokens=out.tolist())
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -355,7 +657,8 @@ def main() -> int:
                                   feature_scale, relative_error,
                                   standard_kmeans)
     from repro_torch.data import blobs
-    from repro_torch.kernels import assign, build, centroid, lloyd, ref, scan
+    from repro_torch.kernels import (assign, build, centroid, cluster_attn,
+                                     lloyd, ref, scan)
     from repro_torch.telemetry import RecordingLogger
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -421,6 +724,44 @@ def main() -> int:
     cases += [scan_parity("scan_bits4", luts16, codes16),
               scan_parity("scan_bits4_int32_codes", luts16, codes16.int()),
               scan_parity("scan_bits4_bf16", luts16.bfloat16(), codes16)]
+    # the serving path: the refresh's Lloyd pass and value update on 4 of
+    # its 256 lanes (9216 pool points, K=8192, d=128; the plain version
+    # forms the (B, M, K) distances), and the cluster attention at
+    # long_500k, ragged Nc, half the slots dead (poisoned) and all dead
+    refresh = _case(4, 9216, 8192, 128, seed=19)
+    cases += [lloyd_parity("lloyd_refresh_4_lanes", *refresh,
+                           cancel=dot_rounding_bound(refresh[0],
+                                                     refresh[2])),
+              centroid_parity("centroid_refresh_4_lanes", *refresh)]
+    scale = 128 ** -0.5
+    serve_attn = attn_case(1, 32, 8, 8192, 128, dtype=torch.bfloat16,
+                           seed=15)
+    cases += [attn_parity("attn_long_500k_f32",
+                          *attn_case(1, 32, 8, 8192, 128, seed=15), scale),
+              attn_parity("attn_long_500k_bf16", *serve_attn, scale),
+              attn_parity("attn_ragged_f32",
+                          *attn_case(4, 32, 8, 1000, 128, seed=16), scale),
+              attn_parity("attn_ragged_bf16",
+                          *attn_case(4, 32, 8, 1000, 128, seed=16,
+                                     dtype=torch.bfloat16), scale)]
+    q, kc, vc, cnt = attn_case(1, 32, 8, 8192, 128, dtype=torch.bfloat16,
+                               seed=17)
+    cnt[..., 1::2] = 0.0
+    poisoned = vc.clone()
+    poisoned[..., 1::2, :] = 1e6
+    check(torch.equal(cluster_attn.cluster_attn_decode(q, kc, vc, cnt, scale),
+                      cluster_attn.cluster_attn_decode(q, kc, poisoned, cnt,
+                                                       scale)),
+          "poisoned dead centroids changed the output")
+    cases += [attn_parity("attn_half_dead_poisoned", q, kc, poisoned, cnt,
+                          scale)]
+    q, kc, vc, cnt = attn_case(2, 32, 8, 1024, 128, seed=18)
+    cnt[0] = 0.0
+    _, m_dead, l_dead = cluster_attn.cluster_attn_partial(q, kc, vc, cnt,
+                                                          scale)
+    check(bool((m_dead[0] == ref.NEG).all() and (l_dead[0] == 1024).all()),
+          "an all-dead row's state is not (NEG, Nc)")
+    cases += [attn_parity("attn_all_dead_row", q, kc, vc, cnt, scale)]
     torch.cuda.synchronize()
     emit("parity", cases=cases)
 
@@ -616,8 +957,20 @@ def main() -> int:
                                    ids_swapped_at_near_ties=n_swapped),
          scan_parity=cases[-1])
     torch.cuda.synchronize()
+    del index2, index5, sweep2, sweep5, kern_d, plain_d
 
-    # -- 10. kernel times at the paths' shapes ------------------------------
+    # -- 10. clustered-KV decode serving, llama3-8b at full width ------------
+    serve_requests, served_parity = serve_long_500k()
+    cases.append(served_parity)
+    serve_launches = serve_requests[-1]["launches"]
+    torch.cuda.empty_cache()
+
+    # -- 11. attention quality, and the launcher's full-cache request --------
+    attn_quality()
+    launcher_request()
+    torch.cuda.empty_cache()
+
+    # -- 12. kernel times at the paths' shapes ------------------------------
     # ms / plain_ms / library_ms: device time per call, with the inputs in
     # HBM (rotated copies); call_ms: the kernel's time per call with its
     # wrapper's host work.  ``library`` is (function, its inputs).
@@ -677,6 +1030,45 @@ def main() -> int:
     l_local = lloyd_entry("local", *local)
     l_merge = lloyd_entry("merge", *merge)
     l_pq = lloyd_entry("pq_200k", *pq200k)
+    l_refresh4 = lloyd_entry("refresh, 4 of 256 lanes", *refresh)
+    # all 256 lanes of a refresh: the plain version's (B, M, K) distances
+    # would take 77 GB, so only the kernel is timed there
+    xr, wr, cr = (t.repeat(64, *[1] * (t.dim() - 1)) for t in refresh)
+    l_refresh = dict(shape="refresh, 256 lanes", b=256, m=9216, k=8192,
+                     d=128, ms=device_ms(lambda: lloyd.lloyd_step(xr, wr, cr),
+                                         iters=2),
+                     plain_ms=None, library_ms=None)
+    l_refresh["bound_ms"], l_refresh["bound_by"] = pair_bound_ms(
+        256, 9216, 8192, 128, (xr.numel() + wr.numel() + cr.numel()) * 4,
+        256 * 9216 * 8 + 256 * 8192 * 129 * 4 + 256 * 4)
+    del xr, wr, cr
+    c_refresh = centroid_entry("refresh values, 4 lanes", *refresh)
+    aq, akc, avc, acnt = serve_attn
+    mask = torch.where(acnt > 0, acnt.clamp_min(1e-9).log(), ref.NEG)
+    mask = mask.repeat_interleave(4, 1)[:, :, None, :].to(torch.bfloat16)
+
+    def sdpa(q_, k_, v_, mask_):
+        return torch.nn.functional.scaled_dot_product_attention(
+            q_[:, :, None], k_, v_, attn_mask=mask_, scale=scale,
+            enable_gqa=True)
+
+    sdpa_err = float((sdpa(aq, akc, avc, mask)[:, :, 0].float()
+                      - cluster_attn.cluster_attn_decode(aq, akc, avc, acnt,
+                                                         scale)
+                      ).abs().amax())
+    check(sdpa_err <= 2e-2, f"the SDPA yardstick disagrees: {sdpa_err}")
+    attn_500k = timed(
+        "long_500k (bf16)", serve_attn,
+        lambda *t: cluster_attn.cluster_attn_partial(*t, scale),
+        lambda *t: ref.cluster_attn_decode_ref(*t, scale),
+        attn_bound_ms(*serve_attn), library=(sdpa, (aq, akc, avc, mask)),
+        b=1, h=32, hkv=8, nc=8192, dh=128, sdpa_max_abs_diff=sdpa_err)
+    ragged = attn_case(4, 32, 8, 1000, 128, seed=16, dtype=torch.bfloat16)
+    attn_ragged = timed(
+        "ragged (bf16)", ragged,
+        lambda *t: cluster_attn.cluster_attn_partial(*t, scale),
+        lambda *t: ref.cluster_attn_decode_ref(*t, scale),
+        attn_bound_ms(*ragged), b=4, h=32, hkv=8, nc=1000, dh=128)
     a_pred = timed("predict", (predict_x, predict_c), assign.assign_argmin,
                    ref.assign_argmin_ref,
                    pair_bound_ms(1, 500_000, 1000, 2,
@@ -691,9 +1083,13 @@ def main() -> int:
              launches=launches["lloyd_step"],
              max_abs_err=max(errs["lloyd_local"]["max_sum_err"],
                              errs["lloyd_merge"]["max_sum_err"]),
+             launches_by_path={"paper_500k": launches["lloyd_step"],
+                               "serve_long_500k":
+                                   serve_launches["lloyd_step"]},
              ms=l_local["ms"], plain_ms=l_local["plain_ms"],
              bound_ms=l_local["bound_ms"], bound_by=l_local["bound_by"],
-             library_ms=None, shapes=[l_local, l_merge, l_pq]),
+             library_ms=None,
+             shapes=[l_local, l_merge, l_pq, l_refresh4, l_refresh]),
         dict(name="assign_argmin", route="cuda",
              source="src/repro_torch/kernels/csrc/assign.cu",
              replaces="src/repro/kernels/assign.py:87",
@@ -710,8 +1106,12 @@ def main() -> int:
                              errs["centroid_merge"]["max_abs_err"]),
              ms=c_local["ms"], plain_ms=c_local["plain_ms"],
              bound_ms=c_local["bound_ms"], bound_by=c_local["bound_by"],
+             launches_by_path={"paper_500k_cuda":
+                                   cuda_launches["centroid_update"],
+                               "serve_long_500k":
+                                   serve_launches["centroid_update"]},
              library_ms=c_local["library_ms"],
-             shapes=[c_local, c_merge, c_pq]),
+             shapes=[c_local, c_merge, c_pq, c_refresh]),
         dict(name="adc_scan", route="cuda",
              source="src/repro_torch/kernels/csrc/adc_scan.cu",
              replaces="src/repro/kernels/scan.py:105",
@@ -720,6 +1120,17 @@ def main() -> int:
              ms=s_200k["ms"], plain_ms=s_200k["plain_ms"],
              bound_ms=s_200k["bound_ms"], bound_by=s_200k["bound_by"],
              library_ms=None, shapes=[s_200k, s_5m]),
+        dict(name="cluster_attn", route="cuda",
+             source="src/repro_torch/kernels/csrc/cluster_attn.cu",
+             replaces="src/repro/kernels/cluster_attn.py:85",
+             launches=serve_launches["cluster_attn"],
+             max_abs_err=max(errs[n]["max_abs_err"] for n in (
+                 "attn_long_500k_bf16", "attn_ragged_bf16",
+                 "attn_served_layer0")),
+             ms=attn_500k["ms"], plain_ms=attn_500k["plain_ms"],
+             bound_ms=attn_500k["bound_ms"], bound_by=attn_500k["bound_by"],
+             library_ms=attn_500k["library_ms"],
+             shapes=[attn_500k, attn_ragged]),
     ]
     emit("done", seconds=time.perf_counter() - t_all)
     print(smi)

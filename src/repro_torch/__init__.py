@@ -3,9 +3,12 @@
 A second package beside the JAX reference (:mod:`repro`), with the same
 module layout and public names, that imports ``torch`` and numpy and never
 JAX or the reference.  Entry points run on the CUDA device unless told
-otherwise (``device="cpu"`` runs the plain PyTorch versions).  The slice
-ported so far is the main path: ``SampledKMeans(spec).fit(x)`` in single
-mode, then ``predict``/``transform``/``score``, with hand-written Hopper
-kernels for the Lloyd step and the assignment (:mod:`repro_torch.kernels`).
+otherwise (``device="cpu"`` runs the plain PyTorch versions).  Ported so
+far: ``SampledKMeans(spec).fit(x)`` in single mode, then
+``predict``/``transform``/``score``; the IVF/PQ index
+(:mod:`repro_torch.index`); and clustered-KV decode serving of the dense
+decoder LMs (:mod:`repro_torch.models`, :mod:`repro_torch.stream`,
+:mod:`repro_torch.serve`), each on hand-written Hopper kernels
+(:mod:`repro_torch.kernels`).
 """
 __version__ = "0.1.0"

@@ -5,7 +5,8 @@ for the IVF/PQ index its quantizers and inverted lists.  The JAX package
 serialises a spec with ``to_dict()`` and its results are arrays; here those
 become the port's objects, so a fit made with the JAX package serves
 ``predict``/``transform``/``score`` from the port, and an index built with
-it serves ``search``.  Only plain Python and numpy cross over: nothing here
+it serves ``search``.  A language model's parameter tree becomes the state
+dict of the port's ``DecoderLM`` (:func:`lm_params_from_jax`).  Only plain Python and numpy cross over: nothing here
 imports the JAX package.
 """
 from __future__ import annotations
@@ -94,3 +95,37 @@ def index_from_jax(spec_dict: Mapping[str, Any], coarse_centers, codebooks,
             f"{tuple(index.codes.shape)}, ids {tuple(index.ids.shape)}, "
             f"counts {tuple(index.counts.shape)}")
     return index
+
+
+_BLOCK_KEYS = ("ln1", "ln2", "w1", "w3", "w2")
+_ATTN_KEYS = ("wq", "wk", "wv", "wo")
+
+
+def lm_params_from_jax(cfg, params: Mapping[str, Any]
+                       ) -> dict[str, torch.Tensor]:
+    """The state dict of the port's ``DecoderLM`` for ``cfg`` (a dense
+    architecture) from the JAX package's ``DecoderLM`` parameter tree given
+    as numpy arrays: ``embed`` (Vp, d), ``final_ln`` (d,), ``head`` (d, Vp)
+    unless the embeddings are tied, and ``g_blocks`` stacked over the
+    layers (``ln1``, ``attn`` {``wq``, ``wk``, ``wv``, ``wo``}, ``ln2``,
+    ``w1``, ``w3``, ``w2``).  CPU tensors in ``cfg.dtype``; load them with
+    ``model.load_state_dict(...)``."""
+    dtype = getattr(torch, cfg.dtype)
+
+    def t(a):
+        return torch.as_tensor(np.array(a, dtype=np.float32)).to(dtype)
+
+    state = {"embed": t(params["embed"]), "final_ln": t(params["final_ln"])}
+    if not cfg.tie_embeddings:
+        state["head"] = t(params["head"])
+    blocks = params["g_blocks"]
+    for name in _BLOCK_KEYS + _ATTN_KEYS:
+        stacked = (blocks["attn"] if name in _ATTN_KEYS else blocks)[name]
+        if len(stacked) != cfg.n_layers:
+            raise ValueError(f"lm_params_from_jax: g_blocks {name} stacks "
+                             f"{len(stacked)} layers, {cfg.name} has "
+                             f"{cfg.n_layers}")
+        key = f"attn.{name}" if name in _ATTN_KEYS else name
+        for i in range(cfg.n_layers):
+            state[f"blocks.{i}.{key}"] = t(stacked[i])
+    return state

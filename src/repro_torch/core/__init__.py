@@ -25,7 +25,7 @@ from .backend import (CudaBackend, CudaFusedBackend, LloydBackend,
 from .kmeans import (KMeansResult, available_inits, get_init, kmeans,
                      kmeans_batched, kmeans_parallel_init, kmeans_pp_init,
                      landmark_init, pairwise_sqdist, random_init,
-                     register_init)
+                     register_init, update_centers)
 from .metrics import (clustering_accuracy, map_row_blocks, min_sqdist,
                       relative_error, sse)
 from .pipeline import (SampledClusteringResult, chunk_fold, fit_from_spec,
@@ -44,6 +44,7 @@ __all__ = [
     "KMeansResult", "kmeans", "kmeans_batched", "kmeans_pp_init",
     "kmeans_parallel_init", "landmark_init", "random_init",
     "pairwise_sqdist", "register_init", "get_init", "available_inits",
+    "update_centers",
     "Partition", "equal_partition", "unequal_partition",
     "register_partitioner", "get_partitioner", "available_partitioners",
     "feature_scale", "unscale", "gather_partitions", "unequal_landmarks",

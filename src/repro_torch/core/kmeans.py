@@ -216,15 +216,31 @@ def available_inits() -> tuple[str, ...]:
 def _jittered_array_init(init: torch.Tensor, x: torch.Tensor,
                          gen: torch.Generator, r: torch.Tensor
                          ) -> torch.Tensor:
-    """Restart r of an explicit (k, d) array init, one per lane: r=0 keeps
-    the given centers verbatim; r>0 perturbs them with noise scaled to the
-    per-dimension (population) spread of the lane's *data*."""
+    """Restart r of an explicit array init, one (k, d) set per lane
+    (``init`` is (B, k, d)): r=0 keeps the given centers verbatim; r>0
+    perturbs them with noise scaled to the per-dimension (population)
+    spread of the lane's *data*."""
     sigma = (0.05 * x.std(dim=1, correction=0, keepdim=True).to(init.dtype)
              + 1e-6)                                         # (B, 1, d)
-    noise = torch.randn((x.shape[0],) + tuple(init.shape), generator=gen,
-                        device=x.device, dtype=init.dtype)
+    noise = torch.randn(tuple(init.shape), generator=gen, device=x.device,
+                        dtype=init.dtype)
     keep = (r == 0)[:, None, None]
     return torch.where(keep, init, init + sigma * noise)
+
+
+def update_centers(x: torch.Tensor, weights: torch.Tensor, idx: torch.Tensor,
+                   k: int, old_centers: torch.Tensor
+                   ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Weighted centroid update of a batch: (B, m, d) points, (B, m)
+    weights, (B, m) cluster ids in [0, k), (B, k, d) previous centers ->
+    (the weighted means (B, k, d), keeping the previous center of an empty
+    cluster; the weighted counts (B, k)).  The sums are the centroid
+    kernel's (``kernels/centroid.py``) for CUDA tensors, reduced in a fixed
+    order, so a repeated update is bit-identical."""
+    from repro_torch.kernels.centroid import centroid_update
+    sums, counts = centroid_update(x, idx.to(torch.int32), weights, k)
+    new = (sums / counts.clamp_min(1e-12)[..., None]).to(old_centers.dtype)
+    return torch.where((counts <= 0.0)[..., None], old_centers, new), counts
 
 
 # ---------------------------------------------------------------------------
@@ -292,8 +308,9 @@ def kmeans_batched(x: torch.Tensor, k: int, *, weights: torch.Tensor,
     partitions, or one pool — each with ``restarts`` runs; the lowest-SSE
     run of each set wins.  ``x`` (B, m, d) and ``weights`` (B, m) live on
     the device the work runs on.  Returns a :class:`KMeansResult` with the
-    leading batch axis.  ``init`` is a registered name or one (k, d) array
-    (restart 0 keeps it verbatim, later restarts jitter it)."""
+    leading batch axis.  ``init`` is a registered name, one (k, d) array
+    shared by the B sets, or a (B, k, d) array with one per set (restart 0
+    keeps it verbatim, later restarts jitter it)."""
     if stop.minibatch > 0:
         raise NotImplementedError(
             "repro_torch: mini-batch Lloyd (StopSpec.minibatch > 0) is not "
@@ -313,10 +330,17 @@ def kmeans_batched(x: torch.Tensor, k: int, *, weights: torch.Tensor,
     if isinstance(init, str):
         centers = get_init(init)(xr, wr, k, generator)
     else:
-        lane_r = torch.arange(b * r, device=x.device) % r
-        centers = _jittered_array_init(
-            torch.as_tensor(init, dtype=x.dtype, device=x.device), xr,
-            generator, lane_r)
+        centers = torch.as_tensor(init, dtype=x.dtype, device=x.device)
+        if centers.dim() == 2:          # one (k, d) set shared by the lanes
+            centers = centers.expand(b, k, d)
+        if tuple(centers.shape) != (b, k, d):
+            raise ValueError(f"kmeans: an array init must be (k, d) or "
+                             f"(B, k, d) = {(b, k, d)}, got "
+                             f"{tuple(centers.shape)}")
+        if r > 1:
+            lane_r = torch.arange(b * r, device=x.device) % r
+            centers = _jittered_array_init(
+                centers.repeat_interleave(r, 0), xr, generator, lane_r)
     prep = be.prepare(xr, wr)
 
     if stop.tol > 0:

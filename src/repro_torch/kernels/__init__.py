@@ -13,6 +13,10 @@
                                    centroid_update_pallas)
   scan.py / csrc/adc_scan.cu     — the IVF/PQ ADC scan (replaces
                                    repro/kernels/scan.py::adc_scan_pallas)
+  cluster_attn.py /              — decode attention over a clustered KV
+    csrc/cluster_attn.cu           cache (replaces repro/kernels/
+                                   cluster_attn.py::
+                                   cluster_attn_decode_pallas)
   csrc/distance.cuh              — loads, center staging, the distance scan
   csrc/accumulate.cuh            — the per-block statistics and their
                                    fixed-order reduction (Lloyd, centroid)
@@ -28,9 +32,10 @@ kernel or raise.
 """
 from .assign import assign_argmin
 from .centroid import centroid_update
+from .cluster_attn import cluster_attn_decode, cluster_attn_partial
 from .lloyd import lloyd_step
 from .scan import adc_scan_cuda
 from .tiles import TileError
 
 __all__ = ["assign_argmin", "centroid_update", "lloyd_step", "adc_scan_cuda",
-           "TileError"]
+           "cluster_attn_partial", "cluster_attn_decode", "TileError"]

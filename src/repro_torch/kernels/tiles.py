@@ -19,6 +19,10 @@ wrappers make before a launch.
     block in shared memory (``scan_smem_bytes``, at most
     ``MAX_SMEM_BYTES``), runs ``tile_blocks(...)`` blocks per batch entry,
     and reads each candidate's codes ``code_vector_bytes(...)`` at a time.
+  * The cluster attention (``cluster_attn.cu``) gives ``attn_lanes_per_row``
+    lanes to one centroid row (16 bytes each), serves up to
+    ``ATTN_MAX_GROUP`` query heads per kv head, and splits the centroid axis
+    into ``attn_splits(...)`` blocks per (batch, kv head).
 
 A shape outside the contract raises :class:`TileError` (a ``ValueError``)
 before anything is launched.
@@ -36,6 +40,8 @@ BLOCKS_PER_SM = 4                 # Lloyd blocks the grid aims at per SM
 MAX_BATCH = 65535                 # the grid's y extent
 MAX_SMEM_BYTES = 232448           # a block's opt-in shared memory on sm_90
 FLOATS = (torch.float32, torch.bfloat16)   # point, weight and table types
+ATTN_MAX_GROUP = 8                # query heads per kv head the kernel serves
+ATTN_MIN_ROWS = 64                # fewest centroids one attention split takes
 
 
 class TileError(ValueError):
@@ -109,6 +115,23 @@ def code_vector_bytes(m: int, ptr: int, batch_stride: int) -> int:
         if m % v == 0 and ptr % v == 0 and batch_stride % v == 0:
             return v
     return 1
+
+
+def attn_lanes_per_row(dh: int, dtype: torch.dtype) -> int:
+    """Lanes that share one centroid row of the cluster attention, each
+    loading 16 bytes of it: ``dh * element size / 16``."""
+    return dh * (torch.finfo(dtype).bits // 8) // 16
+
+
+def attn_splits(b: int, hkv: int, nc: int, sm_count: int) -> tuple[int, int]:
+    """``(S, chunk)``: the cluster attention splits each (batch, kv head)'s
+    ``nc`` centroids into S blocks of ``chunk``, enough for about
+    ``BLOCKS_PER_SM`` blocks on every SM, none with fewer than
+    ``ATTN_MIN_ROWS`` centroids (but at least one split)."""
+    s = max(1, min(-(-BLOCKS_PER_SM * sm_count // (b * hkv)),
+                   nc // ATTN_MIN_ROWS))
+    chunk = -(-nc // s)
+    return -(-nc // chunk), chunk
 
 
 def _check_tensors(kernel: str, named, dtypes, device) -> None:
@@ -225,3 +248,61 @@ def check_scan_inputs(kernel: str, luts, codes) -> tuple[int, int, int, int]:
     _check_rows(kernel, "luts", luts, m, c)
     _check_rows(kernel, "codes", codes, l, m)
     return b, l, m, c
+
+
+def check_attn_inputs(kernel: str, q, kc, vc, counts
+                      ) -> tuple[int, int, int, int, int]:
+    """Validate a cluster-attention call: ``q`` (B, H, dh) f32/bf16 with
+    contiguous head rows; ``kc`` and ``vc`` (B, Hkv, Nc, dh), both f32 or
+    both bf16, rows contiguous and every row 16-byte aligned; ``counts``
+    (B, Hkv, Nc) f32 with contiguous rows; one device; ``H % Hkv == 0``
+    with at most ``ATTN_MAX_GROUP`` query heads per kv head; a row of
+    ``dh`` values a power-of-two number (at most 32) of 16-byte pieces.
+    Returns ``(B, H, Hkv, Nc, dh)``."""
+    _check_tensors(kernel, [("q", q), ("kc", kc), ("vc", vc)], FLOATS,
+                   q.device)
+    _check_tensors(kernel, [("counts", counts)], (torch.float32,), q.device)
+    if q.dim() != 3 or kc.dim() != 4 or counts.dim() != 3:
+        raise ValueError(f"{kernel}: q must be (B, H, dh), kc and vc "
+                         f"(B, Hkv, Nc, dh), counts (B, Hkv, Nc); got "
+                         f"{tuple(q.shape)}, {tuple(kc.shape)}, "
+                         f"{tuple(counts.shape)}")
+    b, h, dh = q.shape
+    hkv, nc = kc.shape[1], kc.shape[2]
+    if (tuple(kc.shape) != (b, hkv, nc, dh) or vc.shape != kc.shape
+            or tuple(counts.shape) != (b, hkv, nc)):
+        raise ValueError(f"{kernel}: shapes do not match: q {tuple(q.shape)}, "
+                         f"kc {tuple(kc.shape)}, vc {tuple(vc.shape)}, "
+                         f"counts {tuple(counts.shape)}")
+    if vc.dtype != kc.dtype:
+        raise TypeError(f"{kernel}: kc is {kc.dtype} but vc {vc.dtype}")
+    if min(b, h, hkv, nc, dh) < 1 or h % hkv:
+        raise ValueError(f"{kernel}: need B, H, Hkv, Nc, dh >= 1 and "
+                         f"H % Hkv == 0, got (B, H, Hkv, Nc, dh) = "
+                         f"{(b, h, hkv, nc, dh)}")
+    if h // hkv > ATTN_MAX_GROUP:
+        raise TileError(f"{kernel}: {h // hkv} query heads per kv head, "
+                        f"above the kernel's {ATTN_MAX_GROUP}",
+                        extent=h // hkv, block=ATTN_MAX_GROUP)
+    lpr = attn_lanes_per_row(dh, kc.dtype)
+    if (dh * kc.element_size() % 16 or lpr & (lpr - 1) or lpr > 32):
+        raise TileError(f"{kernel}: a row of dh={dh} {kc.dtype} values must "
+                        f"be 1, 2, 4, ... or 32 pieces of 16 bytes",
+                        extent=dh, block=16 // kc.element_size())
+    _check_batch(kernel, b)
+    if q.stride(2) != 1:
+        raise ValueError(f"{kernel}: q rows must be contiguous (strides "
+                         f"{q.stride()})")
+    for name, t in (("kc", kc), ("vc", vc)):
+        if t.stride(3) != 1 or (nc > 1 and t.stride(2) != dh):
+            raise ValueError(f"{kernel}: {name} rows must be contiguous "
+                             f"(strides {t.stride()})")
+        es = t.element_size()
+        if t.data_ptr() % 16 or (t.stride(0) * es) % 16 or (
+                t.stride(1) * es) % 16:
+            raise ValueError(f"{kernel}: {name} rows must start on 16-byte "
+                             f"boundaries (strides {t.stride()})")
+    if nc > 1 and counts.stride(2) != 1:
+        raise ValueError(f"{kernel}: counts rows must be contiguous (strides "
+                         f"{counts.stride()})")
+    return b, h, hkv, nc, dh

@@ -1,0 +1,188 @@
+"""The port's cluster attention (plain version on the CPU) against the JAX
+package's Pallas kernel in interpret mode: the normalised output at the
+reference tests' shapes, the unnormalised ``(acc, m, l)`` its
+``pallas_call`` returns, dead and all-dead centroids, bf16 inputs, and the
+wrapper's input contract.  Tolerances: 3e-4 for f32 (the reference tests'),
+5e-2 for bf16."""
+import functools
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from jax.experimental import pallas as pl
+
+from repro.kernels.cluster_attn import (_cluster_attn_kernel,
+                                        cluster_attn_decode_pallas)
+from repro_torch.kernels import cluster_attn
+from repro_torch.kernels.ref import NEG, cluster_attn_decode_ref
+from repro_torch.kernels.tiles import TileError, attn_splits
+
+SHAPES = [(1, 4, 1, 64, 32, 32), (2, 8, 2, 300, 64, 128),
+          (1, 16, 8, 128, 128, 512)]
+
+
+def _pallas_state(q, kc, vc, counts, scale, block_n):
+    """The ``(acc, m, l)`` of ``cluster_attn_decode_pallas``'s own
+    ``pallas_call`` (the same grid and blocks, in interpret mode), before
+    it normalises.  ``Nc`` must be a multiple of ``block_n``."""
+    b, h, dh = q.shape
+    hkv, nc = kc.shape[1], kc.shape[2]
+    g = h // hkv
+    bn = min(block_n, nc)
+    assert nc % bn == 0
+    return pl.pallas_call(
+        functools.partial(_cluster_attn_kernel, scale=scale),
+        grid=(b, hkv, nc // bn),
+        in_specs=[
+            pl.BlockSpec((1, 1, g, dh), lambda b_, h_, j: (b_, h_, 0, 0)),
+            pl.BlockSpec((1, 1, bn, dh), lambda b_, h_, j: (b_, h_, j, 0)),
+            pl.BlockSpec((1, 1, bn, dh), lambda b_, h_, j: (b_, h_, j, 0)),
+            pl.BlockSpec((1, 1, bn), lambda b_, h_, j: (b_, h_, j)),
+        ],
+        out_specs=[
+            pl.BlockSpec((1, 1, g, dh), lambda b_, h_, j: (b_, h_, 0, 0)),
+            pl.BlockSpec((1, 1, g), lambda b_, h_, j: (b_, h_, 0)),
+            pl.BlockSpec((1, 1, g), lambda b_, h_, j: (b_, h_, 0)),
+        ],
+        out_shape=[jax.ShapeDtypeStruct((b, hkv, g, dh), jnp.float32),
+                   jax.ShapeDtypeStruct((b, hkv, g), jnp.float32),
+                   jax.ShapeDtypeStruct((b, hkv, g), jnp.float32)],
+        interpret=True,
+    )(q.reshape(b, hkv, g, dh), kc, vc, counts)
+
+
+def _inputs(seed, b, h, hkv, nc, dh):
+    rng = np.random.default_rng(seed)
+    q = rng.normal(size=(b, h, dh)).astype(np.float32)
+    kc = rng.normal(size=(b, hkv, nc, dh)).astype(np.float32)
+    vc = rng.normal(size=(b, hkv, nc, dh)).astype(np.float32)
+    cnt = rng.integers(0, 50, (b, hkv, nc)).astype(np.float32)
+    return q, kc, vc, cnt
+
+
+def _t(*arrays):
+    return [torch.from_numpy(a) for a in arrays]
+
+
+@pytest.mark.parametrize("b,h,hkv,nc,dh,bn", SHAPES)
+def test_decode_matches_pallas(b, h, hkv, nc, dh, bn):
+    q, kc, vc, cnt = _inputs(0, b, h, hkv, nc, dh)
+    want = cluster_attn_decode_pallas(*map(jnp.asarray, (q, kc, vc, cnt)),
+                                      dh ** -0.5, block_n=bn, interpret=True)
+    got = cluster_attn.cluster_attn_decode(*_t(q, kc, vc, cnt), dh ** -0.5)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=3e-4,
+                               atol=3e-4)
+
+
+@pytest.mark.parametrize("b,h,hkv,nc,dh,bn", [SHAPES[0], SHAPES[2],
+                                              (2, 8, 2, 384, 64, 128)])
+def test_partial_state_matches_pallas(b, h, hkv, nc, dh, bn):
+    q, kc, vc, cnt = _inputs(1, b, h, hkv, nc, dh)
+    want = _pallas_state(*map(jnp.asarray, (q, kc, vc, cnt)), dh ** -0.5, bn)
+    got = cluster_attn.cluster_attn_partial(*_t(q, kc, vc, cnt), dh ** -0.5)
+    for g_, w_ in zip(got, want):
+        assert g_.dtype == torch.float32
+        np.testing.assert_allclose(g_.numpy(), np.asarray(w_), rtol=3e-4,
+                                   atol=3e-4)
+
+
+def test_dead_centroids_ignored():
+    """Poisoning the values of dead centroids changes nothing (a dead
+    slot's weight is exactly 0), as in the reference's test."""
+    q, kc, vc, _ = _inputs(2, 1, 2, 1, 32, 16)
+    cnt = np.ones((1, 1, 32), np.float32)
+    cnt[..., 16:] = 0.0
+    out1 = cluster_attn.cluster_attn_decode(*_t(q, kc, vc, cnt), 0.25)
+    vc2 = vc.copy()
+    vc2[..., 16:, :] = 1e6
+    out2 = cluster_attn.cluster_attn_decode(*_t(q, kc, vc2, cnt), 0.25)
+    assert torch.equal(out1, out2)
+    want = cluster_attn_decode_pallas(*map(jnp.asarray, (q, kc, vc2, cnt)),
+                                      0.25, block_n=16, interpret=True)
+    np.testing.assert_allclose(out2.numpy(), np.asarray(want), rtol=3e-4,
+                               atol=3e-4)
+
+
+def test_all_dead_rows_match_pallas_state():
+    """A row whose centroids are all dead: m is the sentinel, l the slot
+    count, acc the sum of the values — the Pallas kernel's state where
+    ``Nc % block_n == 0`` (it pads to a whole tile otherwise)."""
+    q, kc, vc, cnt = _inputs(3, 2, 8, 2, 128, 32)
+    cnt[0, 1] = 0.0
+    want = _pallas_state(*map(jnp.asarray, (q, kc, vc, cnt)), 32 ** -0.5, 64)
+    acc, m, l = cluster_attn.cluster_attn_partial(*_t(q, kc, vc, cnt),
+                                                  32 ** -0.5)
+    assert torch.all(m[0, 1] == NEG)
+    assert torch.all(l[0, 1] == 128.0)
+    for g_, w_ in zip((acc, m, l), want):
+        np.testing.assert_allclose(g_.numpy(), np.asarray(w_), rtol=3e-4,
+                                   atol=3e-4)
+
+
+@pytest.mark.parametrize("b,h,hkv,nc,dh,bn", SHAPES)
+def test_bf16_inputs(b, h, hkv, nc, dh, bn):
+    q, kc, vc, cnt = _inputs(4, b, h, hkv, nc, dh)
+    jq, jk, jv = (jnp.asarray(a, jnp.bfloat16) for a in (q, kc, vc))
+    want = cluster_attn_decode_pallas(jq, jk, jv, jnp.asarray(cnt),
+                                      dh ** -0.5, block_n=bn, interpret=True)
+    tq, tk, tv = (torch.from_numpy(a).bfloat16() for a in (q, kc, vc))
+    got = cluster_attn.cluster_attn_decode(tq, tk, tv, torch.from_numpy(cnt),
+                                           dh ** -0.5)
+    assert got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=5e-2,
+                               atol=5e-2)
+
+
+def test_plain_version_counts_no_launch():
+    before = cluster_attn.launches
+    q, kc, vc, cnt = _inputs(5, 1, 4, 2, 20, 16)
+    acc, m, l = cluster_attn.cluster_attn_partial(*_t(q, kc, vc, cnt), 0.25)
+    assert cluster_attn.launches == before
+    ref = cluster_attn_decode_ref(*_t(q, kc, vc, cnt), 0.25)
+    assert all(torch.equal(a, b) for a, b in zip((acc, m, l), ref))
+
+
+def test_input_contract():
+    q, kc, vc, cnt = _t(*_inputs(6, 1, 4, 2, 20, 16))
+    with pytest.raises(ValueError, match="H % Hkv"):
+        cluster_attn.cluster_attn_partial(q[:, :3], kc, vc, cnt, 0.25)
+    with pytest.raises(TypeError, match="counts"):
+        cluster_attn.cluster_attn_partial(q, kc, vc, cnt.double(), 0.25)
+    with pytest.raises(TypeError, match="vc"):
+        cluster_attn.cluster_attn_partial(q, kc, vc.bfloat16(), cnt, 0.25)
+    with pytest.raises(ValueError, match="match"):
+        cluster_attn.cluster_attn_partial(q, kc, vc[:, :, :10], cnt, 0.25)
+    with pytest.raises(ValueError, match="contiguous"):
+        cluster_attn.cluster_attn_partial(
+            q, kc.transpose(2, 3).contiguous().transpose(2, 3), vc, cnt, 0.25)
+    with pytest.raises(ValueError, match="on meta"):
+        cluster_attn.cluster_attn_partial(q, kc, vc.to("meta"), cnt, 0.25)
+    # shapes outside the kernel's launch contract raise before any launch
+    with pytest.raises(TileError) as e:                  # 9 heads per kv
+        cluster_attn.cluster_attn_partial(
+            *_t(*_inputs(7, 1, 9, 1, 20, 16)), 0.25)
+    assert e.value.block == 8
+    with pytest.raises(TileError):                       # 12 * 4 bytes
+        cluster_attn.cluster_attn_partial(
+            *_t(*_inputs(8, 1, 4, 2, 20, 12)), 0.25)
+    with pytest.raises(TileError):                       # 64 pieces
+        cluster_attn.cluster_attn_partial(
+            *_t(*_inputs(9, 1, 2, 1, 8, 256)), 0.25)
+
+
+def test_meta_device_is_refused():
+    q, kc, vc, cnt = (t.to("meta") for t in _t(*_inputs(10, 1, 4, 2, 20,
+                                                        16)))
+    with pytest.raises(ValueError, match="unsupported device"):
+        cluster_attn.cluster_attn_partial(q, kc, vc, cnt, 0.25)
+
+
+@pytest.mark.parametrize("b,hkv,nc,want", [
+    (1, 8, 8192, (66, 125)), (4, 8, 1000, (15, 67)), (1, 4, 10, (1, 10)),
+    (2, 2, 300, (4, 75))])
+def test_attn_splits(b, hkv, nc, want):
+    s, chunk = attn_splits(b, hkv, nc, 132)
+    assert (s, chunk) == want
+    assert (s - 1) * chunk < nc <= s * chunk

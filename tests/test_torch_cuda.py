@@ -180,3 +180,50 @@ def test_cuda_backend_fit_and_index_run_through_the_kernels(dev):
     assert lloyd.launches > l0
     _, true_ids = exact_search(x, q, k=10)
     assert recall_at_k(ids, true_ids) >= 0.9
+
+
+def _attn_inputs(dev, b, h, hkv, nc, dh, dtype=torch.float32, seed=6):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    q = torch.randn((b, h, dh), generator=g, device=dev).to(dtype)
+    kc = torch.randn((b, hkv, nc, dh), generator=g, device=dev).to(dtype)
+    vc = torch.randn((b, hkv, nc, dh), generator=g, device=dev).to(dtype)
+    cnt = torch.randint(0, 50, (b, hkv, nc), generator=g,
+                        device=dev).float()
+    return q, kc, vc, cnt
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,h,hkv,nc,dh", [(4, 32, 8, 1000, 128),
+                                           (1, 4, 1, 64, 32),
+                                           (2, 8, 2, 300, 64),
+                                           (3, 48, 8, 777, 128)])
+def test_cluster_attn_kernel_matches_plain(dev, b, h, hkv, nc, dh, dtype):
+    """Ragged Nc included; a repeated launch is bit-identical."""
+    from repro_torch.kernels import cluster_attn, ref
+    q, kc, vc, cnt = _attn_inputs(dev, b, h, hkv, nc, dh, dtype)
+    before = cluster_attn.launches
+    got = cluster_attn.cluster_attn_partial(q, kc, vc, cnt, dh ** -0.5)
+    assert cluster_attn.launches == before + 1
+    want = ref.cluster_attn_decode_ref(q, kc, vc, cnt, dh ** -0.5)
+    for g_, w_ in zip(got, want):
+        torch.testing.assert_close(g_, w_, rtol=3e-4, atol=3e-4)
+    again = cluster_attn.cluster_attn_partial(q, kc, vc, cnt, dh ** -0.5)
+    assert all(torch.equal(a, b_) for a, b_ in zip(got, again))
+
+
+def test_cluster_attn_dead_and_all_dead_rows(dev):
+    """Poisoned dead values change nothing; an all-dead row gives the
+    sentinel max, l = Nc and the sum of its values."""
+    from repro_torch.kernels import cluster_attn, ref
+    q, kc, vc, cnt = _attn_inputs(dev, 2, 8, 2, 1024, 128, torch.bfloat16)
+    cnt[..., ::2] = 0.0
+    out1 = cluster_attn.cluster_attn_decode(q, kc, vc, cnt, 0.1)
+    vc2 = vc.clone()
+    vc2[..., ::2, :] = 1e6
+    assert torch.equal(cluster_attn.cluster_attn_decode(q, kc, vc2, cnt, 0.1),
+                       out1)
+    cnt[0] = 0.0
+    acc, m, l = cluster_attn.cluster_attn_partial(q, kc, vc, cnt, 0.1)
+    assert torch.all(m[0] == ref.NEG) and torch.all(l[0] == 1024.0)
+    torch.testing.assert_close(acc[0], vc[0].float().sum(1)[:, None]
+                               .expand_as(acc[0]), rtol=1e-4, atol=1e-3)

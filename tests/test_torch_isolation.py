@@ -16,6 +16,10 @@ import repro_torch.configs, repro_torch.data, repro_torch.telemetry
 import repro_torch.data.source, repro_torch.index, repro_torch.index.ivf
 import repro_torch.index.pq, repro_torch.index.spec
 import repro_torch.kernels.scan, repro_torch.kernels.centroid
+import repro_torch.kernels.cluster_attn, repro_torch.models
+import repro_torch.models.lm, repro_torch.models.attention
+import repro_torch.stream, repro_torch.stream.kv, repro_torch.serve
+import repro_torch.serve.engine, repro_torch.launch.serve
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith(("jax.", "jaxlib"))
              or m == "repro" or m.startswith("repro."))
@@ -44,7 +48,13 @@ def test_no_source_file_imports_jax_or_the_reference():
     assert {"repro_torch/data/source.py", "repro_torch/index/ivf.py",
             "repro_torch/index/pq.py", "repro_torch/index/spec.py",
             "repro_torch/kernels/scan.py",
-            "repro_torch/kernels/centroid.py"} <= names
+            "repro_torch/kernels/centroid.py",
+            "repro_torch/kernels/cluster_attn.py",
+            "repro_torch/models/attention.py", "repro_torch/models/lm.py",
+            "repro_torch/models/layers.py", "repro_torch/models/registry.py",
+            "repro_torch/stream/kv.py", "repro_torch/serve/engine.py",
+            "repro_torch/launch/serve.py",
+            "repro_torch/configs/llama3_8b.py"} <= names
     offenders = [str(f.relative_to(ROOT)) for f in files
                  if _FORBIDDEN.search(f.read_text())]
     assert offenders == []

@@ -165,6 +165,12 @@ def test_centroid_update_ref_matches_one_hot():
     torch.testing.assert_close(counts, onehot.sum(1))
     ridx, rdist = assign_argmin_ref(torch.from_numpy(x), torch.from_numpy(c))
     assert ridx.shape == (2, 40) and rdist.min() >= 0
+    # f64 inputs keep f64 (the exact reference the on-card check uses)
+    s64, c64 = centroid_update_ref(torch.from_numpy(x).double(), idx,
+                                   torch.from_numpy(w).double(), 5)
+    assert s64.dtype == c64.dtype == torch.float64
+    torch.testing.assert_close(
+        s64, onehot.double().transpose(1, 2) @ torch.from_numpy(x).double())
 
 
 def test_tile_contract():
