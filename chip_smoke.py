@@ -232,24 +232,67 @@ def assign_parity(name, x, c):
 
 
 def centroid_parity(name, x, w, c):
-    """The centroid kernel against its plain version on the ids the
-    assignment kernel gives: counts exactly (integer weights), sums within
-    1e-3 absolute, a repeated launch bit-identical.  The plain version runs
-    in f64: in f32 its CUDA ``index_add_`` adds in an order that changes
-    from run to run, and its own rounding took up half the tolerance."""
-    from repro_torch.kernels import assign, centroid, ref
-    k = c.shape[1]
+    """The centroid kernel on the ids the assignment kernel gives (see
+    :func:`centroid_ids_parity`)."""
+    from repro_torch.kernels import assign
     idx, _ = assign.assign_argmin(x, c)
+    return centroid_ids_parity(name, x, idx, w, c.shape[1])
+
+
+def centroid_ids_parity(name, x, idx, w, k, *, rel=0.0):
+    """The centroid kernel against its plain version on the given ids:
+    counts exactly (integer weights), sums within 1e-3 absolute plus
+    ``rel`` times the largest |sum|, a repeated launch bit-identical.  The
+    plain version runs in f64: in f32 its CUDA ``index_add_`` adds in an
+    order that changes from run to run, and its own rounding took up half
+    the tolerance.  ``rel`` is for clusters of many points, whose f32 sum
+    errs by up to (n - 1) u times the sum of its terms (Higham's bound;
+    u = 2^-24)."""
+    from repro_torch.kernels import centroid, ref
     sums, counts = centroid.centroid_update(x, idx, w, k)
     rsums, rcounts = ref.centroid_update_ref(x.double(), idx, w.double(), k)
     check(torch.equal(counts.double(), rcounts), f"{name}: counts differ")
     err = float((sums.double() - rsums).abs().amax())
-    check(err <= 1e-3, f"{name}: sums off by {err}")
+    tol = 1e-3 + rel * float(rsums.abs().amax())
+    check(err <= tol, f"{name}: sums off by {err} (tolerance {tol})")
     again = centroid.centroid_update(x, idx, w, k)
     check(torch.equal(again[0], sums) and torch.equal(again[1], counts),
           f"{name}: a repeated launch is not bit-identical")
     return dict(case=name, shape=list(x.shape) + [k], dtype=str(x.dtype),
-                max_abs_err=err)
+                max_abs_err=err, tolerance=tol)
+
+
+def centroid_worst_cases() -> list:
+    """The centroid update's hardest inputs for its sort and warp paths:
+    every point in one cluster, K > M with most clusters empty, ids outside
+    [0, K) and zero weights, d = 128 above the shared-memory accumulator
+    (the sort path) and d = 2 within it (the warp path)."""
+    g = torch.Generator("cuda").manual_seed(20)
+    u = 2.0 ** -24
+    cases = []
+    for name, (b, m, k, d) in (("sort", (2, 3000, 4096, 128)),
+                               ("warps", (3, 5000, 64, 2))):
+        x = torch.rand((b, m, d), generator=g, device="cuda")
+        ones = torch.ones((b, m), device="cuda")
+        one = torch.full((b, m), k // 3, device="cuda", dtype=torch.int32)
+        cases.append(centroid_ids_parity(f"centroid_{name}_one_cluster", x,
+                                         one, ones, k, rel=(m - 1) * u))
+        # sort: K = 8192 > M, 70% of the clusters empty; warps: ids to 2K,
+        # half of them past K
+        kw = 8192 if name == "sort" else k
+        wide = torch.randint(0, 2 * kw if name == "warps" else kw, (b, m),
+                             generator=g, device="cuda", dtype=torch.int32)
+        cases.append(centroid_ids_parity(f"centroid_{name}_sparse", x, wide,
+                                         ones, kw))
+        masked = torch.randint(-5, k + 5, (b, m), generator=g, device="cuda",
+                               dtype=torch.int32)
+        w01 = (torch.rand((b, m), generator=g, device="cuda") < 0.7).float()
+        cases.append(centroid_ids_parity(f"centroid_{name}_masked", x,
+                                         masked, w01, k))
+        cases.append(centroid_ids_parity(f"centroid_{name}_masked_bf16",
+                                         x.bfloat16(), masked, w01.bfloat16(),
+                                         k))
+    return cases
 
 
 def scan_parity(name, luts, codes):
@@ -292,6 +335,26 @@ def attn_parity(name, q, kc, vc, counts, scale):
     return dict(case=name, shape=list(q.shape) + list(kc.shape[1:3]),
                 dtype=str(kc.dtype), max_abs_err=errs["out"],
                 state_max_abs_err=errs)
+
+
+def attn_kernels_per_call(inputs, scale) -> list:
+    """The device kernels one warm ``cluster_attn_partial`` call launches
+    (``torch.profiler``), by name: the splits and their merge are one
+    kernel."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.kernels import cluster_attn
+    cluster_attn.cluster_attn_partial(*inputs, scale)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        cluster_attn.cluster_attn_partial(*inputs, scale)
+        torch.cuda.synchronize()
+    names = []
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            names.append("cluster_attn_kernel" if "cluster_attn_kernel"
+                         in e.name else e.name)
+    return names
 
 
 def attn_case(b, h, hkv, nc, dh, *, dtype=torch.float32, seed=0):
@@ -733,6 +796,14 @@ def main() -> int:
                            cancel=dot_rounding_bound(refresh[0],
                                                      refresh[2])),
               centroid_parity("centroid_refresh_4_lanes", *refresh)]
+    # the served refresh's value update: all 256 lanes (the 4 lanes above,
+    # 64 times over)
+    refresh_ids, _ = assign.assign_argmin(refresh[0], refresh[2])
+    refresh256 = tuple(t.repeat(64, *[1] * (t.dim() - 1))
+                       for t in (refresh[0], refresh_ids, refresh[1]))
+    cases += [centroid_ids_parity("centroid_refresh_256_lanes", *refresh256,
+                                  8192)]
+    cases += centroid_worst_cases()
     scale = 128 ** -0.5
     serve_attn = attn_case(1, 32, 8, 8192, 128, dtype=torch.bfloat16,
                            seed=15)
@@ -755,6 +826,9 @@ def main() -> int:
           "poisoned dead centroids changed the output")
     cases += [attn_parity("attn_half_dead_poisoned", q, kc, poisoned, cnt,
                           scale)]
+    attn_kernels = attn_kernels_per_call(serve_attn, scale)
+    check(attn_kernels == ["cluster_attn_kernel"],
+          f"cluster_attn_partial launched {attn_kernels}, not one kernel")
     q, kc, vc, cnt = attn_case(2, 32, 8, 1024, 128, seed=18)
     cnt[0] = 0.0
     _, m_dead, l_dead = cluster_attn.cluster_attn_partial(q, kc, vc, cnt,
@@ -998,9 +1072,11 @@ def main() -> int:
     # the cuda backend's centroid pass on the assignment kernel's ids;
     # bytes: x, ids and w read once, sums and counts written once
     def centroid_entry(shape_name, xw, wl, cl):
-        bb, mm, dd = xw.shape
-        kk = cl.shape[1]
         ids, _ = assign.assign_argmin(xw, cl)
+        return centroid_ids_entry(shape_name, xw, ids, wl, cl.shape[1])
+
+    def centroid_ids_entry(shape_name, xw, ids, wl, kk):
+        bb, mm, dd = xw.shape
         flat = (ids.long() + kk * torch.arange(bb, device="cuda")[:, None]
                 ).reshape(-1)
         wx = (xw.float() * wl.float()[..., None]).reshape(-1, dd)
@@ -1043,6 +1119,9 @@ def main() -> int:
         256 * 9216 * 8 + 256 * 8192 * 129 * 4 + 256 * 4)
     del xr, wr, cr
     c_refresh = centroid_entry("refresh values, 4 lanes", *refresh)
+    c_refresh256 = centroid_ids_entry("refresh values, 256 lanes",
+                                      *refresh256, 8192)
+    del refresh256
     aq, akc, avc, acnt = serve_attn
     mask = torch.where(acnt > 0, acnt.clamp_min(1e-9).log(), ref.NEG)
     mask = mask.repeat_interleave(4, 1)[:, :, None, :].to(torch.bfloat16)
@@ -1111,7 +1190,7 @@ def main() -> int:
                                "serve_long_500k":
                                    serve_launches["centroid_update"]},
              library_ms=c_local["library_ms"],
-             shapes=[c_local, c_merge, c_pq, c_refresh]),
+             shapes=[c_local, c_merge, c_pq, c_refresh, c_refresh256]),
         dict(name="adc_scan", route="cuda",
              source="src/repro_torch/kernels/csrc/adc_scan.cu",
              replaces="src/repro/kernels/scan.py:105",

@@ -18,8 +18,8 @@
                                    cluster_attn.py::
                                    cluster_attn_decode_pallas)
   csrc/distance.cuh              — loads, center staging, the distance scan
-  csrc/accumulate.cuh            — the per-block statistics and their
-                                   fixed-order reduction (Lloyd, centroid)
+  csrc/accumulate.cuh            — the Lloyd kernel's per-block statistics
+                                   and their fixed-order reduction
   ref.py                         — the plain PyTorch versions (CPU path,
                                    tests, on-card parity)
   tiles.py                       — the launch contract (TileError, tiles)

@@ -12,6 +12,9 @@ shared memory, spills per kernel) is kept beside the library as ``.log``.
 The build directory is ``build/kernels`` at the root of the source tree.
 
 A failed build raises with the compiler's output.  Nothing falls back.
+
+:func:`counters` hands the kernels that finish a reduction in their last
+block (``centroid.cu``, ``cluster_attn.cu``) their integer arrival counters.
 """
 from __future__ import annotations
 
@@ -22,6 +25,8 @@ import shutil
 import subprocess
 from pathlib import Path
 
+import torch
+
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 SOURCES = ("lloyd", "assign", "centroid", "adc_scan", "cluster_attn")
@@ -29,6 +34,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _LIBS: dict[str, ctypes.CDLL] = {}
+_COUNTERS: dict[tuple, torch.Tensor] = {}
 
 
 def nvcc() -> str:
@@ -97,3 +103,16 @@ def load(name: str) -> ctypes.CDLL:
     if lib is None:
         lib = _LIBS[name] = ctypes.CDLL(str(build([name])[name]))
     return lib
+
+
+def counters(device: torch.device, n: int) -> torch.Tensor:
+    """``n`` int32 arrival counters on ``device`` for the current stream,
+    zero when handed out.  A kernel's last block resets the counters it
+    used, so they are zero again for the next launch on that stream; one
+    buffer per (device, stream), grown when a launch needs more."""
+    key = (device, torch.cuda.current_stream(device).cuda_stream)
+    buf = _COUNTERS.get(key)
+    if buf is None or buf.numel() < n:
+        buf = _COUNTERS[key] = torch.zeros(max(n, 1024), dtype=torch.int32,
+                                           device=device)
+    return buf

@@ -19,7 +19,8 @@ import torch
 
 from . import build
 from .ref import cluster_attn_decode_ref
-from .tiles import attn_lanes_per_row, attn_splits, check_attn_inputs
+from .tiles import (attn_lanes_per_row, attn_splits, attn_stage_rows,
+                    check_attn_inputs)
 
 launches = 0      # CUDA launches of this kernel since import (or reset)
 
@@ -38,8 +39,9 @@ def _lib() -> ctypes.CDLL:
             _P, _L, _L, _P, _L, _L, _I,             # kc, vc
             _P, _L, _L,                             # counts
             _I, _I, _I, _I, _I, _I, _I, _I,         # B Hkv G Nc dh lpr S chunk
-            ctypes.c_float,                         # scale
-            _P, _P, _P, _P, _P, _P,                 # partials, outputs
+            _I, ctypes.c_float,                     # stage_rows, scale
+            _P, _P, _P, _P,                         # partials, counters
+            _P, _P, _P,                             # outputs
             _P]                                     # stream
         lib.repro_cluster_attn.restype = _I
         lib.repro_cluster_attn_error_string.argtypes = [_I]
@@ -81,8 +83,10 @@ def cluster_attn_partial(q: torch.Tensor, kc: torch.Tensor, vc: torch.Tensor,
             vc.data_ptr(), vc.stride(0), vc.stride(1), kc.dtype == bf16,
             counts.data_ptr(), counts.stride(0), counts.stride(1),
             b, hkv, g, nc, dh, attn_lanes_per_row(dh, kc.dtype), s, chunk,
-            float(scale), part_acc.data_ptr(), part_m.data_ptr(),
-            part_l.data_ptr(), acc.data_ptr(), m.data_ptr(), l.data_ptr(),
+            attn_stage_rows(dh, kc.dtype), float(scale),
+            part_acc.data_ptr(), part_m.data_ptr(), part_l.data_ptr(),
+            build.counters(dev, b * hkv).data_ptr(),
+            acc.data_ptr(), m.data_ptr(), l.data_ptr(),
             torch.cuda.current_stream(dev).cuda_stream)
     if err:
         raise RuntimeError(

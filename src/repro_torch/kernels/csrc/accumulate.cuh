@@ -1,5 +1,5 @@
-// Device code shared by the Lloyd and centroid-update kernels: per-block
-// weighted per-cluster statistics without float atomics, and the fixed-order
+// Device code of the Lloyd kernel's statistics: per-block weighted
+// per-cluster statistics without float atomics, and the fixed-order
 // reduction of the blocks' partials.
 //
 // The TPU kernels carry their (K, d) accumulators across a sequential grid.
@@ -93,7 +93,7 @@ __device__ __forceinline__ void store_partials(const float* sums,
 }
 
 // Sum the G per-block partials of every output element, g = 0, 1, ... in
-// order.  part_sse / sse may be null (no SSE partials).
+// order (statistics and SSE).
 __global__ void reduce_partials_kernel(const float* __restrict__ part_sums,
                                        const float* __restrict__ part_counts,
                                        const float* __restrict__ part_sse,
@@ -104,7 +104,7 @@ __global__ void reduce_partials_kernel(const float* __restrict__ part_sums,
   const int64_t kd = static_cast<int64_t>(K) * d;
   const int64_t n_sums = B * kd;
   const int64_t n_counts = static_cast<int64_t>(B) * K;
-  const int64_t total = n_sums + n_counts + (part_sse ? B : 0);
+  const int64_t total = n_sums + n_counts + B;
   for (int64_t i = blockIdx.x * static_cast<int64_t>(blockDim.x) + threadIdx.x;
        i < total; i += static_cast<int64_t>(gridDim.x) * blockDim.x) {
     float acc = 0.f;
@@ -128,8 +128,7 @@ inline int launch_reduce(const float* part_sums, const float* part_counts,
                          const float* part_sse, int B, int G, int K, int d,
                          float* sums, float* counts, float* sse,
                          cudaStream_t stream) {
-  const int64_t total =
-      static_cast<int64_t>(B) * K * (d + 1) + (part_sse ? B : 0);
+  const int64_t total = static_cast<int64_t>(B) * K * (d + 1) + B;
   const int blocks = static_cast<int>(
       total / kThreads + 1 < 4096 ? total / kThreads + 1 : 4096);
   reduce_partials_kernel<<<blocks, kThreads, 0, stream>>>(

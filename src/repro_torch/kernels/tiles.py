@@ -11,18 +11,26 @@ wrappers make before a launch.
     the work of ``d=2``.
   * Centers are staged in shared memory ``center_tile(k, d)`` at a time;
     ragged K is never visited.
-  * The accumulating kernels (``lloyd.cu``, ``centroid.cu``) run
-    ``lloyd_blocks(...)`` blocks per batch entry (``tile_blocks`` capped by
-    their scratch) and keep each block's
-    (K, d+1) accumulator in shared memory when ``acc_in_smem(k, d)``.
+  * The Lloyd kernel (``lloyd.cu``) runs ``lloyd_blocks(...)`` blocks per
+    batch entry (``tile_blocks`` capped by its scratch) and keeps each
+    block's (K, d+1) accumulator in shared memory when
+    ``acc_in_smem(k, d)``.
+  * The centroid update (``centroid.cu``) keeps ``centroid_warps(k, d)``
+    warp-private (K, d+1) accumulators per block in shared memory and runs
+    ``centroid_blocks(...)`` blocks per lane when ``acc_in_smem(k, d)``;
+    else (``centroid_sorts(k, d)``) it sorts each lane's points by cluster:
+    one block per lane holds K + 1 cursors in shared memory
+    (``check_sort_clusters``), then groups of ``segment_lanes(d)`` lanes
+    sum ``segment_clusters(d)`` clusters per block.
   * The ADC scan (``adc_scan.cu``) stages one (m, C) f32 lookup table per
     block in shared memory (``scan_smem_bytes``, at most
     ``MAX_SMEM_BYTES``), runs ``tile_blocks(...)`` blocks per batch entry,
     and reads each candidate's codes ``code_vector_bytes(...)`` at a time.
   * The cluster attention (``cluster_attn.cu``) gives ``attn_lanes_per_row``
     lanes to one centroid row (16 bytes each), serves up to
-    ``ATTN_MAX_GROUP`` query heads per kv head, and splits the centroid axis
-    into ``attn_splits(...)`` blocks per (batch, kv head).
+    ``ATTN_MAX_GROUP`` query heads per kv head, splits the centroid axis
+    into ``attn_splits(...)`` blocks per (batch, kv head), and streams each
+    split through shared memory ``attn_stage_rows(...)`` rows at a time.
 
 A shape outside the contract raises :class:`TileError` (a ``ValueError``)
 before anything is launched.
@@ -36,12 +44,19 @@ REGISTER_DIMS = (2, 4, 8, 16, 32, 64, 128)
 CENTER_SMEM_BYTES = 48 * 1024     # shared memory for one staged center tile
 ACC_SMEM_BYTES = 96 * 1024        # largest accumulator kept in shared memory
 SCRATCH_BYTES = 256 * 2 ** 20     # bound on the Lloyd kernel's partials
+CENTROID_MAX_WARPS = 8            # accumulators per block of the warp path
+CENTROID_SMEM_BYTES = 100 * 1024  # their shared memory per block
+CENTROID_MERGE_BYTES = 384 * 1024  # partials one last block merges
+CENTROID_SM_THREADS = 1024        # warp-path threads per SM (registers)
 BLOCKS_PER_SM = 4                 # Lloyd blocks the grid aims at per SM
 MAX_BATCH = 65535                 # the grid's y extent
 MAX_SMEM_BYTES = 232448           # a block's opt-in shared memory on sm_90
 FLOATS = (torch.float32, torch.bfloat16)   # point, weight and table types
 ATTN_MAX_GROUP = 8                # query heads per kv head the kernel serves
 ATTN_MIN_ROWS = 64                # fewest centroids one attention split takes
+ATTN_MAX_ROWS = 8192              # most centroids (biases in smem) per split
+ATTN_BLOCKS_PER_SM = 2            # attention blocks resident per SM
+ATTN_STAGE_BYTES = 16 * 1024      # key + value rows per ring stage
 
 
 class TileError(ValueError):
@@ -88,6 +103,55 @@ def acc_in_smem(k: int, d: int) -> bool:
     return 4 * k * (d + 1) <= ACC_SMEM_BYTES
 
 
+def centroid_sorts(k: int, d: int) -> bool:
+    """Whether the centroid update takes its counting-sort path (a lane's
+    (K, d+1) accumulator does not fit shared memory), else its
+    warp-accumulator path."""
+    return not acc_in_smem(k, d)
+
+
+def centroid_warps(k: int, d: int) -> int:
+    """Warps per block of the centroid update's warp path, each with its
+    own (K, d+1) accumulator: as many as ``CENTROID_SMEM_BYTES`` of shared
+    memory hold, 1 to ``CENTROID_MAX_WARPS``."""
+    return max(1, min(CENTROID_MAX_WARPS,
+                      CENTROID_SMEM_BYTES // (4 * k * (d + 1))))
+
+
+def centroid_blocks(b: int, m: int, k: int, d: int, sm_count: int) -> int:
+    """Blocks per lane of the centroid update's warp path: as many as fit
+    the card at once (by shared memory and registers), no more than the lane
+    has tiles for, and few enough that the last block's merge reads at most
+    ``CENTROID_MERGE_BYTES`` of partials."""
+    warps = centroid_warps(k, d)
+    acc = 4 * k * (d + 1)
+    per_sm = max(1, min(CENTROID_SM_THREADS // (32 * warps),
+                        MAX_SMEM_BYTES // (warps * acc)))
+    return max(1, min(-(-m // (32 * warps)), per_sm * sm_count // b,
+                      CENTROID_MERGE_BYTES // acc))
+
+
+def check_sort_clusters(kernel: str, k: int) -> None:
+    """The sort path keeps K + 1 cursors of one lane in a block's shared
+    memory, beside 32 warp sums."""
+    if 4 * (k + 33) > MAX_SMEM_BYTES:
+        raise TileError(f"{kernel}: k={k} cluster cursors do not fit the "
+                        f"block's {MAX_SMEM_BYTES} bytes of shared memory",
+                        extent=k, block=MAX_SMEM_BYTES // 4 - 33)
+
+
+def segment_lanes(d: int) -> int:
+    """Lanes that sum one cluster's rows in the sort path: the smallest
+    power of two >= ``d``, at most 32 (a warp)."""
+    return min(32, 1 << max(0, d - 1).bit_length())
+
+
+def segment_clusters(d: int) -> int:
+    """Clusters per block of the sort path's segmented sum: eight per group
+    of ``segment_lanes(d)`` lanes."""
+    return 8 * (THREADS // segment_lanes(d))
+
+
 def tile_blocks(b: int, m: int, sm_count: int) -> int:
     """Blocks per batch entry of a kernel whose blocks walk the entry's
     ``THREADS``-row tiles g, g + G, ...: enough for about ``BLOCKS_PER_SM``
@@ -96,8 +160,8 @@ def tile_blocks(b: int, m: int, sm_count: int) -> int:
 
 
 def lloyd_blocks(b: int, m: int, k: int, d: int, sm_count: int) -> int:
-    """Blocks per batch entry of the accumulating kernels: ``tile_blocks``,
-    and few enough that the (B, G, K, d+1) partials stay within
+    """Blocks per batch entry of the Lloyd kernel: ``tile_blocks``, and few
+    enough that the (B, G, K, d+1) partials stay within
     ``SCRATCH_BYTES``."""
     return max(1, min(tile_blocks(b, m, sm_count),
                       SCRATCH_BYTES // (4 * b * k * (d + 1))))
@@ -125,13 +189,21 @@ def attn_lanes_per_row(dh: int, dtype: torch.dtype) -> int:
 
 def attn_splits(b: int, hkv: int, nc: int, sm_count: int) -> tuple[int, int]:
     """``(S, chunk)``: the cluster attention splits each (batch, kv head)'s
-    ``nc`` centroids into S blocks of ``chunk``, enough for about
-    ``BLOCKS_PER_SM`` blocks on every SM, none with fewer than
-    ``ATTN_MIN_ROWS`` centroids (but at least one split)."""
-    s = max(1, min(-(-BLOCKS_PER_SM * sm_count // (b * hkv)),
-                   nc // ATTN_MIN_ROWS))
+    ``nc`` centroids into S blocks of ``chunk``: at most
+    ``ATTN_BLOCKS_PER_SM`` blocks on every SM (one wave), none with fewer
+    than ``ATTN_MIN_ROWS`` or more than ``ATTN_MAX_ROWS`` centroids (but at
+    least one split)."""
+    s = max(1, min(ATTN_BLOCKS_PER_SM * sm_count // (b * hkv),
+                   nc // ATTN_MIN_ROWS), -(-nc // ATTN_MAX_ROWS))
     chunk = -(-nc // s)
     return -(-nc // chunk), chunk
+
+
+def attn_stage_rows(dh: int, dtype: torch.dtype) -> int:
+    """Centroid rows per shared-memory stage of the cluster attention: the
+    key and value rows of a stage fill ``ATTN_STAGE_BYTES``."""
+    row = dh * (torch.finfo(dtype).bits // 8)
+    return max(1, ATTN_STAGE_BYTES // (2 * row))
 
 
 def _check_tensors(kernel: str, named, dtypes, device) -> None:

@@ -132,10 +132,20 @@ class DecoderLM(nn.Module):
         return {"blocks": cache}
 
     def head_out(self, x: torch.Tensor) -> torch.Tensor:
-        """Final norm and the vocabulary projection, f32 logits."""
+        """Final norm and the vocabulary projection, f32 logits computed
+        from the activations and the head in their own type, with no
+        rounding of the product to that type (the reference's
+        ``dot_general(..., preferred_element_type=f32)``).  On CUDA the
+        product reads the head once and writes f32; on the CPU it is the
+        f32 product."""
         xn = rms_norm(x, self.final_ln, self.cfg.norm_eps)
         w = self.embed.T if self.cfg.tie_embeddings else self.head
-        return (xn @ w).float()
+        x2 = xn.reshape(-1, xn.shape[-1])
+        if x2.device.type == "cuda" and x2.dtype != torch.float32:
+            logits = torch.mm(x2, w, out_dtype=torch.float32)
+        else:
+            logits = x2.float() @ w.float()
+        return logits.reshape(*xn.shape[:-1], w.shape[-1])
 
     @torch.no_grad()
     def decode_step(self, tokens: torch.Tensor, caches: dict, pos: int, *,

@@ -15,7 +15,7 @@ from jax.experimental import pallas as pl
 
 from repro.kernels.cluster_attn import (_cluster_attn_kernel,
                                         cluster_attn_decode_pallas)
-from repro_torch.kernels import cluster_attn
+from repro_torch.kernels import cluster_attn, tiles
 from repro_torch.kernels.ref import NEG, cluster_attn_decode_ref
 from repro_torch.kernels.tiles import TileError, attn_splits
 
@@ -180,9 +180,22 @@ def test_meta_device_is_refused():
 
 
 @pytest.mark.parametrize("b,hkv,nc,want", [
-    (1, 8, 8192, (66, 125)), (4, 8, 1000, (15, 67)), (1, 4, 10, (1, 10)),
-    (2, 2, 300, (4, 75))])
+    (1, 8, 8192, (33, 249)), (4, 8, 1000, (8, 125)), (1, 4, 10, (1, 10)),
+    (2, 2, 300, (4, 75)), (1, 1, 10 ** 6, (264, 3788)),
+    (1, 1, 10 ** 7, (1221, 8191))])
 def test_attn_splits(b, hkv, nc, want):
+    """One wave of at most two blocks per SM, 64 to 8192 centroids each."""
     s, chunk = attn_splits(b, hkv, nc, 132)
     assert (s, chunk) == want
     assert (s - 1) * chunk < nc <= s * chunk
+    assert chunk <= tiles.ATTN_MAX_ROWS
+
+
+@pytest.mark.parametrize("dh,dtype,want", [
+    (128, torch.bfloat16, 32), (128, torch.float32, 16),
+    (16, torch.float32, 128), (64, torch.bfloat16, 64)])
+def test_attn_stage_rows(dh, dtype, want):
+    """A ring stage holds 16 KB of key and value rows."""
+    assert tiles.attn_stage_rows(dh, dtype) == want
+    assert 2 * want * dh * torch.finfo(dtype).bits // 8 \
+        <= tiles.ATTN_STAGE_BYTES

@@ -102,15 +102,30 @@ def test_fit_runs_through_the_kernels(dev):
     assert relative_error(float(est.sse_), float(full.sse)) < 0.10
 
 
-@pytest.mark.parametrize("b,m,k,d", [(1, 64, 3, 4), (3, 257, 7, 16),
-                                     (2, 1000, 256, 1), (2, 500, 300, 64),
-                                     (1, 300, 40, 200), (2, 2000, 5000, 2)])
-def test_centroid_kernel_matches_plain(dev, b, m, k, d):
+@pytest.mark.parametrize("b,m,k,d,ids", [
+    (1, 64, 3, 4, "uniform"), (3, 257, 7, 16, "uniform"),
+    (2, 1000, 256, 1, "uniform"), (2, 500, 300, 64, "uniform"),
+    (1, 300, 40, 200, "uniform"), (2, 2000, 5000, 2, "uniform"),
+    # the sort path (the accumulator does not fit shared memory)
+    (2, 3000, 4096, 128, "uniform"), (2, 3000, 4096, 128, "skewed"),
+    (2, 3000, 4096, 128, "one"), (2, 300, 8192, 128, "uniform"),
+    (3, 700, 2000, 64, "skewed"),
+    # the warp path with skewed ids
+    (4, 5000, 1000, 2, "skewed"), (3, 2000, 64, 2, "one")])
+def test_centroid_kernel_matches_plain(dev, b, m, k, d, ids):
+    """Uniform ids, skewed ids (a power law: most points in few clusters),
+    or every point in one cluster; K > M leaves most clusters empty."""
     from repro_torch.kernels import centroid, ref
     x, w, _ = _inputs(dev, b, m, k, d, seed=3)
     g = torch.Generator(device=dev).manual_seed(4)
-    idx = torch.randint(0, k, (b, m), generator=g, device=dev,
-                        dtype=torch.int32)
+    if ids == "uniform":
+        idx = torch.randint(0, k, (b, m), generator=g, device=dev,
+                            dtype=torch.int32)
+    elif ids == "skewed":
+        u = torch.rand((b, m), generator=g, device=dev)
+        idx = (k * u ** 4).to(torch.int32).clamp_max(k - 1)
+    else:
+        idx = torch.full((b, m), k // 2, device=dev, dtype=torch.int32)
     idx[:, ::9] = -1                  # masked ids outside [0, k) add nothing
     idx[:, 4::9] = k
     before = centroid.launches
@@ -196,9 +211,14 @@ def _attn_inputs(dev, b, h, hkv, nc, dh, dtype=torch.float32, seed=6):
 @pytest.mark.parametrize("b,h,hkv,nc,dh", [(4, 32, 8, 1000, 128),
                                            (1, 4, 1, 64, 32),
                                            (2, 8, 2, 300, 64),
-                                           (3, 48, 8, 777, 128)])
+                                           (3, 48, 8, 777, 128),
+                                           (1, 32, 8, 8192, 128),
+                                           (1, 8, 1, 20000, 128),
+                                           (2, 16, 4, 100, 16)])
 def test_cluster_attn_kernel_matches_plain(dev, b, h, hkv, nc, dh, dtype):
-    """Ragged Nc included; a repeated launch is bit-identical."""
+    """One split (Nc = 64, 100), many (8192 and 20000 centroids), and Nc
+    not a multiple of the split (777, 20000) or of the ring stage; a
+    repeated launch is bit-identical."""
     from repro_torch.kernels import cluster_attn, ref
     q, kc, vc, cnt = _attn_inputs(dev, b, h, hkv, nc, dh, dtype)
     before = cluster_attn.launches

@@ -185,7 +185,49 @@ def test_tile_contract():
     g = tiles.lloyd_blocks(64, 7813, 1562, 2, 132)
     assert 1 <= g <= -(-7813 // tiles.THREADS)
     assert tiles.lloyd_blocks(1, 10, 5, 2, 132) == 1   # never more than tiles
+    # the centroid update's sort path: K + 1 cursors in one block's smem
+    tiles.check_sort_clusters("k", 8192)
+    with pytest.raises(TileError):
+        tiles.check_sort_clusters("k", 60000)
     with pytest.raises(TileError):
         tiles.center_tile(4, 20000)
     with pytest.raises(TileError):
         tiles.check_inputs("k", torch.zeros(70000, 1, 2), torch.zeros(70000, 1, 2))
+
+
+@pytest.mark.parametrize("k,d,sorts,lanes,clusters", [
+    (1562, 2, False, 2, 1024),       # local stage: warp path
+    (1000, 2, False, 2, 1024),       # merge
+    (256, 1, False, 1, 2048),        # PQ codebooks
+    (300, 64, False, 32, 64),        # fits: 300 * 65 floats
+    (1000, 64, True, 32, 64),
+    (8192, 128, True, 32, 64),       # the KV-cache refresh's values
+    (4096, 128, True, 32, 64),
+    (50, 200, False, 32, 64),
+    (30000, 1, True, 1, 2048)])
+def test_centroid_path(k, d, sorts, lanes, clusters):
+    """The centroid update sorts exactly when the (K, d+1) accumulator does
+    not fit shared memory; its segment groups are sized to d."""
+    assert tiles.centroid_sorts(k, d) == sorts == (not tiles.acc_in_smem(k, d))
+    assert tiles.segment_lanes(d) == lanes
+    assert tiles.segment_lanes(d) >= min(d, 32)
+    assert tiles.segment_clusters(d) == clusters
+
+
+@pytest.mark.parametrize("b,m,k,d,warps,blocks", [
+    (64, 7813, 1562, 2, 5, 4),       # local stage
+    (4, 99968, 1000, 2, 8, 32),      # merge: capped by the last merge
+    (64, 32768, 256, 1, 8, 8),       # PQ codebooks
+    (2, 517, 300, 64, 1, 5),         # one accumulator per block
+    (1, 300, 50, 200, 2, 5),         # never more blocks than tiles
+    (1, 40, 3, 4, 8, 1)])
+def test_centroid_warp_plan(b, m, k, d, warps, blocks):
+    """The warp path's accumulators fit the block's shared memory, and its
+    blocks fit the card at once and bound the last block's merge."""
+    assert tiles.centroid_warps(k, d) == warps
+    assert warps * 4 * k * (d + 1) <= max(tiles.CENTROID_SMEM_BYTES,
+                                          4 * k * (d + 1))
+    g = tiles.centroid_blocks(b, m, k, d, 132)
+    assert g == blocks
+    assert g <= -(-m // (32 * warps))
+    assert g == 1 or g * 4 * k * (d + 1) <= tiles.CENTROID_MERGE_BYTES

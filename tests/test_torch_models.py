@@ -2,7 +2,10 @@
 package's, on the CPU in f32, with the same weights and caches carried
 across as numpy arrays (``convert.lm_params_from_jax`` for whole models).
 Tolerances: rtol 1e-4 (atol 1e-5 for values that cross zero); the
-offline cache compression is held to the reference tests' properties."""
+offline cache compression is held to the reference tests' properties.
+The bf16 cases state their own tolerances."""
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -240,6 +243,82 @@ def test_head_out_matches(llama_pair):
     jcfg, cfg, jm, jp, tm = llama_pair
     x = _np(2, 1, cfg.d_model, seed=7)
     _close(tm.head_out(torch.from_numpy(x)), jm.head_out(jp, jnp.asarray(x)))
+
+
+# ---------------------------------------------------------------------------
+# bf16, the type of the full-width models
+# ---------------------------------------------------------------------------
+
+BF16_U = 2.0 ** -8     # bf16's unit roundoff (8 significant bits)
+
+
+def test_head_out_bf16_logits_are_f32_products():
+    """At the reduced llama3-8b in bf16 the logits are the f32 product of
+    the bf16 activations and head, as the reference's ``dot_general(...,
+    preferred_element_type=f32)`` returns them: they differ only in the
+    order of the f32 sums (rtol/atol 1e-5), never by a bf16 rounding of
+    the product (about 1e-2 at these magnitudes)."""
+    jcfg = dataclasses.replace(jget_config("llama3-8b").reduced(),
+                               dtype="bfloat16")
+    cfg = dataclasses.replace(get_config("llama3-8b").reduced(),
+                              dtype="bfloat16")
+    jm = jbuild_model(jcfg)
+    jp = jm.init(jax.random.PRNGKey(0))
+    tm = build_model(cfg, device="cpu")
+    tm.load_state_dict(lm_params_from_jax(cfg, jax.tree.map(
+        lambda a: np.asarray(a.astype(jnp.float32)), jp)))
+    x = _np(2, 1, cfg.d_model, seed=7)
+    want = jm.head_out(jp, jnp.asarray(x, jnp.bfloat16))
+    got = tm.head_out(torch.from_numpy(x).bfloat16())
+    assert want.dtype == jnp.float32 and got.dtype == torch.float32
+    _close(got, want, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("pos", [0, 5, 21, 40])
+def test_attention_decode_clustered_bf16_within_weight_rounding(pos):
+    """The clustered decode in bf16 against the reference's, with the ring
+    as long as the head dim (ROADMAP §3).  The reference rounds its merged
+    softmax weights to bf16 before the value products; the port keeps them
+    in f32.  Each output row is a convex combination of value rows, so
+    weights rounded by at most ``u`` (bf16's unit roundoff) move it by at
+    most ``u * max|v|``; both sides then round the output to bf16, up to
+    one ulp (``2u`` relative) apart.  The projections are exact (identity
+    and selection matrices), so the tolerance is that rounding alone:
+    ``atol = u * max|v|``, ``rtol = 2u``."""
+    h, kv, dh = DIMS
+    d, nc, w = h * dh, 24, dh
+    eye = np.eye(d, dtype=np.float32)
+    p = {"wq": eye, "wk": eye[:, :kv * dh], "wv": eye[:, d - kv * dh:],
+         "wo": eye}
+    x = _np(2, 1, d, seed=40)
+    rng = np.random.default_rng(41)
+    cache = {
+        "kc": _np(2, kv, nc, dh, seed=42), "vc": _np(2, kv, nc, dh, seed=43),
+        "counts": (rng.integers(1, 9, (2, kv, nc))
+                   * (rng.random((2, kv, nc)) < 0.7)).astype(np.float32),
+        "wk": _np(2, kv, w, dh, seed=44), "wv": _np(2, kv, w, dh, seed=45),
+        "slot_pos": np.where(np.arange(w) < pos % w, np.arange(w) + pos
+                             - pos % w, np.arange(w) + pos - pos % w - w
+                             ).astype(np.int32)}
+    floats = ("kc", "vc", "wk", "wv")
+    jctx, tctx = _ctx_pair(pos, dh)
+    jout, _ = jattn.attention_decode_clustered(
+        {n: jnp.asarray(a, jnp.bfloat16) for n, a in p.items()},
+        {n: jnp.asarray(a, jnp.bfloat16 if n in floats else a.dtype)
+         for n, a in cache.items()}, jnp.asarray(x, jnp.bfloat16),
+        jattn.AttnDims(*DIMS), jctx)
+    tc = {n: torch.from_numpy(a.copy()) for n, a in cache.items()}
+    tc.update({n: tc[n].bfloat16() for n in floats})
+    tout, _ = tattn.attention_decode_clustered(
+        {n: torch.from_numpy(a).bfloat16() for n, a in p.items()}, tc,
+        torch.from_numpy(x).bfloat16(), tattn.AttnDims(*DIMS), tctx)
+    assert tout.dtype == torch.bfloat16
+    v_max = float(max(tc["vc"].float().abs().max(),
+                      tc["wv"].float().abs().max(),
+                      torch.from_numpy(x).bfloat16().float().abs().max()))
+    np.testing.assert_allclose(tout.float().numpy(),
+                               np.asarray(jout.astype(jnp.float32)),
+                               rtol=2 * BF16_U, atol=BF16_U * v_max)
 
 
 # ---------------------------------------------------------------------------
