@@ -45,8 +45,10 @@ SPECS = ROOT / "benchmarks" / "specs"
 SPEC_FILE = SPECS / "paper_500k.json"
 
 # published H100 SXM peaks (NVIDIA data sheet, dense, 700 W): FP32 outside
-# the tensor cores and HBM3 bandwidth
+# the tensor cores, TF32 on the tensor cores (without sparsity), and HBM3
+# bandwidth
 FP32_PEAK = 67e12          # FLOP/s
+TF32_PEAK = 495e12         # FLOP/s
 HBM_BYTES_PER_S = 3.35e12  # B/s
 L2_BYTES = 50 * 2**20      # the H100's L2 cache
 SPIN_CYCLES = 200_000_000  # ~0.1 s at the H100's clock: time to queue calls
@@ -133,6 +135,47 @@ def pair_bound_ms(b: int, m: int, k: int, d: int, in_bytes: int,
     return bound_ms(b * m * k * (2 * d + 3), in_bytes + out_bytes)
 
 
+def tc_lo_blocks(x: torch.Tensor) -> torch.Tensor:
+    """(B, ceil(M / TC_ROWS)) bool: the tensor-core route's blocks of
+    points that hold a value not exact in TF32 (its mantissa rounded to 10
+    bits, ties away from zero, as the kernel rounds), which take three
+    TF32 passes; the others take two."""
+    from repro_torch.kernels import tiles
+    b, m, _ = x.shape
+    bits = x.float().contiguous().view(torch.int32)
+    lo = (((bits + 0x1000) & -0x2000) != bits).any(-1).to(torch.int8)
+    lo = torch.nn.functional.pad(lo, (0, -m % tiles.TC_ROWS))
+    return lo.view(b, -1, tiles.TC_ROWS).any(-1)
+
+
+def tc_bound_ms(x: torch.Tensor, k: int) -> float:
+    """Least time for the cross term on the tensor cores (the Lloyd
+    kernel's tensor-core route) at the TF32 peak: 2 K d operations per
+    point and pass, three passes in the blocks of :func:`tc_lo_blocks`,
+    two in the others, as this run's points need."""
+    from repro_torch.kernels import tiles
+    b, m, d = x.shape
+    rows = torch.full((-(-m // tiles.TC_ROWS),), tiles.TC_ROWS)
+    rows[-1] = m - (rows.numel() - 1) * tiles.TC_ROWS
+    passes = 2 + tc_lo_blocks(x).long().cpu()
+    return float((passes * rows).sum()) * 2 * k * d / TF32_PEAK * 1e3
+
+
+def lloyd_bound_ms(x: torch.Tensor, k: int, n_bytes: int,
+                   route: str) -> tuple[float, str]:
+    """Least time for a Lloyd step on its route.  SIMT: the FP32 work of
+    :func:`pair_bound_ms`, or the bytes.  Tensor cores: the larger of the
+    cross term's TF32 passes (:func:`tc_bound_ms`), the epilogue's three
+    FP32 operations per pair on the CUDA cores (the norm add, the subtract
+    of 2 x.c and the clamp) and the bytes."""
+    b, m, d = x.shape
+    if route == "simt":
+        return pair_bound_ms(b, m, k, d, n_bytes, 0)
+    t_ops = max(tc_bound_ms(x, k), b * m * k * 3 / FP32_PEAK * 1e3)
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
 # ---------------------------------------------------------------------------
 # kernel parity against the plain versions
 # ---------------------------------------------------------------------------
@@ -193,7 +236,7 @@ def _check_assignment(name, x, c, idx, dist, ridx, rdist, cancel=None):
 
 
 def lloyd_parity(name, x, w, c, cancel=None):
-    from repro_torch.kernels import lloyd, ref
+    from repro_torch.kernels import lloyd, ref, tiles
     sums, counts, sse, idx, dist = lloyd.lloyd_step(x, w, c)
     rsums, rcounts, rsse, ridx, rdist = ref.lloyd_step_ref(x, w, c)
     n_diff = _check_assignment(name, x, c, idx, dist, ridx, rdist, cancel)
@@ -216,6 +259,7 @@ def lloyd_parity(name, x, w, c, cancel=None):
               zip(again, (sums, counts, sse, idx, dist))),
           f"{name}: a repeated step is not bit-identical")
     return dict(case=name, shape=list(x.shape) + [c.shape[1]],
+                route=tiles.lloyd_route(c.shape[1], x.shape[2]),
                 dtype=str(x.dtype), labels_at_near_ties=n_diff,
                 max_sum_err=float((sums - csums).abs().amax()),
                 max_sse_rel_err=float(((sse - rsse).abs() / rsse).amax()))
@@ -376,12 +420,58 @@ def _kernel_modules() -> dict:
 
 
 def reset_launches():
+    from repro_torch.kernels import lloyd
     for mod in _kernel_modules().values():
         mod.launches = 0
+    lloyd.centroid_launches = 0
 
 
 def read_launches() -> dict:
-    return {name: mod.launches for name, mod in _kernel_modules().items()}
+    """Each kernel's launches, and (``lloyd_centroid_update``) those of the
+    centroid kernel made inside the Lloyd kernel's tensor-core route, which
+    ``centroid_update`` does not count."""
+    from repro_torch.kernels import lloyd
+    return {**{name: mod.launches for name, mod in _kernel_modules().items()},
+            "lloyd_centroid_update": lloyd.centroid_launches}
+
+
+class LloydRecorder:
+    """Within ``with``: records the (B, M, K, d) of every ``lloyd_step``
+    call the paths make (``shapes``: shape -> calls) and, where ``timed``,
+    CUDA events around each call, read with :meth:`device_ms`."""
+
+    def __init__(self, timed: bool = False):
+        self.timed = timed
+        self.shapes: dict = {}
+        self.events: list = []
+
+    def __enter__(self):
+        from repro_torch.kernels import lloyd
+        self._orig = orig = lloyd.lloyd_step
+
+        def recording(x, w, c):
+            key = (x.shape[0], x.shape[1], c.shape[1], x.shape[2])
+            self.shapes[key] = self.shapes.get(key, 0) + 1
+            if not self.timed:
+                return orig(x, w, c)
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            ev[0].record()
+            out = orig(x, w, c)
+            ev[1].record()
+            self.events.append(ev)
+            return out
+
+        lloyd.lloyd_step = recording
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.kernels import lloyd
+        lloyd.lloyd_step = self._orig
+
+    def device_ms(self, since: int = 0) -> list:
+        """Device ms of each timed call from the ``since``-th on."""
+        torch.cuda.synchronize()
+        return [a.elapsed_time(b) for a, b in self.events[since:]]
 
 
 def index_workload(spec_file: Path):
@@ -410,14 +500,16 @@ def build_and_sweep(spec_file: Path, nprobes, repeats: int):
     """Build the index of a spec file's workload and search it at each
     nprobe: build seconds, queries/s (each of ``repeats`` after a warm-up,
     and the best) and recall@k against the exact search, with the kernels' launches
-    counted over the build and the searches."""
+    counted over the build and the searches, and the (B, M, K, d) of the
+    build's Lloyd steps (shape -> calls)."""
     from repro_torch.index import build_index, exact_search, recall_at_k
     ispec, w, src, queries = index_workload(spec_file)
     k, q_block = w["k"], w["q_block"]
     torch.cuda.synchronize()
     reset_launches()
     t0 = time.perf_counter()
-    index, stats = build_index(src, ispec, w["seed"])
+    with LloydRecorder() as rec:
+        index, stats = build_index(src, ispec, w["seed"])
     torch.cuda.synchronize()
     build_s = time.perf_counter() - t0
     sweep = []
@@ -447,7 +539,8 @@ def build_and_sweep(spec_file: Path, nprobes, repeats: int):
               and bool((p["ids"] >= 0).all()),
               f"{spec_file.name}: missing neighbours at nprobe "
               f"{p['nprobe']}")
-    return ispec, w, queries, index, stats, build_s, exact_s, sweep, launches
+    return (ispec, w, queries, index, stats, build_s, exact_s, sweep, launches,
+            rec.shapes)
 
 
 def probed_scan_inputs(index, queries, nprobe):
@@ -479,6 +572,10 @@ SERVE_SEED = 0
 PROMPT_LEN = 512       # tokens per request (prefill by decode steps)
 GEN_TOKENS = 32
 RECOMPRESS_EVERY = 256
+LLOYD_PER_REFRESH = 5  # 4 iterations, then the final pass (max_iters=4)
+# live centroids summed over the 256 lanes after the two refreshes of a
+# request with the FP32 Lloyd kernel before its tensor-core route (PERF.md)
+LIVE_TOTALS_BEFORE = (495, 736)
 
 # The JAX package's relative error of the same clustered attention against
 # exact attention (benchmarks/bench_cluster_attn.py, its jnp reference, run
@@ -577,6 +674,7 @@ def serve_long_500k():
     maybe_recompress = eng._maybe_recompress
 
     def recording(caches, pos):       # counts live centroids and mass
+        first = len(rec.events)
         out = maybe_recompress(caches, pos)
         if out is not caches:         # a refresh ran
             cnt = out["blocks"]["counts"]
@@ -585,7 +683,8 @@ def serve_long_500k():
             refreshes.append(dict(
                 pos=pos, live_min=int(live.min()), live_max=int(live.max()),
                 live_total=int(live.sum()), mass=float(lane_mass.sum()),
-                mass_per_lane_ok=bool((lane_mass == pos).all())))
+                mass_per_lane_ok=bool((lane_mass == pos).all()),
+                lloyd_calls=(first, len(rec.events))))
             last.update(out["blocks"])
         return out
 
@@ -603,10 +702,16 @@ def serve_long_500k():
         torch.cuda.reset_peak_memory_stats()
         reset_launches()
         t0 = time.perf_counter()
-        answers.append(eng.generate(prompt))
+        # CUDA events around each Lloyd launch: each refresh's device time
+        with LloydRecorder(timed=True) as rec:
+            answers.append(eng.generate(prompt))
         torch.cuda.synchronize()
         total_s = time.perf_counter() - t0
         launches = read_launches()
+        lloyd_ms = rec.device_ms()
+        for r in refreshes:
+            a, b = r.pop("lloyd_calls")
+            r["lloyd_device_ms"] = lloyd_ms[a:b]
         decode_s = sum(e["dur"] for e in log.named("decode_rate"))
         requests.append(dict(
             total_s=total_s, prefill_s=total_s - decode_s,
@@ -619,9 +724,11 @@ def serve_long_500k():
         check(launches["cluster_attn"] == cfg.n_layers * steps,
               f"cluster_attn launched {launches['cluster_attn']} times, "
               f"not {cfg.n_layers} layers x {steps} steps")
-        check(launches["lloyd_step"] > 0 and launches["centroid_update"] > 0,
-              f"the refresh skipped a kernel: {launches}")
         n_refresh = steps // RECOMPRESS_EVERY
+        check(launches["lloyd_step"] == n_refresh * LLOYD_PER_REFRESH
+              and launches["lloyd_centroid_update"] == launches["lloyd_step"]
+              and launches["centroid_update"] > 0,
+              f"the refresh skipped a kernel: {launches}")
         check(len(refreshes) == n_refresh
               and all(r["mass_per_lane_ok"] for r in refreshes),
               f"refresh mass differs from the tokens folded: {refreshes}")
@@ -641,6 +748,8 @@ def serve_long_500k():
          window=shape.cluster_window, prompt_len=PROMPT_LEN,
          gen_tokens=GEN_TOKENS, recompress_every=RECOMPRESS_EVERY,
          init_s=init_s, requests=requests, answer=answers[0][0].tolist(),
+         live_totals=[r["live_total"] for r in requests[-1]["refreshes"]],
+         live_totals_before=list(LIVE_TOTALS_BEFORE),
          identical_answers=True, decode_profile=profile,
          served_cache_parity=parity)
     return requests, parity
@@ -721,7 +830,7 @@ def main() -> int:
                                   standard_kmeans)
     from repro_torch.data import blobs
     from repro_torch.kernels import (assign, build, centroid, cluster_attn,
-                                     lloyd, ref, scan)
+                                     lloyd, ref, scan, tiles)
     from repro_torch.telemetry import RecordingLogger
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -796,6 +905,28 @@ def main() -> int:
                            cancel=dot_rounding_bound(refresh[0],
                                                      refresh[2])),
               centroid_parity("centroid_refresh_4_lanes", *refresh)]
+    # the served pool's points are bf16 keys upcast to f32, exact in TF32:
+    # every tensor-core block takes its two-pass branch
+    refresh_bf16 = (refresh[0].bfloat16().float(), *refresh[1:])
+    check(not tc_lo_blocks(refresh_bf16[0]).any(),
+          "bf16-valued points: a block would take three passes")
+    cases += [lloyd_parity("lloyd_refresh_4_lanes_bf16_points",
+                           *refresh_bf16,
+                           cancel=dot_rounding_bound(refresh_bf16[0],
+                                                     refresh_bf16[2]))]
+    # the first refresh of an empty cache: 8192 zero centers (w = 0 in the
+    # pool) and 1024 window keys; every distance to a center ties, and the
+    # labels must be the plain version's exactly (all 0)
+    zx, zw, _ = _case(4, 1024, 1, 128, seed=24)
+    zc = torch.zeros((4, 8192, 128), device="cuda")
+    zpool = torch.cat([zc, zx], 1)
+    zpw = torch.cat([torch.zeros((4, 8192), device="cuda"),
+                     torch.ones_like(zw)], 1)
+    zero_case = lloyd_parity("lloyd_refresh_zero_centers", zpool, zpw, zc,
+                             cancel=dot_rounding_bound(zpool, zc))
+    check(zero_case["labels_at_near_ties"] == 0,
+          "zero centers: labels differ from the plain version's")
+    cases.append(zero_case)
     # the served refresh's value update: all 256 lanes (the 4 lanes above,
     # 64 times over)
     refresh_ids, _ = assign.assign_argmin(refresh[0], refresh[2])
@@ -804,6 +935,33 @@ def main() -> int:
     cases += [centroid_ids_parity("centroid_refresh_256_lanes", *refresh256,
                                   8192)]
     cases += centroid_worst_cases()
+    # the Lloyd kernel's routes at these shapes, and the SIMT route's grid:
+    # every block resident at once (the runtime's occupancy, registers
+    # included, against the shared-memory and thread reckoning of tiles.py)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    plans = []
+    for name, (xx, _, cc) in (("local", local), ("merge", merge),
+                              ("pq_200k", pq200k), ("refresh", refresh)):
+        bb, mm, dd = xx.shape
+        kk = cc.shape[1]
+        route = tiles.lloyd_route(kk, dd)
+        plan = dict(shape=name, b=bb, m=mm, k=kk, d=dd, route=route)
+        if route == "simt":
+            per_sm, smem = lloyd.simt_occupancy(kk, dd)
+            g = tiles.lloyd_blocks(bb, mm, kk, dd, sms, per_sm)
+            check(smem == tiles.lloyd_simt_smem_bytes(kk, dd)
+                  and per_sm <= tiles.blocks_per_sm(smem)
+                  and bb * g <= per_sm * sms,
+                  f"lloyd {name}: the SIMT grid outgrows the card")
+            plan.update(smem=smem, per_sm=per_sm,
+                        per_sm_by_smem=tiles.blocks_per_sm(smem),
+                        blocks=bb * g, slots=per_sm * sms)
+        else:
+            plan.update(smem=tiles.tc_smem_bytes(dd),
+                        blocks=bb * -(-mm // tiles.TC_ROWS))
+        plans.append(plan)
+    check([p["route"] for p in plans] == ["simt", "simt", "simt", "tc"],
+          f"lloyd routes: {plans}")
     scale = 128 ** -0.5
     serve_attn = attn_case(1, 32, 8, 8192, 128, dtype=torch.bfloat16,
                            seed=15)
@@ -837,7 +995,7 @@ def main() -> int:
           "an all-dead row's state is not (NEG, Nc)")
     cases += [attn_parity("attn_all_dead_row", q, kc, vc, cnt, scale)]
     torch.cuda.synchronize()
-    emit("parity", cases=cases)
+    emit("parity", cases=cases, lloyd_plans=plans)
 
     # -- 4. main path: SampledKMeans fit + predict at paper_500k ------------
     spec = ClusterSpec.from_dict(json.loads(SPEC_FILE.read_text())
@@ -970,8 +1128,8 @@ def main() -> int:
     # -- 8. the IVF/PQ index at index_200k -----------------------------------
     repeats2 = 3
     (ispec, w2, q2, index2, stats2, build2_s, exact2_s, sweep2,
-     index_launches) = build_and_sweep(SPECS / "index_200k.json",
-                                       [1, 2, 4, 8], repeats2)
+     index_launches, lloyd_shapes2) = build_and_sweep(
+         SPECS / "index_200k.json", [1, 2, 4, 8], repeats2)
     check(all(index_launches[n] > 0 for n in
               ("adc_scan", "lloyd_step", "assign_argmin")),
           f"the index path skipped a kernel: {index_launches}")
@@ -994,7 +1152,8 @@ def main() -> int:
     # -- 9. the IVF/PQ index at index_5m, the repo's largest ---------------
     import repro_torch.index.ivf as ivf_mod
     (ispec5, w5, q5, index5, stats5, build5_s, exact5_s, sweep5,
-     launches5) = build_and_sweep(SPECS / "index_5m.json", [2], 1)
+     launches5, lloyd_shapes5) = build_and_sweep(SPECS / "index_5m.json",
+                                                 [2], 1)
     check(all(launches5[n] > 0 for n in
               ("adc_scan", "lloyd_step", "assign_argmin")),
           f"the index_5m path skipped a kernel: {launches5}")
@@ -1033,6 +1192,26 @@ def main() -> int:
     torch.cuda.synchronize()
     del index2, index5, sweep2, sweep5, kern_d, plain_d
 
+    # the Lloyd kernel at the index builds' coarse-fit shapes (as their runs
+    # gave them) with d >= TC_MIN_D, against the plain version where the
+    # tensor-core route takes them (fp32-class distances: the expanded
+    # form's rounding bound at width d)
+    index_lloyd = [(path, shape, calls, _case(*shape, seed=25))
+                   for path, shapes in (("index_200k", lloyd_shapes2),
+                                        ("index_5m", lloyd_shapes5))
+                   for shape, calls in sorted(shapes.items())
+                   if shape[3] >= tiles.TC_MIN_D]
+    index_parity = [
+        lloyd_parity(f"lloyd_{path}_coarse_{'x'.join(map(str, shape))}",
+                     *inputs, cancel=dot_rounding_bound(inputs[0],
+                                                        inputs[2]))
+        for path, shape, _, inputs in index_lloyd
+        if tiles.lloyd_route(shape[2], shape[3]) == "tc"]
+    check(len(index_parity) >= 2, "the index builds' coarse fits took the "
+          f"tensor-core route {len(index_parity)} times, not at both sizes")
+    cases += index_parity
+    emit("index_lloyd_parity", cases=index_parity)
+
     # -- 10. clustered-KV decode serving, llama3-8b at full width ------------
     serve_requests, served_parity = serve_long_500k()
     cases.append(served_parity)
@@ -1059,15 +1238,43 @@ def main() -> int:
                         else device_ms(rotating(library[0], *library[1]))),
             bound_ms=b_ms, bound_by=by)
 
-    def lloyd_entry(shape_name, xw, wl, cl):
+    # bound_ms: the route's bound (lloyd_bound_ms); on the tensor-core
+    # route also fp32_bound_ms, the FP32 CUDA-core bound of the same work,
+    # and where the tensor cores take the shape tc_bound_ms, the cross
+    # term's TF32 passes at the TF32 peak
+    def lloyd_bytes(xw, wl, cl):
         bb, mm, dd = xw.shape
         kk = cl.shape[1]
-        in_bytes = (n_read(xw) + n_read(wl) + cl.numel()) * 4
-        out_bytes = bb * mm * 8 + bb * kk * (dd + 1) * 4 + bb * 4
-        return timed(shape_name, (xw, wl, cl), lloyd.lloyd_step,
-                     ref.lloyd_step_ref,
-                     pair_bound_ms(bb, mm, kk, dd, in_bytes, out_bytes),
-                     b=bb, m=mm, k=kk, d=dd)
+        return ((n_read(xw) + n_read(wl) + cl.numel()) * 4 + bb * mm * 8
+                + bb * kk * (dd + 1) * 4 + bb * 4)
+
+    def lloyd_bounds(entry, xw, cl, n_bytes):
+        bb, mm, dd = xw.shape
+        kk = cl.shape[1]
+        entry["bound_ms"], entry["bound_by"] = lloyd_bound_ms(
+            xw, kk, n_bytes, entry["route"])
+        if entry["route"] == "tc":
+            entry["fp32_bound_ms"] = pair_bound_ms(bb, mm, kk, dd, n_bytes,
+                                                   0)[0]
+        if dd >= tiles.TC_MIN_D and tiles.sort_clusters_fit(kk):
+            entry["tc_bound_ms"] = tc_bound_ms(xw, kk)
+        return entry
+
+    def lloyd_entry(shape_name, xw, wl, cl, routes=False):
+        bb, mm, dd = xw.shape
+        kk = cl.shape[1]
+        n_bytes = lloyd_bytes(xw, wl, cl)
+        route = tiles.lloyd_route(kk, dd)
+        entry = lloyd_bounds(
+            timed(shape_name, (xw, wl, cl), lloyd.lloyd_step,
+                  ref.lloyd_step_ref, lloyd_bound_ms(xw, kk, n_bytes, route),
+                  b=bb, m=mm, k=kk, d=dd, route=route), xw, cl, n_bytes)
+        if routes:   # both routes on the same inputs
+            entry["route_ms"] = {
+                r: device_ms(rotating(
+                    lambda *t, r=r: lloyd.route_step(*t, r), xw, wl, cl))
+                for r in ("simt", "tc")}
+        return entry
 
     # the cuda backend's centroid pass on the assignment kernel's ids;
     # bytes: x, ids and w read once, sums and counts written once
@@ -1110,14 +1317,28 @@ def main() -> int:
     # all 256 lanes of a refresh: the plain version's (B, M, K) distances
     # would take 77 GB, so only the kernel is timed there
     xr, wr, cr = (t.repeat(64, *[1] * (t.dim() - 1)) for t in refresh)
-    l_refresh = dict(shape="refresh, 256 lanes", b=256, m=9216, k=8192,
-                     d=128, ms=device_ms(lambda: lloyd.lloyd_step(xr, wr, cr),
-                                         iters=2),
-                     plain_ms=None, library_ms=None)
-    l_refresh["bound_ms"], l_refresh["bound_by"] = pair_bound_ms(
-        256, 9216, 8192, 128, (xr.numel() + wr.numel() + cr.numel()) * 4,
-        256 * 9216 * 8 + 256 * 8192 * 129 * 4 + 256 * 4)
-    del xr, wr, cr
+    # the served pool's points are bf16 keys upcast to f32: exact in TF32,
+    # so the tensor-core route leaves out its lo_x pass
+    xb = xr.bfloat16().float()
+    l_refresh, l_refresh_bf16 = (
+        lloyd_bounds(dict(shape=name, b=256, m=9216, k=8192, d=128,
+                          route=tiles.lloyd_route(8192, 128),
+                          ms=device_ms(lambda p=p: lloyd.lloyd_step(p, wr,
+                                                                    cr),
+                                       iters=3),
+                          plain_ms=None, library_ms=None),
+                     p, cr, lloyd_bytes(p, wr, cr))
+        for name, p in (("refresh, 256 lanes", xr),
+                        ("refresh, 256 lanes, bf16-valued points", xb)))
+    del xr, wr, cr, xb
+    # the index builds' coarse fits, at the shapes their runs gave, on
+    # both routes
+    l_index = []
+    for path, _, calls, inputs in index_lloyd:
+        e = lloyd_entry(f"{path} coarse", *inputs, routes=True)
+        e["calls_per_build"] = calls
+        l_index.append(e)
+    del index_lloyd
     c_refresh = centroid_entry("refresh values, 4 lanes", *refresh)
     c_refresh256 = centroid_ids_entry("refresh values, 256 lanes",
                                       *refresh256, 8192)
@@ -1163,12 +1384,15 @@ def main() -> int:
              max_abs_err=max(errs["lloyd_local"]["max_sum_err"],
                              errs["lloyd_merge"]["max_sum_err"]),
              launches_by_path={"paper_500k": launches["lloyd_step"],
+                               "index_200k": index_launches["lloyd_step"],
+                               "index_5m": launches5["lloyd_step"],
                                "serve_long_500k":
                                    serve_launches["lloyd_step"]},
              ms=l_local["ms"], plain_ms=l_local["plain_ms"],
              bound_ms=l_local["bound_ms"], bound_by=l_local["bound_by"],
              library_ms=None,
-             shapes=[l_local, l_merge, l_pq, l_refresh4, l_refresh]),
+             shapes=[l_local, l_merge, l_pq, l_refresh4, l_refresh,
+                     l_refresh_bf16, *l_index]),
         dict(name="assign_argmin", route="cuda",
              source="src/repro_torch/kernels/csrc/assign.cu",
              replaces="src/repro/kernels/assign.py:87",
@@ -1185,10 +1409,14 @@ def main() -> int:
                              errs["centroid_merge"]["max_abs_err"]),
              ms=c_local["ms"], plain_ms=c_local["plain_ms"],
              bound_ms=c_local["bound_ms"], bound_by=c_local["bound_by"],
-             launches_by_path={"paper_500k_cuda":
-                                   cuda_launches["centroid_update"],
-                               "serve_long_500k":
-                                   serve_launches["centroid_update"]},
+             launches_by_path={
+                 "paper_500k_cuda": cuda_launches["centroid_update"],
+                 "serve_long_500k": serve_launches["centroid_update"],
+                 # inside the Lloyd kernel's tensor-core route
+                 "serve_long_500k_lloyd": serve_launches[
+                     "lloyd_centroid_update"],
+                 "index_200k_lloyd": index_launches["lloyd_centroid_update"],
+                 "index_5m_lloyd": launches5["lloyd_centroid_update"]},
              library_ms=c_local["library_ms"],
              shapes=[c_local, c_merge, c_pq, c_refresh, c_refresh256]),
         dict(name="adc_scan", route="cuda",

@@ -1,9 +1,11 @@
 """Hand-written CUDA kernels of the PyTorch port, for Hopper (sm_90a).
 
-  lloyd.py / csrc/lloyd.cu       — fused Lloyd step: assignment + raw
-                                   weighted sums/counts + SSE in one pass
-                                   (replaces repro/kernels/lloyd.py::
-                                   lloyd_step_pallas)
+  lloyd.py / csrc/lloyd.cu       — Lloyd step: assignment + raw weighted
+                                   sums/counts + SSE (replaces
+                                   repro/kernels/lloyd.py::
+                                   lloyd_step_pallas); a fused SIMT pass
+                                   for small d, a tensor-core argmin and
+                                   the centroid update for d >= 32
   assign.py / csrc/assign.cu     — nearest-center assignment (replaces
                                    repro/kernels/assign.py::
                                    assign_argmin_pallas)
@@ -18,8 +20,11 @@
                                    cluster_attn.py::
                                    cluster_attn_decode_pallas)
   csrc/distance.cuh              — loads, center staging, the distance scan
+  csrc/tc_argmin.cuh             — the nearest center on the tensor cores
+                                   (wgmma, three TF32 passes)
   csrc/accumulate.cuh            — the Lloyd kernel's per-block statistics
                                    and their fixed-order reduction
+  csrc/warp.cuh                  — ballot grouping and warp sums
   ref.py                         — the plain PyTorch versions (CPU path,
                                    tests, on-card parity)
   tiles.py                       — the launch contract (TileError, tiles)

@@ -60,11 +60,24 @@ def centroid_update(x: torch.Tensor, idx: torch.Tensor, w: torch.Tensor,
     counts (B, k))``, both f32 (the caller divides).  A row adds nothing
     when its weight is 0 or its id lies outside [0, k).  Deterministic: a
     repeated call is bit-identical."""
-    b, m, d = check_update_inputs("centroid_update", x, idx, w, k)
+    check_update_inputs("centroid_update", x, idx, w, k)
     if x.device.type == "cpu":
         return centroid_update_ref(x, idx, w, k)
     if x.device.type != "cuda":
         raise ValueError(f"centroid_update: unsupported device {x.device}")
+    out = launch(x, idx, w, k)
+    global launches
+    launches += 1
+    return out
+
+
+def launch(x: torch.Tensor, idx: torch.Tensor, w: torch.Tensor, k: int
+           ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Launch the kernel on CUDA tensors that ``check_update_inputs``
+    accepts, without counting the launch: :func:`centroid_update` counts
+    its own, and the Lloyd kernel's tensor-core route counts those it makes
+    for its statistics (``lloyd.centroid_launches``)."""
+    b, m, d = x.shape
     dev = x.device
     sorts = centroid_sorts(k, d)
     if sorts:
@@ -103,6 +116,4 @@ def centroid_update(x: torch.Tensor, idx: torch.Tensor, w: torch.Tensor,
             f"centroid_update: kernel launch failed with CUDA error {err} "
             f"({lib.repro_centroid_error_string(err).decode()}) at "
             f"(B, M, k, d) = {(b, m, k, d)}")
-    global launches
-    launches += 1
     return sums, counts

@@ -1,6 +1,6 @@
-// Device code of the Lloyd kernel's statistics: per-block weighted
-// per-cluster statistics without float atomics, and the fixed-order
-// reduction of the blocks' partials.
+// Device code of the Lloyd kernel's SIMT route (small d): per-block
+// weighted per-cluster statistics without float atomics, and the
+// fixed-order reduction of the blocks' partials.
 //
 // The TPU kernels carry their (K, d) accumulators across a sequential grid.
 // Hopper blocks run in parallel in no order, so here:
@@ -10,10 +10,11 @@
 //      and weight in shared memory, and thread t adds, in point order, the
 //      tile's points whose cluster is t, t + 256, ...: every cluster has
 //      exactly one writer, so no atomics are needed.  Thread t finds its
-//      points through ownership masks: each warp's leader of a group of
-//      lanes with one owner (__match_any_sync) writes the group's lane mask
-//      to owners[warp][owner], so the owner reads 8 masks per tile instead
-//      of testing all 256 points;
+//      points through ownership masks: each warp groups its lanes by owner
+//      with one ballot per bit of the owner (equal_lanes, warp.cuh), and
+//      the group's first lane writes the lane mask to owners[warp][owner],
+//      so the owner reads 8 masks per tile instead of testing all 256
+//      points;
 //   3. a second small kernel sums the G partials of every output element,
 //      g = 0, 1, ... in order.
 // So a repeated launch on the same inputs is bit-identical.  The
@@ -22,6 +23,7 @@
 #pragma once
 
 #include "distance.cuh"
+#include "warp.cuh"
 
 namespace repro {
 
@@ -34,13 +36,15 @@ __device__ __forceinline__ void zero_owners(uint32_t* owners) {
 }
 
 // Before the tile's barrier: every thread registers its point's cluster k
-// (-1 = adds nothing).  Called by all threads of the block.
-__device__ __forceinline__ void register_point(uint32_t* owners, int k) {
-  const int owner = k >= 0 ? (k & (kThreads - 1)) : -1;
-  const unsigned group = __match_any_sync(0xffffffffu, owner);
+// (-1 = adds nothing); owners are k mod 256, keyed owner + 1 below 2^nbits
+// (nbits = bit length of min(K, 256)).  Called by all threads of the block.
+__device__ __forceinline__ void register_point(uint32_t* owners, int k,
+                                               int nbits) {
+  const unsigned key = k >= 0 ? (k & (kThreads - 1)) + 1u : 0u;
+  const unsigned group = equal_lanes(key, nbits);
   const int lane = threadIdx.x & 31;
-  if (owner >= 0 && lane == __ffs(group) - 1)
-    owners[(threadIdx.x >> 5) * kThreads + owner] = group;
+  if (key && lane == __ffs(group) - 1)
+    owners[(threadIdx.x >> 5) * kThreads + key - 1] = group;
 }
 
 // Zero this thread's clusters t, t + 256, ... of a block's accumulator.

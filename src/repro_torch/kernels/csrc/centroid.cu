@@ -53,6 +53,7 @@
 // Sort path scratch: offsets (B, K + 1) int32, and two (B, M) int32
 // permutations with their (B, M) f32 weights.
 #include "distance.cuh"
+#include "warp.cuh"
 
 namespace repro {
 namespace {
@@ -64,20 +65,6 @@ constexpr int kOwnerWarps = 8;   // most warps (accumulators) per block
 constexpr int kSortThreads = 1024;
 constexpr int kSegThreads = 256;
 constexpr int kSegCols = 4;      // columns per lane per pass of a segment
-
-// The lanes of this warp whose key equals this lane's, for keys below
-// 2^nbits (nbits warp-uniform): one ballot per bit.  __match_any_sync gives
-// the same mask but measured slower on the H100; unrolling the loop was
-// slower still.
-__device__ __forceinline__ unsigned equal_lanes(unsigned key, int nbits) {
-  unsigned eq = 0xffffffffu;
-  for (int i = 0; i < nbits; ++i) {
-    const bool bit = (key >> i) & 1u;
-    const unsigned set = __ballot_sync(0xffffffffu, bit);
-    eq &= bit ? set : ~set;
-  }
-  return eq;
-}
 
 // ---------------------------------------------------------------------------
 // warp-accumulator path

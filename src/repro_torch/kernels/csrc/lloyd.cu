@@ -1,27 +1,49 @@
-// Fused Lloyd step on Hopper (sm_90a): in one pass over the points of each
-// batch entry, the nearest center of every point (idx, dist) and the raw
-// weighted per-cluster statistics (sums, counts) and weighted SSE.
+// Lloyd step on Hopper (sm_90a): for every batch entry, the nearest center
+// of every point (idx, dist) and the raw weighted per-cluster statistics
+// (sums, counts) and weighted SSE.
 //
 // Replaces the TPU kernel repro/kernels/lloyd.py::_lloyd_kernel
 // (lloyd_step_pallas), which zeroes its (K, d) accumulators at grid step
-// (0, 0) and carries them across a *sequential* grid.  Here the statistics
-// are per-block partials summed in a fixed order (accumulate.cuh), with no
-// float atomics anywhere: a repeated step is bit-identical.
+// (0, 0) and carries them across a *sequential* grid.  Two routes, chosen by
+// shape in repro_torch/kernels/tiles.py (lloyd_route):
 //
-// What bounds it: FP32 CUDA-core work, as for assign.cu (about seven
-// operations per (point, center) pair at d=2; the bytes are tiny).  The
-// distance pass is assign.cu's: one thread owns one point in registers and
-// walks the centers staged in shared memory with |c|^2 precomputed.  The
-// accumulation (accumulate.cuh) adds O(M (d + 1)) work on top of O(M K d);
-// per tile the block also stages w * dist and reduces the SSE with a
-// fixed-shape tree.  Rows with w = 0 (capacity padding) get idx/dist and add
-// nothing.
+//   * Tensor-core route, d >= 32 (the KV-cache refresh: 256 lanes x 9216
+//     points x 8192 centers, d = 128; the index's coarse fits).  Bound by
+//     the tensor cores' TF32 rate: the cross term runs in three TF32 passes
+//     (tc_argmin.cuh), one pre-pass computes |c|^2 and an f32 copy of the
+//     centers in rows of whole 32-dim chunks (what the argmin reads), a
+//     small reduction sums the blocks' SSE partials in block order, and the
+//     statistics come from the centroid update's kernels (centroid.cu,
+//     launched by the Python wrapper) on the labels this route wrote: they
+//     sum each cluster's points in point order, with no (B, G, K, d)
+//     scratch.
+//
+//   * SIMT route, small d (the paper's d = 2 local and merge stages, the PQ
+//     codebooks at d = 1).  Bound by FP32 issue, while the bytes are tiny.
+//     One thread owns one point in registers and walks the centers staged
+//     in shared memory with |c|^2, by the assign kernel's distance scan
+//     (distance.cuh: the clamped expanded-form distance, the plain
+//     version's expression); the block then adds its tile's points to
+//     private per-cluster partials (accumulate.cuh: owners found by
+//     ballots), reduces the tile's weighted SSE with warp shuffles and a
+//     fixed-order sum of the eight warp sums, and a second small kernel sums
+//     the G blocks' partials in block order.  G is sized from the blocks
+//     the card holds at once (the occupancy the runtime reports), so no
+//     launch has a partial second wave.
+//
+// Ties go to the lowest center index on both routes (a strict < in center
+// order; lexicographic (d2, k) merges on the tensor cores).  There are no
+// float atomics anywhere: a repeated step is bit-identical.  Rows with
+// w = 0 (capacity padding) get idx/dist and add nothing.
 //
 // Layout: x (B, M, d) and w (B, M) with batch strides (0 lets restarts share
-// one pool), c (B, K, d) with a batch stride; idx/dist (B, M), scratch
-// (B, G, K, d) / (B, G, K) / (B, G), sums (B, K, d), counts (B, K), sse (B,)
-// contiguous f32 (idx int32).
+// one pool), c (B, K, d) with a batch stride; idx/dist (B, M), sums
+// (B, K, d), counts (B, K), sse (B,) contiguous f32 (idx int32).  SIMT
+// scratch: (B, G, K, d) / (B, G, K) / (B, G); tensor-core scratch: |c|^2
+// (B, K), the SSE partials (B, ceil(M / 128)) and the center copy
+// (B, K, dims(d)).
 #include "accumulate.cuh"
+#include "tc_argmin.cuh"
 
 namespace repro {
 namespace {
@@ -40,9 +62,9 @@ lloyd_partial_kernel(const void* __restrict__ x, int64_t x_bs, int x_bf16,
   float* cs = reinterpret_cast<float*>(smem4);  // bk centers
   int* sidx = reinterpret_cast<int*>(cs + bk * center_stride(DP, d));
   float* sw = reinterpret_cast<float*>(sidx + kThreads);
-  float* sred = sw + kThreads;
-  uint32_t* owners = reinterpret_cast<uint32_t*>(sred + kThreads);
-  float* sacc = reinterpret_cast<float*>(owners + kWarps * kThreads);
+  uint32_t* owners = reinterpret_cast<uint32_t*>(sw + kThreads);
+  float* wsse = reinterpret_cast<float*>(owners + kWarps * kThreads);
+  float* sacc = wsse + kWarps;
   // sacc: K * d sums, then K counts (acc_smem)
 
   const int t = threadIdx.x;
@@ -55,6 +77,7 @@ lloyd_partial_kernel(const void* __restrict__ x, int64_t x_bs, int x_bf16,
       acc_smem ? sacc + static_cast<int64_t>(K) * d : part_counts + slot * K;
   zero_acc(acc_sums, acc_counts, K, d);
   zero_owners(owners);
+  const int nbits = 32 - __clz(min(K, kThreads));
 
   const int64_t xbase = static_cast<int64_t>(b) * x_bs;
   const int64_t cbase = static_cast<int64_t>(b) * c_bs;
@@ -93,26 +116,33 @@ lloyd_partial_kernel(const void* __restrict__ x, int64_t x_bs, int x_bf16,
     const bool live = valid && wv != 0.f;
     sidx[t] = live ? best_k : -1;
     sw[t] = wv;
-    sred[t] = live ? wv * best : 0.f;
-    register_point(owners, live ? best_k : -1);
+    register_point(owners, live ? best_k : -1, nbits);
+    const float wsum = warp_sum(live ? wv * best : 0.f);
+    if ((t & 31) == 0) wsse[t >> 5] = wsum;
     __syncthreads();
 
-    // the tile's weighted SSE: a tree of fixed shape, so a fixed order
-    for (int s = kThreads / 2; s > 0; s >>= 1) {
-      if (t < s) sred[t] += sred[t + s];
-      __syncthreads();
+    if (t == 0) {  // the tile's weighted SSE: warp sums in warp order
+      float s = 0.f;
+      for (int v = 0; v < kWarps; ++v) s += wsse[v];
+      block_sse += s;
     }
-    if (t == 0) block_sse += sred[0];
-
     accumulate_tile(acc_sums, acc_counts, owners, sidx, sw, x,
                     xbase + static_cast<int64_t>(tile) * kThreads * d, d,
                     x_bf16);
-    __syncthreads();  // sidx / sw / sred are rewritten by the next tile
+    __syncthreads();  // sidx / sw / wsse are rewritten by the next tile
   }
 
   if (acc_smem)
     store_partials(acc_sums, acc_counts, part_sums, part_counts, slot, K, d);
   if (t == 0) part_sse[slot] = block_sse;
+}
+
+template <int DP>
+size_t simt_smem(int K, int d, int bk, int acc_smem) {
+  size_t smem = static_cast<size_t>(bk) * center_stride(DP, d) * sizeof(float) +
+                ((2 + kWarps) * kThreads + kWarps) * sizeof(float);
+  if (acc_smem) smem += static_cast<size_t>(K) * (d + 1) * sizeof(float);
+  return smem;
 }
 
 template <int DP>
@@ -122,9 +152,7 @@ int launch(const void* x, int64_t x_bs, int x_bf16, const void* w,
            int32_t* idx, float* dist, float* part_sums, float* part_counts,
            float* part_sse, float* sums, float* counts, float* sse,
            cudaStream_t stream) {
-  size_t smem = static_cast<size_t>(bk) * center_stride(DP, d) * sizeof(float) +
-                (3 + kWarps) * kThreads * sizeof(float);
-  if (acc_smem) smem += static_cast<size_t>(K) * (d + 1) * sizeof(float);
+  const size_t smem = simt_smem<DP>(K, d, bk, acc_smem);
   cudaError_t e = allow_smem(lloyd_partial_kernel<DP>, smem);
   if (e != cudaSuccess) return static_cast<int>(e);
   lloyd_partial_kernel<DP><<<dim3(G, B), kThreads, smem, stream>>>(
@@ -136,11 +164,22 @@ int launch(const void* x, int64_t x_bs, int x_bf16, const void* w,
                        counts, sse, stream);
 }
 
+// Blocks of the SIMT kernel resident on one SM, and its shared memory.
+template <int DP>
+int occupancy(int K, int d, int bk, int acc_smem, int* per_sm, int* smem) {
+  const size_t bytes = simt_smem<DP>(K, d, bk, acc_smem);
+  *smem = static_cast<int>(bytes);
+  cudaError_t e = allow_smem(lloyd_partial_kernel<DP>, bytes);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      per_sm, lloyd_partial_kernel<DP>, kThreads, bytes));
+}
+
 }  // namespace
 }  // namespace repro
 
-// Strides are in elements.  dp (register width), bk (centers per staged
-// tile), G (blocks per batch entry) and acc_smem come from
+// SIMT route.  Strides are in elements.  dp (register width), bk (centers
+// per staged tile), G (blocks per batch entry) and acc_smem come from
 // repro_torch/kernels/tiles.py.  Returns the launches' cudaGetLastError().
 extern "C" int repro_lloyd_step(const void* x, long long x_bs, int x_bf16,
                                 const void* w, long long w_bs, int w_bf16,
@@ -154,6 +193,44 @@ extern "C" int repro_lloyd_step(const void* x, long long x_bs, int x_bf16,
                     c_bs, c_bf16, B, M, K, d, bk, G, acc_smem, idx, dist,
                     part_sums, part_counts, part_sse, sums, counts, sse,
                     static_cast<cudaStream_t>(stream));
+}
+
+// The SIMT kernel's blocks per SM (as the runtime's occupancy calculator
+// reports them) and its shared memory per block, for the launch
+// repro_lloyd_step would make.
+extern "C" int repro_lloyd_simt_occupancy(int K, int d, int dp, int bk,
+                                          int acc_smem, int* per_sm,
+                                          int* smem) {
+  REPRO_DISPATCH_DP(dp, repro::occupancy, K, d, bk, acc_smem, per_sm, smem);
+}
+
+// Tensor-core route, up to the statistics: |c|^2 and the center copy
+// (cpad (B, K, tc::dims(d))), the argmin with per-block SSE partials
+// (part_sse (B, ceil(M / 128))), and their sum in block order.
+extern "C" int repro_lloyd_tc(const void* x, long long x_bs, int x_bf16,
+                              const void* w, long long w_bs, int w_bf16,
+                              const void* c, long long c_bs, int c_bf16,
+                              int B, int M, int K, int d, float* cpad,
+                              float* c2, int32_t* idx, float* dist,
+                              float* part_sse, float* sse, void* stream) {
+  using namespace repro;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int64_t rows = static_cast<int64_t>(B) * K;
+  tc::centers_kernel<<<static_cast<unsigned>((rows + 7) / 8), 256, 0, s>>>(
+      c, c_bs, c_bf16, B, K, d, c2, cpad);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const size_t smem = tc::smem_bytes(d);
+  e = allow_smem(tc::argmin_kernel, smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const int G = (M + tc::kRows - 1) / tc::kRows;
+  tc::argmin_kernel<<<dim3(G, B), tc::kThreads, smem, s>>>(
+      x, x_bs, x_bf16, w, w_bs, w_bf16, cpad, c2, M, K, d, idx, dist,
+      part_sse);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return static_cast<int>(e);
+  return launch_reduce(nullptr, nullptr, part_sse, B, G, 0, d, nullptr,
+                       nullptr, sse, s);
 }
 
 extern "C" const char* repro_lloyd_error_string(int e) {

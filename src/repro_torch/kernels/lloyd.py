@@ -1,10 +1,22 @@
-"""The fused Lloyd step: nearest center plus raw weighted per-cluster
-statistics in one pass over the points (``csrc/lloyd.cu``).
+"""The Lloyd step: nearest center plus raw weighted per-cluster statistics
+(``csrc/lloyd.cu``).
 
 Replaces ``repro/kernels/lloyd.py::lloyd_step_pallas``.  For CPU tensors
 :func:`lloyd_step` runs the plain version
 (:func:`repro_torch.kernels.ref.lloyd_step_ref`); for CUDA tensors it
-launches the kernel or raises.  ``launches`` counts kernel launches.
+launches the kernel or raises, on the route ``tiles.lloyd_route`` picks by
+shape:
+
+  * ``"simt"`` (small d): one fused pass, distances on the FP32 cores and
+    per-block statistics reduced in block order;
+  * ``"tc"`` (d >= 32): the distances on the tensor cores (three TF32
+    passes, ``csrc/tc_argmin.cuh``), then the statistics from the centroid
+    update's kernels (``centroid.launch``) on the labels.
+
+``launches`` counts the calls that launched the kernel (one per call on
+either route); ``centroid_launches`` counts the centroid-update launches
+the tensor-core route made for its statistics (``centroid.launches`` does
+not include them).
 """
 from __future__ import annotations
 
@@ -12,17 +24,19 @@ import ctypes
 
 import torch
 
-from . import build
+from . import build, centroid
 from .ref import lloyd_step_ref
-from .tiles import (acc_in_smem, center_tile, check_inputs, lloyd_blocks,
-                    register_dim)
+from .tiles import (TC_ROWS, acc_in_smem, center_tile, check_inputs,
+                    lloyd_blocks, lloyd_route, register_dim, tc_dims)
 
-launches = 0      # CUDA launches of this kernel since import (or reset)
+launches = 0            # calls that launched this kernel since import/reset
+centroid_launches = 0   # centroid-update launches of the tensor-core route
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
 _LIB = None
+_OCCUPANCY: dict[tuple, tuple[int, int]] = {}
 
 
 def _lib() -> ctypes.CDLL:
@@ -34,11 +48,44 @@ def _lib() -> ctypes.CDLL:
             _I, _I, _I, _I, _I, _I, _I, _I,         # B M K d dp bk G acc_smem
             _P, _P, _P, _P, _P, _P, _P, _P,         # idx dist partials outputs
             _P]                                     # stream
-        lib.repro_lloyd_step.restype = _I
+        lib.repro_lloyd_simt_occupancy.argtypes = [
+            _I, _I, _I, _I, _I, _P, _P]             # K d dp bk acc_smem, out
+        lib.repro_lloyd_tc.argtypes = [
+            _P, _L, _I, _P, _L, _I, _P, _L, _I,     # x, w, c
+            _I, _I, _I, _I, _P, _P,                 # B M K d cpad c2
+            _P, _P, _P, _P,                         # idx dist part_sse sse
+            _P]                                     # stream
+        for fn in (lib.repro_lloyd_step, lib.repro_lloyd_simt_occupancy,
+                   lib.repro_lloyd_tc):
+            fn.restype = _I
         lib.repro_lloyd_error_string.argtypes = [_I]
         lib.repro_lloyd_error_string.restype = ctypes.c_char_p
         _LIB = lib
     return _LIB
+
+
+def _raise(err: int, shape: tuple) -> None:
+    if err:
+        raise RuntimeError(
+            f"lloyd_step: kernel launch failed with CUDA error {err} "
+            f"({_lib().repro_lloyd_error_string(err).decode()}) at "
+            f"(B, M, K, d) = {shape}")
+
+
+def simt_occupancy(k: int, d: int) -> tuple[int, int]:
+    """``(blocks per SM, shared memory bytes per block)`` of the SIMT
+    kernel at ``(k, d)``, as the runtime reports them on the current
+    device (cached)."""
+    key = (torch.cuda.current_device(), k, d)
+    if key not in _OCCUPANCY:
+        per_sm, smem = ctypes.c_int(), ctypes.c_int()
+        with torch.cuda.device(key[0]):
+            err = _lib().repro_lloyd_simt_occupancy(
+                k, d, register_dim(d), center_tile(k, d), acc_in_smem(k, d),
+                ctypes.byref(per_sm), ctypes.byref(smem))
+        _raise(err, (None, None, k, d))
+        _OCCUPANCY[key] = (per_sm.value, smem.value)
+    return _OCCUPANCY[key]
 
 
 def lloyd_step(x: torch.Tensor, w: torch.Tensor, c: torch.Tensor
@@ -55,9 +102,27 @@ def lloyd_step(x: torch.Tensor, w: torch.Tensor, c: torch.Tensor
         return lloyd_step_ref(x, w, c)
     if x.device.type != "cuda":
         raise ValueError(f"lloyd_step: unsupported device {x.device}")
+    out = route_step(x, w, c, lloyd_route(k, d))
+    global launches
+    launches += 1
+    return out
+
+
+def route_step(x: torch.Tensor, w: torch.Tensor, c: torch.Tensor,
+               route: str) -> tuple[torch.Tensor, ...]:
+    """:func:`lloyd_step` on CUDA inputs it accepts, on the given route
+    (``"simt"``, or ``"tc"`` where ``tiles.tc_smem_bytes(d)`` fits a
+    block) whatever the shape would pick; ``launches`` is not counted.
+    Measurement compares the two routes through it."""
+    with torch.cuda.device(x.device):
+        return (_tc_step if route == "tc" else _simt_step)(x, w, c)
+
+
+def _simt_step(x, w, c):
+    (b, m, d), k = x.shape, c.shape[1]
     dev = x.device
     sm_count = torch.cuda.get_device_properties(dev).multi_processor_count
-    g = lloyd_blocks(b, m, k, d, sm_count)
+    g = lloyd_blocks(b, m, k, d, sm_count, simt_occupancy(k, d)[0])
     f32 = dict(device=dev, dtype=torch.float32)
     idx = torch.empty((b, m), device=dev, dtype=torch.int32)
     dist = torch.empty((b, m), **f32)
@@ -67,24 +132,42 @@ def lloyd_step(x: torch.Tensor, w: torch.Tensor, c: torch.Tensor
     sums = torch.empty((b, k, d), **f32)
     counts = torch.empty((b, k), **f32)
     sse = torch.empty((b,), **f32)
-    lib = _lib()
     bf16 = torch.bfloat16
-    with torch.cuda.device(dev):
-        err = lib.repro_lloyd_step(
-            x.data_ptr(), x.stride(0), x.dtype == bf16,
-            w.data_ptr(), w.stride(0), w.dtype == bf16,
-            c.data_ptr(), c.stride(0), c.dtype == bf16,
-            b, m, k, d, register_dim(d), center_tile(k, d), g,
-            acc_in_smem(k, d),
-            idx.data_ptr(), dist.data_ptr(), part_sums.data_ptr(),
-            part_counts.data_ptr(), part_sse.data_ptr(), sums.data_ptr(),
-            counts.data_ptr(), sse.data_ptr(),
-            torch.cuda.current_stream(dev).cuda_stream)
-    if err:
-        raise RuntimeError(
-            f"lloyd_step: kernel launch failed with CUDA error {err} "
-            f"({lib.repro_lloyd_error_string(err).decode()}) at "
-            f"(B, M, K, d) = {(b, m, k, d)}")
-    global launches
-    launches += 1
+    err = _lib().repro_lloyd_step(
+        x.data_ptr(), x.stride(0), x.dtype == bf16,
+        w.data_ptr(), w.stride(0), w.dtype == bf16,
+        c.data_ptr(), c.stride(0), c.dtype == bf16,
+        b, m, k, d, register_dim(d), center_tile(k, d), g,
+        acc_in_smem(k, d),
+        idx.data_ptr(), dist.data_ptr(), part_sums.data_ptr(),
+        part_counts.data_ptr(), part_sse.data_ptr(), sums.data_ptr(),
+        counts.data_ptr(), sse.data_ptr(),
+        torch.cuda.current_stream(dev).cuda_stream)
+    _raise(err, (b, m, k, d))
+    return sums, counts, sse, idx, dist
+
+
+def _tc_step(x, w, c):
+    (b, m, d), k = x.shape, c.shape[1]
+    dev = x.device
+    f32 = dict(device=dev, dtype=torch.float32)
+    idx = torch.empty((b, m), device=dev, dtype=torch.int32)
+    dist = torch.empty((b, m), **f32)
+    part_sse = torch.empty((b, -(-m // TC_ROWS)), **f32)
+    sse = torch.empty((b,), **f32)
+    c2 = torch.empty((b, k), **f32)
+    cpad = torch.empty((b, k, tc_dims(d)), **f32)
+    bf16 = torch.bfloat16
+    err = _lib().repro_lloyd_tc(
+        x.data_ptr(), x.stride(0), x.dtype == bf16,
+        w.data_ptr(), w.stride(0), w.dtype == bf16,
+        c.data_ptr(), c.stride(0), c.dtype == bf16,
+        b, m, k, d, cpad.data_ptr(), c2.data_ptr(), idx.data_ptr(),
+        dist.data_ptr(),
+        part_sse.data_ptr(), sse.data_ptr(),
+        torch.cuda.current_stream(dev).cuda_stream)
+    _raise(err, (b, m, k, d))
+    sums, counts = centroid.launch(x, idx, w, k)
+    global centroid_launches
+    centroid_launches += 1
     return sums, counts, sse, idx, dist

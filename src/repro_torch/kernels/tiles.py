@@ -11,10 +11,18 @@ wrappers make before a launch.
     the work of ``d=2``.
   * Centers are staged in shared memory ``center_tile(k, d)`` at a time;
     ragged K is never visited.
-  * The Lloyd kernel (``lloyd.cu``) runs ``lloyd_blocks(...)`` blocks per
-    batch entry (``tile_blocks`` capped by its scratch) and keeps each
-    block's (K, d+1) accumulator in shared memory when
-    ``acc_in_smem(k, d)``.
+  * The Lloyd kernel (``lloyd.cu``) takes one of two routes,
+    ``lloyd_route(k, d)``.  The tensor-core route (``"tc"``: d >=
+    ``TC_MIN_D`` with an accumulator too large for shared memory) gives
+    each block ``TC_ROWS`` points, split once into TF32 hi and lo planes,
+    and walks the lane's centers in tiles of ``TC_COLS``, staged
+    ``TC_CHUNK`` dims at a time in ``TC_BUFFERS`` buffers
+    (``tc_smem_bytes``), from an f32 copy of the centers in rows of
+    ``tc_dims(d)``.  The SIMT route (``"simt"``) runs
+    ``lloyd_blocks(...)`` blocks per batch entry (as many as the card holds
+    at once, capped by its scratch) and keeps each block's (K, d+1)
+    accumulator in shared memory when ``acc_in_smem(k, d)``
+    (``lloyd_simt_smem_bytes``).
   * The centroid update (``centroid.cu``) keeps ``centroid_warps(k, d)``
     warp-private (K, d+1) accumulators per block in shared memory and runs
     ``centroid_blocks(...)`` blocks per lane when ``acc_in_smem(k, d)``;
@@ -48,9 +56,18 @@ CENTROID_MAX_WARPS = 8            # accumulators per block of the warp path
 CENTROID_SMEM_BYTES = 100 * 1024  # their shared memory per block
 CENTROID_MERGE_BYTES = 384 * 1024  # partials one last block merges
 CENTROID_SM_THREADS = 1024        # warp-path threads per SM (registers)
-BLOCKS_PER_SM = 4                 # Lloyd blocks the grid aims at per SM
+BLOCKS_PER_SM = 4                 # ADC-scan blocks the grid aims at per SM
 MAX_BATCH = 65535                 # the grid's y extent
 MAX_SMEM_BYTES = 232448           # a block's opt-in shared memory on sm_90
+SM_SMEM_BYTES = 233472            # shared memory of one SM's blocks (228 KB)
+SMEM_RESERVED_BYTES = 1024        # the runtime's own share per block
+SM_THREADS = 2048                 # resident threads per SM
+WARPS = THREADS // 32
+TC_MIN_D = 32                     # narrowest d of the tensor-core route
+TC_ROWS = 128                     # points per tensor-core block
+TC_COLS = 128                     # centers per tensor-core tile
+TC_CHUNK = 32                     # dims per staged chunk of centers
+TC_BUFFERS = 3                    # staged chunks in shared memory
 FLOATS = (torch.float32, torch.bfloat16)   # point, weight and table types
 ATTN_MAX_GROUP = 8                # query heads per kv head the kernel serves
 ATTN_MIN_ROWS = 64                # fewest centroids one attention split takes
@@ -131,10 +148,16 @@ def centroid_blocks(b: int, m: int, k: int, d: int, sm_count: int) -> int:
                       CENTROID_MERGE_BYTES // acc))
 
 
+def sort_clusters_fit(k: int) -> bool:
+    """Whether the centroid update's sort path can take ``k`` clusters: it
+    keeps K + 1 cursors of one lane in a block's shared memory, beside 32
+    warp sums."""
+    return 4 * (k + 33) <= MAX_SMEM_BYTES
+
+
 def check_sort_clusters(kernel: str, k: int) -> None:
-    """The sort path keeps K + 1 cursors of one lane in a block's shared
-    memory, beside 32 warp sums."""
-    if 4 * (k + 33) > MAX_SMEM_BYTES:
+    """Raise unless :func:`sort_clusters_fit`."""
+    if not sort_clusters_fit(k):
         raise TileError(f"{kernel}: k={k} cluster cursors do not fit the "
                         f"block's {MAX_SMEM_BYTES} bytes of shared memory",
                         extent=k, block=MAX_SMEM_BYTES // 4 - 33)
@@ -152,6 +175,52 @@ def segment_clusters(d: int) -> int:
     return 8 * (THREADS // segment_lanes(d))
 
 
+def tc_dims(d: int) -> int:
+    """Dims a tensor-core block stages per point: ``d`` rounded up to whole
+    ``TC_CHUNK`` chunks (zero-filled)."""
+    return -(-d // TC_CHUNK) * TC_CHUNK
+
+
+def tc_smem_bytes(d: int) -> int:
+    """Shared memory of one tensor-core block (``tc::smem_bytes`` in
+    ``csrc/tc_argmin.cuh``): the points' hi and lo planes, the staged hi and
+    lo chunks of the centers, |x|^2 and two tiles of |c|^2."""
+    return 4 * (2 * TC_ROWS * tc_dims(d) + 2 * TC_BUFFERS * TC_COLS * TC_CHUNK
+                + TC_ROWS + 2 * TC_COLS)
+
+
+def lloyd_route(k: int, d: int) -> str:
+    """The Lloyd kernel's route: ``"tc"`` (tensor cores, three TF32 passes,
+    then the centroid update's sort path for the statistics) for d >=
+    ``TC_MIN_D`` where the SIMT kernel's (K, d+1) accumulator would not fit
+    shared memory, a block's points fit its own and the sort path takes K
+    clusters (``sort_clusters_fit``), else ``"simt"`` (one fused pass on
+    the FP32 cores).  Where the accumulator fits, the fused pass measured
+    faster on the H100 than the two passes of the tensor-core route
+    (index_200k's coarse merge, (4, 6554, 256, 64))."""
+    return ("tc" if d >= TC_MIN_D and not acc_in_smem(k, d)
+            and tc_smem_bytes(d) <= MAX_SMEM_BYTES and sort_clusters_fit(k)
+            else "simt")
+
+
+def lloyd_simt_smem_bytes(k: int, d: int) -> int:
+    """Shared memory of one SIMT Lloyd block (``simt_smem`` in
+    ``csrc/lloyd.cu``): the staged centers, the tile's ids, weights and
+    owner masks, eight warp sums, and the accumulator when it fits."""
+    smem = (4 * center_tile(k, d) * center_stride(d)
+            + 4 * ((2 + WARPS) * THREADS + WARPS))
+    return smem + (4 * k * (d + 1) if acc_in_smem(k, d) else 0)
+
+
+def blocks_per_sm(smem: int, threads: int = THREADS) -> int:
+    """Blocks of ``threads`` threads and ``smem`` bytes of shared memory
+    that one SM holds at once, by shared memory and threads (registers
+    aside: the runtime's occupancy, which ``lloyd_blocks`` is given, counts
+    them too)."""
+    return max(1, min(SM_SMEM_BYTES // (smem + SMEM_RESERVED_BYTES),
+                      SM_THREADS // threads))
+
+
 def tile_blocks(b: int, m: int, sm_count: int) -> int:
     """Blocks per batch entry of a kernel whose blocks walk the entry's
     ``THREADS``-row tiles g, g + G, ...: enough for about ``BLOCKS_PER_SM``
@@ -159,12 +228,18 @@ def tile_blocks(b: int, m: int, sm_count: int) -> int:
     return min(-(-m // THREADS), max(1, -(-BLOCKS_PER_SM * sm_count // b)))
 
 
-def lloyd_blocks(b: int, m: int, k: int, d: int, sm_count: int) -> int:
-    """Blocks per batch entry of the Lloyd kernel: ``tile_blocks``, and few
-    enough that the (B, G, K, d+1) partials stay within
-    ``SCRATCH_BYTES``."""
-    return max(1, min(tile_blocks(b, m, sm_count),
+def lloyd_blocks(b: int, m: int, k: int, d: int, sm_count: int,
+                 per_sm: int) -> int:
+    """Blocks per batch entry of the SIMT Lloyd kernel.  At most as many as
+    hold all ``b`` entries' blocks on the card at once (``per_sm`` blocks
+    on each of ``sm_count`` SMs: no partial second wave) and as keep the
+    (B, G, K, d+1) partials within ``SCRATCH_BYTES``; within that, the
+    fewest blocks that take the most tiles any block must, so every block
+    walks the same number of tiles (but the last)."""
+    tiles = -(-m // THREADS)
+    most = max(1, min(tiles, per_sm * sm_count // b,
                       SCRATCH_BYTES // (4 * b * k * (d + 1))))
+    return -(-tiles // -(-tiles // most))
 
 
 def scan_smem_bytes(m: int, c: int) -> int:

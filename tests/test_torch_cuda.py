@@ -51,6 +51,112 @@ def test_lloyd_kernel_matches_plain(dev, b, m, k, d):
     assert all(torch.equal(a, b) for a, b in zip(got, again))
 
 
+def _check_lloyd_step(x, w, c, cancel, route=None):
+    """The kernel (on ``route``, else on the one its shape picks) against
+    the plain step: distances within 1e-4 relative plus ``cancel`` (the
+    expanded form's rounding), labels equal but at near-ties (the plain
+    distances to both candidates within ``cancel``), the statistics exactly
+    the plain accumulation of the kernel's labels (counts; sums at 1e-4),
+    the SSE at 1e-4, a repeat bit-identical, and one launch per
+    ``lloyd_step`` call."""
+    from repro_torch.kernels import lloyd, ref
+
+    def step():
+        if route is not None:
+            return lloyd.route_step(x, w, c, route)
+        before = lloyd.launches
+        out = lloyd.lloyd_step(x, w, c)
+        assert lloyd.launches == before + 1
+        return out
+
+    got = step()
+    sums, counts, sse, idx, dist = got
+    ridx, rdist = ref.assign_argmin_ref(x, c)
+    assert float(((dist - rdist).abs() - 1e-4 * rdist).amax()) <= cancel
+    diff = (idx != ridx).nonzero(as_tuple=True)
+    if diff[0].numel():
+        xs, cf = x.float()[diff], c.float()
+        dk = ((xs - cf[diff[0], idx[diff].long()]) ** 2).sum(-1)
+        dr = ((xs - cf[diff[0], ridx[diff].long()]) ** 2).sum(-1)
+        assert float((dk - dr).abs().amax()) <= cancel
+    psums, pcounts = ref.centroid_update_ref(x, idx, w, c.shape[1])
+    assert torch.equal(counts, pcounts)
+    torch.testing.assert_close(sums, psums, rtol=1e-4, atol=1e-4)
+    wf = w.float()
+    torch.testing.assert_close(
+        sse, torch.where(wf != 0, rdist * wf, 0.0).sum(-1), rtol=1e-4,
+        atol=0.0)
+    again = step()
+    assert all(torch.equal(a, b_) for a, b_ in zip(got, again))
+    return got, ridx
+
+
+def _cancel(x, c):
+    """The expanded-form distance's worst-case f32 rounding at width d
+    (chip_smoke.dot_rounding_bound)."""
+    x2 = float((x.float() ** 2).sum(-1).amax())
+    c2 = float((c.float() ** 2).sum(-1).amax())
+    eps = torch.finfo(torch.float32).eps
+    return (x.shape[-1] + 2) * eps * (x2 + c2 + 2 * (x2 * c2) ** 0.5)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,m,k,d", [(2, 1000, 300, 128), (1, 777, 8193, 64),
+                                     (3, 500, 129, 96), (2, 100, 17, 33),
+                                     (2, 300, 3000, 33), (2, 300, 70, 31),
+                                     (1, 300, 65536, 64)])
+def test_lloyd_routes_match_plain(dev, b, m, k, d, dtype):
+    """Shapes on both sides of the route threshold, ragged M and K, d not a
+    multiple of 8, bf16 inputs, more clusters than the tensor-core route's
+    statistics take: through ``lloyd_step`` (the route its shape picks),
+    then on each route that takes the shape."""
+    from repro_torch.kernels import tiles
+    x, w, c = _inputs(dev, b, m, k, d, dtype=dtype, seed=21)
+    cancel = _cancel(x, c)
+    _check_lloyd_step(x, w, c, cancel)
+    tc = d >= tiles.TC_MIN_D and tiles.sort_clusters_fit(k)
+    for route in ("simt", "tc") if tc else ("simt",):
+        _check_lloyd_step(x, w, c, cancel, route)
+
+
+def test_lloyd_tc_route_exact_ties(dev):
+    """d = 128: all-zero centers (the empty cache's first refresh) give
+    every point center 0; a duplicated center loses to its lower copy; the
+    zero-weight rows add nothing; the tensor-core route's statistics come
+    from the centroid kernel, counted apart."""
+    from repro_torch.kernels import centroid, lloyd
+    x, w, _ = _inputs(dev, 2, 1024, 1, 128, seed=22)
+    zero = torch.zeros((2, 8192, 128), device=dev)
+    pool = torch.cat([zero, x], 1)
+    wp = torch.cat([torch.zeros((2, 8192), device=dev), w], 1)
+    c0, l0 = centroid.launches, lloyd.centroid_launches
+    (sums, counts, _, idx, dist), ridx = _check_lloyd_step(
+        pool, wp, zero, _cancel(pool, zero))
+    assert centroid.launches == c0 and lloyd.centroid_launches == l0 + 2
+    assert torch.equal(idx, ridx) and not idx.any()
+    assert torch.equal(counts[:, 0], w.sum(1)) and not counts[:, 1:].any()
+    x3, w3, c3 = _inputs(dev, 1, 600, 300, 128, seed=23)
+    c3[0, 200] = c3[0, 37]                      # center 200 copies 37
+    x3[0, :50] = c3[0, 37]                      # points exactly on it
+    got, ridx = _check_lloyd_step(x3, w3, c3, _cancel(x3, c3))
+    assert not (got[3] == 200).any() and (got[3][0, :50] == 37).all()
+
+
+def test_lloyd_simt_route_plan(dev):
+    """The SIMT grid holds every block at once: at the paper's local and
+    merge and the PQ shapes, the runtime's occupancy (registers included)
+    is at most the shared-memory and thread reckoning's, and the grid fits
+    it."""
+    from repro_torch.kernels import lloyd, tiles
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for b, m, k, d in ((64, 7813, 1562, 2), (64, 32768, 256, 1),
+                       (4, 99968, 1000, 2)):
+        per_sm, smem = lloyd.simt_occupancy(k, d)
+        assert smem == tiles.lloyd_simt_smem_bytes(k, d)
+        assert per_sm <= tiles.blocks_per_sm(smem)
+        assert b * tiles.lloyd_blocks(b, m, k, d, sms, per_sm) <= per_sm * sms
+
+
 @pytest.mark.parametrize("b,m,k,d", SHAPES)
 def test_assign_kernel_matches_plain(dev, b, m, k, d):
     from repro_torch.kernels import assign, ref

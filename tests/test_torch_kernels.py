@@ -12,7 +12,8 @@ from repro.kernels import assign_argmin as jax_assign
 from repro.kernels import lloyd_step as jax_lloyd
 from repro.kernels.ref import lloyd_step_ref as jax_lloyd_ref
 from repro_torch.kernels import TileError, assign_argmin, lloyd_step, tiles
-from repro_torch.kernels.ref import assign_argmin_ref, centroid_update_ref
+from repro_torch.kernels.ref import (assign_argmin_ref, centroid_update_ref,
+                                     lloyd_step_ref)
 
 # ragged M / d / K on purpose (tests/test_lloyd.py's sweep)
 SHAPES = [(64, 4, 3), (257, 16, 7), (100, 33, 17), (512, 128, 300),
@@ -181,10 +182,10 @@ def test_tile_contract():
     assert tiles.center_tile(1000, 2) == 1000          # one resident tile
     assert 1 <= tiles.center_tile(10 ** 6, 64) < 10 ** 6
     assert tiles.acc_in_smem(1562, 2) and not tiles.acc_in_smem(1000, 64)
-    # local stage: 64 partitions of 7813 slots on 132 SMs
-    g = tiles.lloyd_blocks(64, 7813, 1562, 2, 132)
+    # local stage: 64 partitions of 7813 slots on 132 SMs, 4 blocks each
+    g = tiles.lloyd_blocks(64, 7813, 1562, 2, 132, 4)
     assert 1 <= g <= -(-7813 // tiles.THREADS)
-    assert tiles.lloyd_blocks(1, 10, 5, 2, 132) == 1   # never more than tiles
+    assert tiles.lloyd_blocks(1, 10, 5, 2, 132, 4) == 1  # at most its tiles
     # the centroid update's sort path: K + 1 cursors in one block's smem
     tiles.check_sort_clusters("k", 8192)
     with pytest.raises(TileError):
@@ -231,3 +232,151 @@ def test_centroid_warp_plan(b, m, k, d, warps, blocks):
     assert g == blocks
     assert g <= -(-m // (32 * warps))
     assert g == 1 or g * 4 * k * (d + 1) <= tiles.CENTROID_MERGE_BYTES
+
+
+@pytest.mark.parametrize("k,d,route", [
+    (8192, 128, "tc"),               # the KV-cache refresh
+    (819, 64, "tc"), (256, 64, "simt"),  # index_200k's coarse local, merge
+    (1638, 32, "tc"), (3000, 33, "tc"), (8193, 64, "tc"), (300, 128, "tc"),
+    (129, 96, "simt"), (17, 33, "simt"), (50, 200, "simt"),
+    (1562, 2, "simt"), (1000, 2, "simt"),  # paper_500k local and merge
+    (256, 1, "simt"),                # PQ codebooks
+    (77, 16, "simt"), (3000, 31, "simt"),
+    (3000, 160, "simt"),             # the points outgrow a tc block
+    (1000, 400, "simt"),
+    (58079, 64, "tc"),               # the most clusters the sort path takes
+    (58080, 64, "simt"), (65536, 64, "simt")])
+def test_lloyd_route(k, d, route):
+    """The Lloyd kernel's route by shape: the tensor cores where d >= 32,
+    the SIMT kernel's accumulator would not fit shared memory and the
+    centroid update's sort path (the route's statistics) takes K clusters;
+    the tensor-core block's shared memory stays within a block's (one
+    block per SM at the refresh's d = 128, the widest d it takes)."""
+    assert tiles.lloyd_route(k, d) == route
+    assert (route == "tc") == (d >= tiles.TC_MIN_D
+                               and not tiles.acc_in_smem(k, d)
+                               and tiles.tc_smem_bytes(d)
+                               <= tiles.MAX_SMEM_BYTES
+                               and tiles.sort_clusters_fit(k))
+    if (k, d) == (8192, 128):
+        assert tiles.tc_smem_bytes(d) == 230912
+        assert tiles.blocks_per_sm(tiles.tc_smem_bytes(d)) == 1
+
+
+@pytest.mark.parametrize("b,m,k,d,smem,per_sm,blocks", [
+    (64, 7813, 1562, 2, 54008, 4, 8),     # local: 512 of 528 slots
+    (64, 32768, 256, 1, 16416, 8, 16),    # PQ: 1024 of 1056
+    (4, 99968, 1000, 2, 38272, 5, 131)])  # merge: 524 of 660
+def test_lloyd_simt_plan(b, m, k, d, smem, per_sm, blocks):
+    """The SIMT grid holds all its blocks at once (the shared-memory and
+    thread reckoning; the card's occupancy, registers included, is checked
+    on the card): no partial second wave; every block but the last walks
+    the same number of tiles."""
+    assert tiles.lloyd_simt_smem_bytes(k, d) == smem
+    assert tiles.blocks_per_sm(smem) == per_sm
+    g = tiles.lloyd_blocks(b, m, k, d, 132, per_sm)
+    assert g == blocks and b * g <= per_sm * 132
+    n_tiles = -(-m // tiles.THREADS)
+    per_block = -(-n_tiles // g)
+    assert (g - 1) * per_block < n_tiles <= g * per_block
+
+
+def _route_cases():
+    rng = np.random.default_rng(31)
+    x = rng.random((2, 300, 40)).astype(np.float32)
+    c = rng.random((2, 50, 40)).astype(np.float32)
+    w = (rng.random((2, 300)) > 0.2).astype(np.float32)   # w = 0 rows
+    dup = c.copy()
+    dup[:, 30] = dup[:, 7]
+    x_on = x.copy()
+    x_on[:, :20] = dup[:, 7:8]
+    zero_c = np.zeros_like(c)
+    pool = np.concatenate([np.zeros_like(x), x], 1)       # empty cache
+    pool_w = np.concatenate([np.zeros_like(w), w], 1)
+    return {"w0": (x, w, c), "bf16": (x, w, c), "duplicate": (x_on, w, dup),
+            "zero_centers": (pool, pool_w, np.zeros((2, 50, 40), np.float32)),
+            "zero_centers_small": (x, w, zero_c)}
+
+
+@pytest.mark.parametrize("case", ["w0", "bf16", "duplicate", "zero_centers",
+                                  "zero_centers_small"])
+def test_tc_route_composition(case):
+    """The tensor-core route's composition in plain versions: the
+    assignment, the centroid update on its labels and sum(w * dist) equal
+    the plain Lloyd step (labels and counts exactly, sums and SSE to 1e-6
+    relative); ties (duplicate and all-zero centers) go to the lowest
+    index, as in the JAX package's reference."""
+    x, w, c = (torch.from_numpy(a) for a in _route_cases()[case])
+    if case == "bf16":
+        x, w, c = x.bfloat16(), w.bfloat16(), c.bfloat16()
+    idx, dist = assign_argmin_ref(x, c)
+    sums, counts = centroid_update_ref(x, idx, w, c.shape[1])
+    wf = w.float()
+    sse = torch.where(wf != 0, wf * dist, 0.0).sum(-1)
+    rsums, rcounts, rsse, ridx, _ = lloyd_step_ref(x, w, c)
+    assert torch.equal(idx, ridx) and torch.equal(counts, rcounts)
+    torch.testing.assert_close(sums, rsums, rtol=1e-6, atol=0.0)
+    torch.testing.assert_close(sse, rsse, rtol=1e-6, atol=0.0)
+    if case.startswith("zero_centers"):
+        assert not idx.any()
+    if case == "duplicate":
+        assert not (idx == 30).any() and bool((idx[:, :20] == 7).all())
+    if case != "bf16":
+        want = jax_lloyd_ref(jnp.asarray(x[0].numpy()),
+                             jnp.asarray(w[0].numpy()),
+                             jnp.asarray(c[0].numpy()))
+        assert np.array_equal(idx[0].numpy(), np.asarray(want[3]))
+
+
+def _tf32(a: np.ndarray) -> np.ndarray:
+    """cvt.rna.tf32.f32: the f32 mantissa rounded to 10 bits, ties away
+    from zero (on the magnitude bits)."""
+    bits = np.ascontiguousarray(a, np.float32).view(np.uint32)
+    return ((bits + np.uint32(0x1000)) & np.uint32(0xFFFFE000)).view(
+        np.float32)
+
+
+def _truncate_tf32(a: np.ndarray) -> np.ndarray:
+    """What the tensor core reads of an f32 operand: its top 19 bits."""
+    bits = np.ascontiguousarray(a, np.float32).view(np.uint32)
+    return (bits & np.uint32(0xFFFFE000)).view(np.float32)
+
+
+def _split(a):
+    """The kernel's split: hi = cvt.rna.tf32(v) (in integer operations),
+    lo = v - hi (exact), which the tensor core truncates to TF32."""
+    hi = _tf32(a)
+    return hi, _truncate_tf32(a - hi)
+
+
+def test_three_tf32_passes_keep_fp32_class_distances():
+    """Why the tensor-core route splits both operands: at d = 128 on the
+    unit box, the expanded-form distance with the cross term in three TF32
+    passes (lo_x hi_c + hi_x lo_c + hi_x hi_c, f32 accumulation) stays
+    within the fp32 rounding bound that chip_smoke.py allows near-ties
+    (``dot_rounding_bound``) against f64; one TF32 pass does not."""
+    rng = np.random.default_rng(41)
+    d = 128
+    x = rng.random((256, d)).astype(np.float32)
+    c = rng.random((512, d)).astype(np.float32)
+    exact = ((x.astype(np.float64)[:, None, :] - c.astype(np.float64)[None])
+             ** 2).sum(-1)
+    x2 = (x.astype(np.float32) ** 2).sum(-1, dtype=np.float32)[:, None]
+    c2 = (c ** 2).sum(-1, dtype=np.float32)[None]
+    (xh, xl), (ch, cl) = _split(x), _split(c)
+    assert np.abs(xh + xl - x).max() <= 2.0 ** -21 * np.abs(x).max()
+
+    def mm(a, b):   # products of TF32 values are exact in f32
+        return torch.from_numpy(a) @ torch.from_numpy(b).T
+
+    three = (mm(xl, ch) + mm(xh, cl) + mm(xh, ch)).numpy()
+    one = mm(xh, ch).numpy()
+    x2m, c2m = float(x2.max()), float(c2.max())
+    bound = (d + 2) * np.finfo(np.float32).eps * (
+        x2m + c2m + 2 * (x2m * c2m) ** 0.5)
+    err3 = np.abs(np.maximum(x2 + c2 - 2 * three, 0) - exact).max()
+    err1 = np.abs(np.maximum(x2 + c2 - 2 * one, 0) - exact).max()
+    assert err3 <= bound < err1
+    # bf16-valued points (the refresh's) have lo = 0: their split is exact
+    xb = torch.from_numpy(x).bfloat16().float().numpy()
+    assert not _split(xb)[1].any()
