@@ -52,6 +52,7 @@ TF32_PEAK = 495e12         # FLOP/s
 HBM_BYTES_PER_S = 3.35e12  # B/s
 L2_BYTES = 50 * 2**20      # the H100's L2 cache
 SPIN_CYCLES = 200_000_000  # ~0.1 s at the H100's clock: time to queue calls
+ISSUE_PER_SM_CLOCK = 128   # thread-instructions an SM issues a clock (4 x 32)
 
 
 def emit(phase: str, **fields) -> None:
@@ -133,6 +134,20 @@ def pair_bound_ms(b: int, m: int, k: int, d: int, in_bytes: int,
     center) pair: 2d for the cross term (d multiply-adds), then the norm
     add, the subtract of 2 x.c and the clamp (+3) — 7 at d=2."""
     return bound_ms(b * m * k * (2 * d + 3), in_bytes + out_bytes)
+
+
+def issue_floor_ms(b: int, m: int, k: int, d: int, sm_count: int,
+                   clock_hz: float) -> float:
+    """Least time for the exact per-pair expression of a one-pass
+    assignment at the SMs' issue rate (``ISSUE_PER_SM_CLOCK``
+    thread-instructions per clock at their top clock): d multiply-adds for
+    the cross term, then the norm add, the fused subtract of 2 x.c, the
+    clamp, the compare and two selects, d + 6 instructions a pair (nvcc
+    compiles argmin_tile's form to d + 7: it doubles 2 x.c and
+    subtracts).  Unlike :func:`bound_ms` it charges an add, a compare or a
+    select a whole issue slot."""
+    return b * m * k * (d + 6) / (sm_count * ISSUE_PER_SM_CLOCK
+                                  * clock_hz) * 1e3
 
 
 def tc_lo_blocks(x: torch.Tensor) -> torch.Tensor:
@@ -266,13 +281,64 @@ def lloyd_parity(name, x, w, c, cancel=None):
 
 
 def assign_parity(name, x, c):
-    from repro_torch.kernels import assign, ref
+    """The assignment kernel against its plain version on the route its
+    shape takes: on the tensor-core route (three TF32 passes) labels may
+    move at near-ties within :func:`dot_rounding_bound`, as the Lloyd
+    kernel's there; a repeated launch bit-identical."""
+    from repro_torch.kernels import assign, ref, tiles
+    route = tiles.assign_route(c.shape[1], x.shape[2])
     idx, dist = assign.assign_argmin(x, c)
     ridx, rdist = ref.assign_argmin_ref(x, c)
-    n_diff = _check_assignment(name, x, c, idx, dist, ridx, rdist)
-    return dict(case=name, shape=list(x.shape) + [c.shape[1]],
+    n_diff = _check_assignment(name, x, c, idx, dist, ridx, rdist,
+                               dot_rounding_bound(x, c) if route == "tc"
+                               else None)
+    again = assign.assign_argmin(x, c)
+    check(torch.equal(again[0], idx) and torch.equal(again[1], dist),
+          f"{name}: a repeated launch is not bit-identical")
+    return dict(case=name, shape=list(x.shape) + [c.shape[1]], route=route,
                 dtype=str(x.dtype), labels_at_near_ties=n_diff,
                 max_dist_err=float((dist - rdist).abs().amax()))
+
+
+def assign_lloyd_identity(name, x, c):
+    """The assignment kernel against the Lloyd kernel's SIMT route on the
+    same inputs: ``idx`` and ``dist`` bit-identical, since both run the
+    plain version's expression, in the same order, with the same
+    contractions."""
+    from repro_torch.kernels import assign, lloyd
+    idx, dist = assign.assign_argmin(x, c)
+    w = torch.ones(x.shape[:2], device=x.device)
+    *_, lidx, ldist = lloyd.route_step(x, w, c, "simt")
+    n_idx = int((idx != lidx).sum())
+    n_dist = int((dist != ldist).sum())
+    check(n_idx == 0 and n_dist == 0, f"{name}: the assignment kernel and "
+          f"the Lloyd SIMT route differ in {n_idx} labels, {n_dist} distances")
+    return dict(case=name, shape=list(x.shape) + [c.shape[1]],
+                bit_identical=True)
+
+
+def backend_step_trace(name, x, w, c):
+    """Where the ``cuda`` and ``cuda_fused`` backends part on one Lloyd step
+    from the same centers: the Lloyd kernel (its SIMT route, fused) against
+    the assignment kernel, the centroid kernel on its labels and the SSE as
+    the ``cuda`` backend sums it (``core/backend.py``)."""
+    from repro_torch.kernels import assign, centroid, lloyd
+    sums, counts, sse, idx, dist = lloyd.lloyd_step(x, w, c)
+    uidx, udist = assign.assign_argmin(x, c)
+    usums, ucounts = centroid.centroid_update(x, uidx, w, c.shape[1])
+    wf = w.float()
+    usse = torch.where(wf != 0, udist * wf, 0.0).sum(-1)
+    return dict(case=name, shape=list(x.shape) + [c.shape[1]],
+                idx_identical=torch.equal(idx, uidx),
+                dist_identical=torch.equal(dist, udist),
+                counts_identical=torch.equal(counts, ucounts),
+                sums_differing=int((sums != usums).sum()),
+                max_sum_rel_diff=float(((sums - usums).abs()
+                                        / usums.abs().clamp_min(1e-30))
+                                       .amax()),
+                sse_identical=torch.equal(sse, usse),
+                max_sse_rel_diff=float(((sse - usse).abs()
+                                        / usse.abs()).amax()))
 
 
 def centroid_parity(name, x, w, c):
@@ -435,38 +501,43 @@ def read_launches() -> dict:
             "lloyd_centroid_update": lloyd.centroid_launches}
 
 
-class LloydRecorder:
-    """Within ``with``: records the (B, M, K, d) of every ``lloyd_step``
-    call the paths make (``shapes``: shape -> calls) and, where ``timed``,
+class ShapeRecorder:
+    """Within ``with``: records the (B, M, K, d) of every call the paths
+    make to one kernel's wrapper, ``lloyd_step(x, w, c)`` or
+    ``assign_argmin(x, c)`` (``shapes``: shape -> calls; ``shared``: the
+    shapes whose points one batch broadcast shares) and, where ``timed``,
     CUDA events around each call, read with :meth:`device_ms`."""
 
-    def __init__(self, timed: bool = False):
+    def __init__(self, kernel: str, timed: bool = False):
+        self.kernel = kernel
         self.timed = timed
         self.shapes: dict = {}
+        self.shared: set = set()
         self.events: list = []
 
     def __enter__(self):
-        from repro_torch.kernels import lloyd
-        self._orig = orig = lloyd.lloyd_step
+        mod = _kernel_modules()[self.kernel]
+        self._orig = orig = getattr(mod, self.kernel)
 
-        def recording(x, w, c):
-            key = (x.shape[0], x.shape[1], c.shape[1], x.shape[2])
+        def recording(x, *args):
+            key = (x.shape[0], x.shape[1], args[-1].shape[1], x.shape[2])
             self.shapes[key] = self.shapes.get(key, 0) + 1
+            if x.shape[0] > 1 and x.stride(0) == 0:
+                self.shared.add(key)
             if not self.timed:
-                return orig(x, w, c)
+                return orig(x, *args)
             ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
             ev[0].record()
-            out = orig(x, w, c)
+            out = orig(x, *args)
             ev[1].record()
             self.events.append(ev)
             return out
 
-        lloyd.lloyd_step = recording
+        setattr(mod, self.kernel, recording)
         return self
 
     def __exit__(self, *exc):
-        from repro_torch.kernels import lloyd
-        lloyd.lloyd_step = self._orig
+        setattr(_kernel_modules()[self.kernel], self.kernel, self._orig)
 
     def device_ms(self, since: int = 0) -> list:
         """Device ms of each timed call from the ``since``-th on."""
@@ -500,15 +571,17 @@ def build_and_sweep(spec_file: Path, nprobes, repeats: int):
     """Build the index of a spec file's workload and search it at each
     nprobe: build seconds, queries/s (each of ``repeats`` after a warm-up,
     and the best) and recall@k against the exact search, with the kernels' launches
-    counted over the build and the searches, and the (B, M, K, d) of the
-    build's Lloyd steps (shape -> calls)."""
+    counted over the build and the searches, the (B, M, K, d) of the
+    build's Lloyd steps (shape -> calls) and the recorder of its
+    assignment calls (:class:`ShapeRecorder`)."""
     from repro_torch.index import build_index, exact_search, recall_at_k
     ispec, w, src, queries = index_workload(spec_file)
     k, q_block = w["k"], w["q_block"]
     torch.cuda.synchronize()
     reset_launches()
     t0 = time.perf_counter()
-    with LloydRecorder() as rec:
+    with ShapeRecorder("lloyd_step") as rec, \
+            ShapeRecorder("assign_argmin") as arec:
         index, stats = build_index(src, ispec, w["seed"])
     torch.cuda.synchronize()
     build_s = time.perf_counter() - t0
@@ -540,7 +613,7 @@ def build_and_sweep(spec_file: Path, nprobes, repeats: int):
               f"{spec_file.name}: missing neighbours at nprobe "
               f"{p['nprobe']}")
     return (ispec, w, queries, index, stats, build_s, exact_s, sweep, launches,
-            rec.shapes)
+            rec.shapes, arec)
 
 
 def probed_scan_inputs(index, queries, nprobe):
@@ -554,6 +627,26 @@ def probed_scan_inputs(index, queries, nprobe):
     m, c = index.codebooks.shape[:2]
     codes = index.codes[cells.long()].reshape(q * p, index.cap, m)
     return luts.reshape(q * p, m, c), codes
+
+
+def scan_plan(luts, codes) -> dict:
+    """The ADC scan's launch for these inputs: blocks per SM (the runtime's
+    occupancy), blocks per entry, the grid and waves; checks that the grid
+    is one wave wherever the entries fit the card."""
+    from repro_torch.kernels import scan, tiles
+    b, l, m = codes.shape
+    per_sm = scan.occupancy(m, luts.shape[2], luts.dtype == torch.bfloat16,
+                            tiles.code_vector_bytes(m, codes.data_ptr(),
+                                                    codes.stride(0)))
+    p = scan.plan(luts, codes)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    n_tiles = -(-l // tiles.THREADS)
+    check(1 <= p.blocks <= n_tiles and (
+        b * p.blocks <= per_sm * sms if b <= per_sm * sms else p.blocks == 1),
+        f"adc_scan plan {p} at (B, L) = {(b, l)}")
+    return dict(threads=tiles.THREADS, blocks_per_sm=per_sm,
+                blocks_per_entry=p.blocks, grid=[p.blocks, b],
+                tiles_per_block=-(-n_tiles // p.blocks), waves=p.waves)
 
 
 def scan_bound_ms(luts, codes) -> tuple[float, str]:
@@ -573,6 +666,9 @@ PROMPT_LEN = 512       # tokens per request (prefill by decode steps)
 GEN_TOKENS = 32
 RECOMPRESS_EVERY = 256
 LLOYD_PER_REFRESH = 5  # 4 iterations, then the final pass (max_iters=4)
+# recall@10 at nprobe = 2 on the H100 before the assignment kernel's
+# tensor-core route routed the builds' chunks (PERF.md §6)
+INDEX_RECALL_BEFORE = {"index_200k": 0.983203125, "index_5m": 0.9796875}
 # live centroids summed over the 256 lanes after the two refreshes of a
 # request with the FP32 Lloyd kernel before its tensor-core route (PERF.md)
 LIVE_TOTALS_BEFORE = (495, 736)
@@ -703,7 +799,7 @@ def serve_long_500k():
         reset_launches()
         t0 = time.perf_counter()
         # CUDA events around each Lloyd launch: each refresh's device time
-        with LloydRecorder(timed=True) as rec:
+        with ShapeRecorder("lloyd_step", timed=True) as rec:
             answers.append(eng.generate(prompt))
         torch.cuda.synchronize()
         total_s = time.perf_counter() - t0
@@ -842,10 +938,15 @@ def main() -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60).stdout.strip().splitlines()[0]
+    sm_clock_hz = 1e6 * float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.split()[0])
     kind = torch.cuda.get_device_name(0)
     cap = torch.cuda.get_device_capability(0)
     emit("device", kind=kind, capability=list(cap), nvidia_smi=smi,
-         torch=torch.__version__, cuda=torch.version.cuda)
+         max_sm_clock_hz=sm_clock_hz, torch=torch.__version__,
+         cuda=torch.version.cuda)
     check(cap == (9, 0), f"needs an sm_90 card, got {cap}")
 
     # -- 2. build ----------------------------------------------------------
@@ -880,6 +981,9 @@ def main() -> int:
               assign_parity("assign_bf16",
                             *_case(2, 5000, 100, 8, seed=9,
                                    dtype=torch.bfloat16)[::2])]
+    identity = [assign_lloyd_identity("predict", predict_x, predict_c),
+                assign_lloyd_identity("local", local[0], local[2]),
+                assign_lloyd_identity("merge", merge[0], merge[2])]
     cases += [centroid_parity("centroid_local", *local),
               centroid_parity("centroid_merge", *merge),
               centroid_parity("centroid_pq_200k", *pq200k),
@@ -995,15 +1099,18 @@ def main() -> int:
           "an all-dead row's state is not (NEG, Nc)")
     cases += [attn_parity("attn_all_dead_row", q, kc, vc, cnt, scale)]
     torch.cuda.synchronize()
-    emit("parity", cases=cases, lloyd_plans=plans)
+    emit("parity", cases=cases, lloyd_plans=plans,
+         assign_vs_lloyd_simt=identity)
 
     # -- 4. main path: SampledKMeans fit + predict at paper_500k ------------
     spec = ClusterSpec.from_dict(json.loads(SPEC_FILE.read_text())
                                  ["cluster_spec"])
     pts, _, _ = blobs(500_000, dim=2, seed=0)
     x = torch.from_numpy(pts).cuda()
-    warm = SampledKMeans(spec).fit(x, seed=0)          # warm-up, same seed
-    warm.predict(x)
+    # warm-up, same seed; the shapes of its assignment calls
+    with ShapeRecorder("assign_argmin") as fused_assign:
+        warm = SampledKMeans(spec).fit(x, seed=0)
+        warm.predict(x)
     torch.cuda.synchronize()
 
     reset_launches()
@@ -1095,7 +1202,8 @@ def main() -> int:
 
     # -- 7. the unfused cuda backend at paper_500k --------------------------
     cuda_spec = spec.replace(backend="cuda")
-    warm_cuda = SampledKMeans(cuda_spec).fit(x, seed=0)
+    with ShapeRecorder("assign_argmin") as cuda_assign:
+        warm_cuda = SampledKMeans(cuda_spec).fit(x, seed=0)
     torch.cuda.synchronize()
     reset_launches()
     t0 = time.perf_counter()
@@ -1120,7 +1228,13 @@ def main() -> int:
     unfused_rel = abs(float(ua.sse) - float(ub.sse)) / float(ub.sse)
     check(unfused_rel <= 1e-4, f"landmark SSE: cuda {float(ua.sse)} vs "
           f"cuda_fused {float(ub.sse)}")
+    # where the two backends part: one step from the same centers
+    trace = [backend_step_trace("local", *local),
+             backend_step_trace("merge", *merge),
+             backend_step_trace("landmark_local",
+                                *_case(64, 7813, 4, 2, seed=27))]
     emit("cuda_backend", fit_s=cuda_fit_s, launches=cuda_launches,
+         landmark_trace=trace,
          sse=cuda_sse, standard_sse=float(std.sse), relative_error=cuda_rel,
          bit_identical=True, landmark_sse_cuda=float(ua.sse),
          landmark_sse_cuda_fused=float(ub.sse), landmark_rel=unfused_rel)
@@ -1128,7 +1242,7 @@ def main() -> int:
     # -- 8. the IVF/PQ index at index_200k -----------------------------------
     repeats2 = 3
     (ispec, w2, q2, index2, stats2, build2_s, exact2_s, sweep2,
-     index_launches, lloyd_shapes2) = build_and_sweep(
+     index_launches, lloyd_shapes2, assign_rec2) = build_and_sweep(
          SPECS / "index_200k.json", [1, 2, 4, 8], repeats2)
     check(all(index_launches[n] > 0 for n in
               ("adc_scan", "lloyd_step", "assign_argmin")),
@@ -1147,13 +1261,14 @@ def main() -> int:
          sweep=[dict(nprobe=p["nprobe"], qps=p["qps"],
                      qps_repeats=p["qps_repeats"], recall=p["recall"])
                 for p in sweep2],
+         recall_at_10_nprobe2_before=INDEX_RECALL_BEFORE["index_200k"],
          scan_parity=cases[-2:])
 
     # -- 9. the IVF/PQ index at index_5m, the repo's largest ---------------
     import repro_torch.index.ivf as ivf_mod
     (ispec5, w5, q5, index5, stats5, build5_s, exact5_s, sweep5,
-     launches5, lloyd_shapes5) = build_and_sweep(SPECS / "index_5m.json",
-                                                 [2], 1)
+     launches5, lloyd_shapes5, assign_rec5) = build_and_sweep(
+         SPECS / "index_5m.json", [2], 1)
     check(all(launches5[n] > 0 for n in
               ("adc_scan", "lloyd_step", "assign_argmin")),
           f"the index_5m path skipped a kernel: {launches5}")
@@ -1186,6 +1301,7 @@ def main() -> int:
          source=w5["source"], build_s=build5_s, stats=stats5._asdict(),
          exact_search_s=exact5_s, launches=launches5,
          qps=sweep5[0]["qps"], recall_at_10=sweep5[0]["recall"],
+         recall_at_10_before=INDEX_RECALL_BEFORE["index_5m"],
          kernel_vs_plain_scan=dict(max_rel_dist_err=rel5,
                                    ids_swapped_at_near_ties=n_swapped),
          scan_parity=cases[-1])
@@ -1211,6 +1327,28 @@ def main() -> int:
           f"tensor-core route {len(index_parity)} times, not at both sizes")
     cases += index_parity
     emit("index_lloyd_parity", cases=index_parity)
+
+    # the assignment kernel at every shape the paths launched it at (as
+    # their runs recorded them), with each path's calls; where d >=
+    # TC_MIN_D (the index builds' routing of chunks to cells) on the route
+    # its shape takes, against the plain version
+    assign_calls, assign_shared = {}, set()
+    for path, rec in (("paper_500k", fused_assign),
+                      ("paper_500k_cuda", cuda_assign),
+                      ("index_200k", assign_rec2), ("index_5m", assign_rec5)):
+        assign_shared |= rec.shared
+        for shape, n in rec.shapes.items():
+            assign_calls.setdefault(shape, {})[path] = n
+    index_assign = [
+        assign_parity(f"assign_{'+'.join(calls)}_{'x'.join(map(str, shape))}",
+                      *_case(*shape, seed=26)[::2])
+        for shape, calls in sorted(assign_calls.items())
+        if shape[3] >= tiles.TC_MIN_D]
+    check(len(index_assign) >= 2
+          and all(c_["route"] == "tc" for c_ in index_assign),
+          f"the index builds' routing took another route: {index_assign}")
+    cases += index_assign
+    emit("index_assign_parity", cases=index_assign)
 
     # -- 10. clustered-KV decode serving, llama3-8b at full width ------------
     serve_requests, served_parity = serve_long_500k()
@@ -1303,7 +1441,7 @@ def main() -> int:
         b, l, m = codes.shape
         return timed(shape_name, (luts, codes), scan.adc_scan_cuda,
                      ref.adc_scan_ref, scan_bound_ms(luts, codes), b=b, l=l,
-                     m=m, c=luts.shape[2])
+                     m=m, c=luts.shape[2], plan=scan_plan(luts, codes))
 
     c_local = centroid_entry("local", *local)
     c_merge = centroid_entry("merge", *merge)
@@ -1369,12 +1507,42 @@ def main() -> int:
         lambda *t: cluster_attn.cluster_attn_partial(*t, scale),
         lambda *t: ref.cluster_attn_decode_ref(*t, scale),
         attn_bound_ms(*ragged), b=4, h=32, hkv=8, nc=1000, dh=128)
-    a_pred = timed("predict", (predict_x, predict_c), assign.assign_argmin,
-                   ref.assign_argmin_ref,
-                   pair_bound_ms(1, 500_000, 1000, 2,
-                                 (predict_x.numel() + predict_c.numel()) * 4,
-                                 500_000 * 8),
-                   b=1, m=500_000, k=1000, d=2)
+    # the assignment kernel at every shape its paths launched, with each
+    # path's calls; at small d also the issue floor of the exact expression
+    # (issue_floor_ms); where d >= TC_MIN_D both routes on the same inputs
+    # (route_ms) and the tensor cores' bound (tc_bound_ms)
+    def assign_entry(shape, calls, shared):
+        bb, mm, kk, dd = shape
+        if shape == tuple(predict_x.shape[:2]) + tuple(predict_c.shape[1:]):
+            name, xa, ca = "predict", predict_x, predict_c
+        else:
+            name = f"{'+'.join(calls)} {bb}x{mm}x{kk} d={dd}"
+            xa, _, ca = _case(bb, mm, kk, dd, share_x=shared, seed=26)
+        n_bytes = (n_read(xa) + ca.numel()) * 4 + bb * mm * 8
+        route = tiles.assign_route(kk, dd)
+        entry = timed(name, (xa, ca), assign.assign_argmin,
+                      ref.assign_argmin_ref,
+                      pair_bound_ms(bb, mm, kk, dd, n_bytes, 0),
+                      b=bb, m=mm, k=kk, d=dd, route=route,
+                      calls_by_path=calls)
+        if 0 < tiles.register_dim(dd) <= 16:
+            entry["issue_floor_ms"] = issue_floor_ms(bb, mm, kk, dd, sms,
+                                                     sm_clock_hz)
+        if dd >= tiles.TC_MIN_D:
+            entry["route_ms"] = {
+                r: device_ms(rotating(
+                    lambda *t, r=r: assign.route_argmin(*t, r), xa, ca))
+                for r in ("simt", "tc")}
+            entry["tc_bound_ms"] = tc_bound_ms(xa, kk)
+        if route == "tc":
+            entry["fp32_bound_ms"] = entry["bound_ms"]
+            entry["bound_ms"], entry["bound_by"] = lloyd_bound_ms(
+                xa, kk, n_bytes, "tc")
+        return entry
+
+    a_shapes = [assign_entry(shape, calls, shape in assign_shared)
+                for shape, calls in sorted(assign_calls.items())]
+    a_pred = next(e for e in a_shapes if e["shape"] == "predict")
     errs = {c["case"]: c for c in cases}
     kernels = [
         dict(name="lloyd_step", route="cuda",
@@ -1398,9 +1566,16 @@ def main() -> int:
              replaces="src/repro/kernels/assign.py:87",
              launches=launches["assign_argmin"],
              max_abs_err=errs["assign_predict"]["max_dist_err"],
+             launches_by_path={
+                 "paper_500k": launches["assign_argmin"],
+                 "paper_500k_cuda": cuda_launches["assign_argmin"],
+                 "index_200k": index_launches["assign_argmin"],
+                 "index_5m": launches5["assign_argmin"],
+                 "serve_long_500k": serve_launches["assign_argmin"]},
              ms=a_pred["ms"], plain_ms=a_pred["plain_ms"],
              bound_ms=a_pred["bound_ms"], bound_by=a_pred["bound_by"],
-             library_ms=None, shapes=[a_pred]),
+             issue_floor_ms=a_pred["issue_floor_ms"],
+             library_ms=None, shapes=a_shapes),
         dict(name="centroid_update", route="cuda",
              source="src/repro_torch/kernels/csrc/centroid.cu",
              replaces="src/repro/kernels/centroid.py:60",

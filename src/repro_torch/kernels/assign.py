@@ -3,7 +3,17 @@
 Replaces ``repro/kernels/assign.py::assign_argmin_pallas``.  For CPU
 tensors :func:`assign_argmin` runs the plain version
 (:func:`repro_torch.kernels.ref.assign_argmin_ref`); for CUDA tensors it
-launches the kernel or raises.  ``launches`` counts kernel launches.
+launches the kernel or raises, on the route ``tiles.assign_route`` picks by
+shape:
+
+  * ``"simt"``: the FP32 cores, four points per thread where the batch
+    is large (``tiles.assign_points``), its ``idx``/``dist`` bit for bit
+    those of the Lloyd kernel's SIMT route;
+  * ``"tc"`` (d >= 32): the Lloyd kernel's tensor-core argmin
+    (``csrc/tc_argmin.cuh``, three TF32 passes), after a pre-pass for |c|^2
+    and an f32 copy of the centers.
+
+``launches`` counts the calls that launched the kernel.
 """
 from __future__ import annotations
 
@@ -13,7 +23,8 @@ import torch
 
 from . import build
 from .ref import assign_argmin_ref
-from .tiles import center_tile, check_inputs, register_dim
+from .tiles import (assign_blocks, assign_points, assign_route, center_tile,
+                    check_inputs, register_dim, tc_dims)
 
 launches = 0      # CUDA launches of this kernel since import (or reset)
 
@@ -21,6 +32,7 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
 _LIB = None
+_OCCUPANCY: dict[tuple, int] = {}
 
 
 def _lib() -> ctypes.CDLL:
@@ -29,13 +41,43 @@ def _lib() -> ctypes.CDLL:
         lib = build.load("assign")
         lib.repro_assign_argmin.argtypes = [
             _P, _L, _I, _P, _L, _I,                 # x, c
-            _I, _I, _I, _I, _I, _I,                 # B M K d dp bk
+            _I, _I, _I, _I, _I, _I, _I, _I,         # B M K d dp bk wide G
             _P, _P, _P]                             # idx dist stream
-        lib.repro_assign_argmin.restype = _I
+        lib.repro_assign_occupancy.argtypes = [_I, _I, _I, _I, _P]
+        lib.repro_assign_tc.argtypes = [
+            _P, _L, _I, _P, _L, _I,                 # x, c
+            _I, _I, _I, _I, _P, _P,                 # B M K d cpad c2
+            _P, _P, _P]                             # idx dist stream
+        for fn in (lib.repro_assign_argmin, lib.repro_assign_occupancy,
+                   lib.repro_assign_tc):
+            fn.restype = _I
         lib.repro_assign_error_string.argtypes = [_I]
         lib.repro_assign_error_string.restype = ctypes.c_char_p
         _LIB = lib
     return _LIB
+
+
+def _raise(err: int, shape: tuple) -> None:
+    if err:
+        raise RuntimeError(
+            f"assign_argmin: kernel launch failed with CUDA error {err} "
+            f"({_lib().repro_assign_error_string(err).decode()}) at "
+            f"(B, M, K, d) = {shape}")
+
+
+def occupancy(k: int, d: int, wide: bool) -> int:
+    """Blocks of the SIMT kernel one SM of the current device holds at once
+    at ``(k, d)``, with the wide register tile or without, as the runtime
+    reports them (cached)."""
+    key = (torch.cuda.current_device(), k, d, wide)
+    if key not in _OCCUPANCY:
+        per_sm = ctypes.c_int()
+        err = _lib().repro_assign_occupancy(
+            d, register_dim(d), center_tile(k, d), wide,
+            ctypes.byref(per_sm))
+        _raise(err, (None, None, k, d))
+        _OCCUPANCY[key] = per_sm.value
+    return _OCCUPANCY[key]
 
 
 def assign_argmin(x: torch.Tensor, c: torch.Tensor
@@ -48,23 +90,44 @@ def assign_argmin(x: torch.Tensor, c: torch.Tensor
         return assign_argmin_ref(x, c)
     if x.device.type != "cuda":
         raise ValueError(f"assign_argmin: unsupported device {x.device}")
+    out = route_argmin(x, c, assign_route(k, d))
+    global launches
+    launches += 1
+    return out
+
+
+def route_argmin(x: torch.Tensor, c: torch.Tensor, route: str
+                 ) -> tuple[torch.Tensor, torch.Tensor]:
+    """:func:`assign_argmin` on CUDA inputs it accepts, on the given route
+    (``"simt"``, or ``"tc"`` where ``tiles.tc_smem_bytes(d)`` fits a block)
+    whatever the shape would pick; ``launches`` is not counted.
+    Measurement compares the two routes through it."""
+    (b, m, d), k = x.shape, c.shape[1]
     dev = x.device
     idx = torch.empty((b, m), device=dev, dtype=torch.int32)
     dist = torch.empty((b, m), device=dev, dtype=torch.float32)
-    lib = _lib()
     bf16 = torch.bfloat16
+    stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
-        err = lib.repro_assign_argmin(
-            x.data_ptr(), x.stride(0), x.dtype == bf16,
-            c.data_ptr(), c.stride(0), c.dtype == bf16,
-            b, m, k, d, register_dim(d), center_tile(k, d),
-            idx.data_ptr(), dist.data_ptr(),
-            torch.cuda.current_stream(dev).cuda_stream)
-    if err:
-        raise RuntimeError(
-            f"assign_argmin: kernel launch failed with CUDA error {err} "
-            f"({lib.repro_assign_error_string(err).decode()}) at "
-            f"(B, M, K, d) = {(b, m, k, d)}")
-    global launches
-    launches += 1
+        if route == "tc":
+            c2 = torch.empty((b, k), device=dev, dtype=torch.float32)
+            cpad = torch.empty((b, k, tc_dims(d)), device=dev,
+                               dtype=torch.float32)
+            err = _lib().repro_assign_tc(
+                x.data_ptr(), x.stride(0), x.dtype == bf16,
+                c.data_ptr(), c.stride(0), c.dtype == bf16, b, m, k, d,
+                cpad.data_ptr(), c2.data_ptr(), idx.data_ptr(),
+                dist.data_ptr(), stream)
+        else:
+            sm_count = torch.cuda.get_device_properties(
+                dev).multi_processor_count
+            points = assign_points(b, m, d, sm_count)
+            wide = points > 1
+            g = assign_blocks(b, m, points, occupancy(k, d, wide), sm_count)
+            err = _lib().repro_assign_argmin(
+                x.data_ptr(), x.stride(0), x.dtype == bf16,
+                c.data_ptr(), c.stride(0), c.dtype == bf16,
+                b, m, k, d, register_dim(d), center_tile(k, d), wide, g,
+                idx.data_ptr(), dist.data_ptr(), stream)
+    _raise(err, (b, m, k, d))
     return idx, dist

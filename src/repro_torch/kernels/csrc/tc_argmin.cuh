@@ -193,7 +193,9 @@ __global__ void centers_kernel(const void* __restrict__ c, int64_t c_bs,
 }
 
 // Block (i, b): points [128 i, 128 i + 128) of lane b against all K
-// centers, read from centers_kernel's copy (B, K, dims(d)).
+// centers, read from centers_kernel's copy (B, K, dims(d)).  Without
+// part_sse (the assignment kernel's call) w is not read and no SSE
+// partial is written.
 __global__ void __launch_bounds__(kThreads, 1)
 argmin_kernel(const void* __restrict__ x, int64_t x_bs, int x_bf16,
               const void* __restrict__ w, int64_t w_bs, int w_bf16,
@@ -397,12 +399,15 @@ argmin_kernel(const void* __restrict__ x, int64_t x_bs, int x_bf16,
       mk[row] = best_k[h];
     }
   __syncthreads();
+  if (t < rows) {
+    const int64_t o = static_cast<int64_t>(b) * M + m0 + t;
+    idx[o] = mk[t];
+    dist[o] = mb[t];
+  }
+  if (part_sse == nullptr) return;  // the assignment alone (no weights)
   if (t < kRows) {
     float v = 0.f;
     if (t < rows) {
-      const int64_t o = static_cast<int64_t>(b) * M + m0 + t;
-      idx[o] = mk[t];
-      dist[o] = mb[t];
       const float wv =
           load_f32(w, static_cast<int64_t>(b) * w_bs + m0 + t, w_bf16);
       v = wv != 0.f ? wv * mb[t] : 0.f;

@@ -17,7 +17,8 @@ import torch
 
 from . import build
 from .ref import adc_scan_ref
-from .tiles import check_scan_inputs, code_vector_bytes, tile_blocks
+from .tiles import (ScanPlan, check_scan_inputs, code_vector_bytes, scan_plan,
+                    scan_vector_table)
 
 launches = 0      # CUDA launches of this kernel since import (or reset)
 
@@ -25,6 +26,7 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
 _LIB = None
+_OCCUPANCY: dict[tuple, int] = {}
 
 
 def _lib() -> ctypes.CDLL:
@@ -33,13 +35,52 @@ def _lib() -> ctypes.CDLL:
         lib = build.load("adc_scan")
         lib.repro_adc_scan.argtypes = [
             _P, _L, _I, _P, _L,                     # luts, codes
-            _I, _I, _I, _I, _I, _I,                 # B L m C vec G
+            _I, _I, _I, _I, _I,                     # B L m C vec
+            _I, _I,                                 # G vec_table
             _P, _P]                                 # out stream
-        lib.repro_adc_scan.restype = _I
+        lib.repro_adc_scan_occupancy.argtypes = [_I, _I, _I, _I, _P]
+        for fn in (lib.repro_adc_scan, lib.repro_adc_scan_occupancy):
+            fn.restype = _I
         lib.repro_adc_scan_error_string.argtypes = [_I]
         lib.repro_adc_scan_error_string.restype = ctypes.c_char_p
         _LIB = lib
     return _LIB
+
+
+def _raise(err: int, shape: tuple) -> None:
+    if err:
+        raise RuntimeError(
+            f"adc_scan: kernel launch failed with CUDA error {err} "
+            f"({_lib().repro_adc_scan_error_string(err).decode()}) at "
+            f"(B, L, m, C) = {shape}")
+
+
+def occupancy(m: int, c: int, bf16: bool, vec: int) -> int:
+    """Blocks of the scan one SM of the current device holds at once for an
+    (m, C) table, as the runtime reports them (cached)."""
+    key = (torch.cuda.current_device(), m, c, bf16, vec)
+    if key not in _OCCUPANCY:
+        per_sm = ctypes.c_int()
+        err = _lib().repro_adc_scan_occupancy(m, c, bf16, vec,
+                                              ctypes.byref(per_sm))
+        _raise(err, (None, None, m, c))
+        _OCCUPANCY[key] = per_sm.value
+    return _OCCUPANCY[key]
+
+
+def plan(luts: torch.Tensor, codes: torch.Tensor) -> ScanPlan:
+    """The launch :func:`adc_scan_cuda` makes for these CUDA inputs."""
+    b, l, m, c = check_scan_inputs("adc_scan", luts, codes)
+    with torch.cuda.device(luts.device):
+        return _plan(luts, codes, b, l, m, c)
+
+
+def _plan(luts, codes, b, l, m, c) -> ScanPlan:
+    per_sm = occupancy(m, c, luts.dtype == torch.bfloat16,
+                       code_vector_bytes(m, codes.data_ptr(), codes.stride(0)))
+    sm_count = torch.cuda.get_device_properties(
+        luts.device).multi_processor_count
+    return scan_plan(b, l, per_sm, sm_count)
 
 
 def adc_scan_cuda(luts: torch.Tensor, codes: torch.Tensor) -> torch.Tensor:
@@ -55,21 +96,18 @@ def adc_scan_cuda(luts: torch.Tensor, codes: torch.Tensor) -> torch.Tensor:
     if luts.device.type != "cuda":
         raise ValueError(f"adc_scan: unsupported device {luts.device}")
     dev = luts.device
-    sm_count = torch.cuda.get_device_properties(dev).multi_processor_count
+    es = luts.element_size()
     out = torch.empty((b, l), device=dev, dtype=torch.float32)
-    lib = _lib()
     with torch.cuda.device(dev):
-        err = lib.repro_adc_scan(
+        err = _lib().repro_adc_scan(
             luts.data_ptr(), luts.stride(0), luts.dtype == torch.bfloat16,
             codes.data_ptr(), codes.stride(0), b, l, m, c,
             code_vector_bytes(m, codes.data_ptr(), codes.stride(0)),
-            tile_blocks(b, l, sm_count), out.data_ptr(),
-            torch.cuda.current_stream(dev).cuda_stream)
-    if err:
-        raise RuntimeError(
-            f"adc_scan: kernel launch failed with CUDA error {err} "
-            f"({lib.repro_adc_scan_error_string(err).decode()}) at "
-            f"(B, L, m, C) = {(b, l, m, c)}")
+            _plan(luts, codes, b, l, m, c).blocks,
+            scan_vector_table(luts.data_ptr(), luts.stride(0) * es,
+                              m * c * es),
+            out.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+    _raise(err, (b, l, m, c))
     global launches
     launches += 1
     return out

@@ -11,6 +11,12 @@ wrappers make before a launch.
     the work of ``d=2``.
   * Centers are staged in shared memory ``center_tile(k, d)`` at a time;
     ragged K is never visited.
+  * The assignment kernel (``assign.cu``) takes one of two routes,
+    ``assign_route(k, d)``: the Lloyd kernel's tensor-core argmin
+    (``"tc"``), or the SIMT route, where each thread holds
+    ``assign_points(...)`` points and each batch entry gets
+    ``assign_blocks(...)`` blocks (one wave for the card), a warp taking
+    32 of them per lane at a time.
   * The Lloyd kernel (``lloyd.cu``) takes one of two routes,
     ``lloyd_route(k, d)``.  The tensor-core route (``"tc"``: d >=
     ``TC_MIN_D`` with an accumulator too large for shared memory) gives
@@ -30,10 +36,13 @@ wrappers make before a launch.
     one block per lane holds K + 1 cursors in shared memory
     (``check_sort_clusters``), then groups of ``segment_lanes(d)`` lanes
     sum ``segment_clusters(d)`` clusters per block.
-  * The ADC scan (``adc_scan.cu``) stages one (m, C) f32 lookup table per
-    block in shared memory (``scan_smem_bytes``, at most
-    ``MAX_SMEM_BYTES``), runs ``tile_blocks(...)`` blocks per batch entry,
-    and reads each candidate's codes ``code_vector_bytes(...)`` at a time.
+  * The ADC scan (``adc_scan.cu``) stages one (m, C) lookup table per
+    block in shared memory in its own type (``scan_smem_bytes``, at most
+    ``MAX_SMEM_BYTES``), 16 bytes at a time where ``scan_vector_table``
+    holds; its ``scan_plan`` gives each batch entry G blocks, one wave for
+    the card, block g walking the entry's ``THREADS``-row tiles g, g + G,
+    ...; each thread owns one row of a tile and reads its codes
+    ``code_vector_bytes(...)`` at a time.
   * The cluster attention (``cluster_attn.cu``) gives ``attn_lanes_per_row``
     lanes to one centroid row (16 bytes each), serves up to
     ``ATTN_MAX_GROUP`` query heads per kv head, splits the centroid axis
@@ -44,6 +53,8 @@ A shape outside the contract raises :class:`TileError` (a ``ValueError``)
 before anything is launched.
 """
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import torch
 
@@ -56,7 +67,6 @@ CENTROID_MAX_WARPS = 8            # accumulators per block of the warp path
 CENTROID_SMEM_BYTES = 100 * 1024  # their shared memory per block
 CENTROID_MERGE_BYTES = 384 * 1024  # partials one last block merges
 CENTROID_SM_THREADS = 1024        # warp-path threads per SM (registers)
-BLOCKS_PER_SM = 4                 # ADC-scan blocks the grid aims at per SM
 MAX_BATCH = 65535                 # the grid's y extent
 MAX_SMEM_BYTES = 232448           # a block's opt-in shared memory on sm_90
 SM_SMEM_BYTES = 233472            # shared memory of one SM's blocks (228 KB)
@@ -68,6 +78,10 @@ TC_ROWS = 128                     # points per tensor-core block
 TC_COLS = 128                     # centers per tensor-core tile
 TC_CHUNK = 32                     # dims per staged chunk of centers
 TC_BUFFERS = 3                    # staged chunks in shared memory
+ASSIGN_POINTS = 4                 # points per thread of the SIMT assignment
+ASSIGN_TILE_MAX_DIM = 16          # widest register_dim that takes them
+ASSIGN_ITEMS_PER_SCHEDULER = 2    # 32-point-per-lane items that earn them
+SM_SCHEDULERS = 4                 # warp schedulers per SM
 FLOATS = (torch.float32, torch.bfloat16)   # point, weight and table types
 ATTN_MAX_GROUP = 8                # query heads per kv head the kernel serves
 ATTN_MIN_ROWS = 64                # fewest centroids one attention split takes
@@ -203,6 +217,38 @@ def lloyd_route(k: int, d: int) -> str:
             else "simt")
 
 
+def assign_route(k: int, d: int) -> str:
+    """The assignment kernel's route: ``"tc"`` (the Lloyd kernel's
+    tensor-core argmin, three TF32 passes) for d >= ``TC_MIN_D`` where a
+    block's points fit its shared memory, else ``"simt"`` (FP32 cores)."""
+    return ("tc" if d >= TC_MIN_D and tc_smem_bytes(d) <= MAX_SMEM_BYTES
+            else "simt")
+
+
+def assign_points(b: int, m: int, d: int, sm_count: int) -> int:
+    """Points per thread of the SIMT assignment: ``ASSIGN_POINTS`` (the
+    block-min scan) up to ``register_dim`` ``ASSIGN_TILE_MAX_DIM`` where the
+    batch holds ``ASSIGN_ITEMS_PER_SCHEDULER`` items of 32
+    ``ASSIGN_POINTS`` points for every warp scheduler of the card; else one
+    (the one-pass scan), so a small batch still spreads over the card and
+    a wide point keeps its registers."""
+    dp = register_dim(d)
+    items = (ASSIGN_ITEMS_PER_SCHEDULER * SM_SCHEDULERS * sm_count * 32
+             * ASSIGN_POINTS)
+    return (ASSIGN_POINTS
+            if 0 < dp <= ASSIGN_TILE_MAX_DIM and b * m >= items else 1)
+
+
+def assign_blocks(b: int, m: int, points: int, per_sm: int,
+                  sm_count: int) -> int:
+    """Blocks per batch entry of the SIMT assignment: a warp's work item is
+    32 ``points`` points, item i goes to block i % G, and G is the most
+    that hold all ``b`` entries' blocks on the card at once (``per_sm``
+    blocks on each of ``sm_count`` SMs), but no more than the entry has
+    items."""
+    return max(1, min(-(-m // (32 * points)), per_sm * sm_count // b))
+
+
 def lloyd_simt_smem_bytes(k: int, d: int) -> int:
     """Shared memory of one SIMT Lloyd block (``simt_smem`` in
     ``csrc/lloyd.cu``): the staged centers, the tile's ids, weights and
@@ -221,13 +267,6 @@ def blocks_per_sm(smem: int, threads: int = THREADS) -> int:
                       SM_THREADS // threads))
 
 
-def tile_blocks(b: int, m: int, sm_count: int) -> int:
-    """Blocks per batch entry of a kernel whose blocks walk the entry's
-    ``THREADS``-row tiles g, g + G, ...: enough for about ``BLOCKS_PER_SM``
-    blocks on every SM, never more than the entry has tiles."""
-    return min(-(-m // THREADS), max(1, -(-BLOCKS_PER_SM * sm_count // b)))
-
-
 def lloyd_blocks(b: int, m: int, k: int, d: int, sm_count: int,
                  per_sm: int) -> int:
     """Blocks per batch entry of the SIMT Lloyd kernel.  At most as many as
@@ -242,9 +281,36 @@ def lloyd_blocks(b: int, m: int, k: int, d: int, sm_count: int,
     return -(-tiles // -(-tiles // most))
 
 
-def scan_smem_bytes(m: int, c: int) -> int:
-    """Shared memory of one ADC-scan block: the (m, C) f32 lookup table."""
-    return 4 * m * c
+def scan_smem_bytes(m: int, c: int, dtype: torch.dtype = torch.float32
+                    ) -> int:
+    """Shared memory of one ADC-scan block: the (m, C) lookup table in the
+    table's own type."""
+    return m * c * (torch.finfo(dtype).bits // 8)
+
+
+def scan_vector_table(ptr: int, batch_stride_bytes: int,
+                      table_bytes: int) -> bool:
+    """Whether the ADC scan stages its tables 16 bytes at a time: every
+    table starts on a 16-byte boundary and is a whole number of 16 bytes
+    (else one element at a time)."""
+    return not (ptr % 16 or batch_stride_bytes % 16 or table_bytes % 16)
+
+
+class ScanPlan(NamedTuple):
+    """An ADC-scan launch: ``blocks`` per batch entry, block g walking the
+    entry's ``THREADS``-row tiles g, g + G, ...; ``waves`` of blocks over
+    the card's ``per_sm * sm_count`` resident slots."""
+    blocks: int
+    waves: int
+
+
+def scan_plan(b: int, l: int, per_sm: int, sm_count: int) -> ScanPlan:
+    """The ADC scan's launch for ``b`` entries of ``l`` rows when ``per_sm``
+    blocks fit one SM: as many blocks per entry as fit the card at once for
+    all entries (one wave), no more than an entry has tiles."""
+    slots = per_sm * sm_count
+    g = max(1, min(-(-l // THREADS), slots // b))
+    return ScanPlan(g, -(-(b * g) // slots))
 
 
 def code_vector_bytes(m: int, ptr: int, batch_stride: int) -> int:
@@ -387,11 +453,12 @@ def check_scan_inputs(kernel: str, luts, codes) -> tuple[int, int, int, int]:
         raise ValueError(f"{kernel}: need B, L, m >= 1 and 1 <= C <= 256 "
                          f"(uint8 codes), got (B, L, m, C) = {(b, l, m, c)}")
     _check_batch(kernel, b)
-    if scan_smem_bytes(m, c) > MAX_SMEM_BYTES:
-        raise TileError(f"{kernel}: an (m, C) = {(m, c)} f32 table takes "
-                        f"{scan_smem_bytes(m, c)} bytes of shared memory, "
-                        f"above the block's {MAX_SMEM_BYTES}",
-                        extent=scan_smem_bytes(m, c), block=MAX_SMEM_BYTES)
+    smem = scan_smem_bytes(m, c, luts.dtype)
+    if smem > MAX_SMEM_BYTES:
+        raise TileError(f"{kernel}: an (m, C) = {(m, c)} {luts.dtype} table "
+                        f"takes {smem} bytes of shared memory, above the "
+                        f"block's {MAX_SMEM_BYTES}", extent=smem,
+                        block=MAX_SMEM_BYTES)
     _check_rows(kernel, "luts", luts, m, c)
     _check_rows(kernel, "codes", codes, l, m)
     return b, l, m, c

@@ -167,6 +167,69 @@ def test_assign_kernel_matches_plain(dev, b, m, k, d):
     torch.testing.assert_close(dist, rdist, rtol=1e-4, atol=1e-5)
 
 
+def _assign_case(dev, case, b, m, k, d):
+    """Inputs of the assignment's route tests: exact ties (a center copied
+    to a later index, points on it), all-zero centers (every distance
+    ties), points far from 0 with centers a hair away (the expanded form's
+    rounding exceeds the distances, so many fall below 0 before the
+    clamp), bf16 points and centers, or one point set shared by all lanes
+    (batch stride 0); ragged M throughout."""
+    x, _, c = _inputs(dev, b, m, k, d, seed=31)
+    if case == "ties":
+        c[:, k - 3] = c[:, 5]
+        x[:, :40] = c[:, 5:6]
+    elif case == "zero_centers":
+        c = torch.zeros_like(c)
+    elif case == "cancel":
+        x = x + 1000.0
+        c = x[:, :k] + 1e-3 * torch.randn(c.shape, device=dev,
+                                          generator=torch.Generator(
+                                              device=dev).manual_seed(32))
+    elif case == "bf16":
+        x, c = x.bfloat16(), c.bfloat16()
+    elif case == "shared":
+        x = x[:1].expand(b, -1, -1)
+    return x, c
+
+
+@pytest.mark.parametrize("case", ["ties", "zero_centers", "cancel", "bf16",
+                                  "shared"])
+@pytest.mark.parametrize("route,m,d", [("simt", 150_001, 2),
+                                       ("simt", 1001, 8),
+                                       ("simt", 777, 64), ("tc", 777, 64),
+                                       ("tc", 3001, 32)])
+def test_assign_routes_match_plain(dev, case, route, m, d):
+    """Both routes, with the SIMT route's register tile (150,001 points
+    at d = 2) and without it: labels equal the plain version's but at
+    near-ties within the expanded form's rounding bound, exact ties to the
+    lowest index, distances within 1e-4 relative plus that bound, a repeat
+    bit-identical; at small d the SIMT route equals the Lloyd kernel's
+    SIMT route bit for bit."""
+    from repro_torch.kernels import assign, lloyd, ref
+    b, k = 3, 301
+    x, c = _assign_case(dev, case, b, m, k, d)
+    idx, dist = assign.route_argmin(x, c, route)
+    ridx, rdist = ref.assign_argmin_ref(x, c)
+    cancel = _cancel(x, c)
+    assert float(((dist - rdist).abs() - 1e-4 * rdist).amax()) <= cancel
+    diff = (idx != ridx).nonzero(as_tuple=True)
+    if diff[0].numel():
+        xs, cf = x.float()[diff], c.float()
+        dk = ((xs - cf[diff[0], idx[diff].long()]) ** 2).sum(-1)
+        dr = ((xs - cf[diff[0], ridx[diff].long()]) ** 2).sum(-1)
+        assert float((dk - dr).abs().amax()) <= cancel
+    if case == "ties":
+        assert (idx[:, :40] == 5).all() and not (idx == k - 3).any()
+    if case == "zero_centers":
+        assert not idx.any()
+    again = assign.route_argmin(x, c, route)
+    assert torch.equal(again[0], idx) and torch.equal(again[1], dist)
+    if route == "simt" and d <= 16:
+        w = torch.ones((b, m), device=dev)
+        *_, lidx, ldist = lloyd.route_step(x, w, c, "simt")
+        assert torch.equal(idx, lidx) and torch.equal(dist, ldist)
+
+
 def test_bf16_and_shared_point_set(dev):
     from repro_torch.kernels import lloyd, ref
     x, w, c = _inputs(dev, 1, 4000, 50, 8, dtype=torch.bfloat16, seed=2)
@@ -269,6 +332,34 @@ def test_adc_scan_kernel_matches_plain(dev, b, l, m, c):
     off.copy_(codes.reshape(-1))
     torch.testing.assert_close(scan.adc_scan_cuda(luts, off.view(b, l, m)),
                                want, rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("b,l,m,dtype", [
+    (3, 700, 64, torch.bfloat16),   # a bf16 table stays bf16 on the card
+    (4, 333, 7, torch.float32),     # m not a multiple of 4: byte loads
+    (5, 100, 32, torch.float32),    # L shorter than one tile
+    (300, 90, 16, torch.float32),   # more entries than the card has SMs
+    (2, 20_000, 96, torch.float32)])  # rows longer than one 64-code batch
+def test_adc_scan_plans_match_plain(dev, b, l, m, dtype):
+    """The scan against its plain version (1e-5 relative: the sums are the
+    plain version's terms in the same order) on the plan's grid: one wave
+    wherever the entries fit, a repeat bit-identical."""
+    from repro_torch.kernels import ref, scan, tiles
+    g = torch.Generator(device=dev).manual_seed(7)
+    luts = torch.rand((b, m, 256), generator=g, device=dev).to(dtype)
+    codes = torch.randint(0, 256, (b, l, m), generator=g, device=dev,
+                          dtype=torch.uint8)
+    p = scan.plan(luts, codes)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    per_sm = scan.occupancy(m, 256, dtype == torch.bfloat16,
+                            tiles.code_vector_bytes(m, codes.data_ptr(),
+                                                    codes.stride(0)))
+    assert 1 <= p.blocks <= -(-l // tiles.THREADS)
+    assert b * p.blocks <= max(b, per_sm * sms)
+    got = scan.adc_scan_cuda(luts, codes)
+    want = ref.adc_scan_ref(luts, codes)
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=0.0)
+    assert torch.equal(scan.adc_scan_cuda(luts, codes), got)
 
 
 def test_cuda_backend_fit_and_index_run_through_the_kernels(dev):
