@@ -6,7 +6,14 @@ after:
 
   * the clustering main path (``SampledKMeans(spec).fit(x)`` then
     ``predict(x)``) at the paper's 500k-point / k=1000 workload, and the
-    same fit through the unfused ``cuda`` backend;
+    same fit through the unfused ``cuda`` backend, through
+    ``mode="chunked"`` in one chunk (bit for bit the same fit) and with a
+    mini-batch merge;
+  * the out-of-core executor (``mode="chunked"``) over
+    ``examples/cluster_oocore.py``'s 5,000,000 x 8 ``IterSource`` (and a
+    run whose bounded accumulator flushes), the streaming engine
+    (``mode="stream"`` on the same source; ``examples/stream_drift.py``'s
+    drifting stream through ``StreamingClusterer`` and ``partial_fit``);
   * the IVF/PQ index (``build_index`` then ``search``) at
     ``benchmarks/specs/index_200k.json`` and ``index_5m.json``, with
     recall@10 against the exact search;
@@ -658,6 +665,384 @@ def scan_bound_ms(luts, codes) -> tuple[float, str]:
 
 
 # ---------------------------------------------------------------------------
+# the out-of-core executor, the streaming engine and mini-batch Lloyd
+# ---------------------------------------------------------------------------
+
+# examples/cluster_oocore.py's default run: 5,000,000 x 8 blobs around 64
+# centers, chunks of 262,144 rows, re-exposed through an IterSource in
+# misaligned pieces (0.71 of a chunk)
+OOCORE_N, OOCORE_DIM, OOCORE_K = 5_000_000, 8, 64
+OOCORE_CHUNK = 262_144
+OOCORE_PIECE = int(OOCORE_CHUNK * 0.71)          # 186,122 rows
+FLUSH_CHUNK = 65_536
+MINIBATCH_ROWS = 16_384
+# most SSE an out-of-core fit may add to the resident single-mode fit's
+# (the reference's 0.15, tests/test_chunked.py).  One-sided: on these 64
+# separated blobs the merge's kmeans++ misses some blobs in either fit, and
+# on the H100 the chunked fit of seeds 0-3 ended -21%, +8%, -16% and -14%
+# against the resident one, so a two-sided bound would reject a better fit
+QUALITY_LOSS = 0.15
+
+
+def oocore_source():
+    """The ``IterSource`` that ``examples/cluster_oocore.py`` fits: a
+    ``SyntheticSource``'s chunks of 186,122 rows (its points depend on that
+    chunking), re-batched by the executor."""
+    from repro_torch.data import IterSource, SyntheticSource
+    synth = SyntheticSource(OOCORE_N, dim=OOCORE_DIM, n_clusters=OOCORE_K,
+                            seed=0)
+    return IterSource(lambda: synth.chunks(OOCORE_PIECE), dim=OOCORE_DIM,
+                      n_points=OOCORE_N)
+
+
+def oocore_spec(chunk_points: int = OOCORE_CHUNK, sse: str = "pool",
+                levels: tuple = (), mode: str = "chunked"):
+    """``examples/cluster_oocore.py``'s spec: 16 equal partitions per chunk,
+    compression 64, 6 local iterations; a weighted k=64 merge, 10
+    iterations, 4 restarts."""
+    from repro_torch.core import (ChunkSpec, ClusterSpec, ExecutionSpec,
+                                  LocalSpec, MergeSpec, PartitionSpec)
+    return ClusterSpec(
+        partition=PartitionSpec(scheme="equal", n_sub=16),
+        local=LocalSpec(compression=64, iters=6),
+        merge=MergeSpec(k=OOCORE_K, iters=10, weighted=True),
+        chunk=ChunkSpec(chunk_points=chunk_points, prefetch=2, sse=sse),
+        execution=ExecutionSpec(mode=mode), levels=levels)
+
+
+def fold_profile(source, spec) -> dict:
+    """Where the chunked fold's time goes: the wall time of one unprofiled
+    :func:`fold_pass` (the device synchronised at both ends), the device's
+    busy time in a second, profiled one (``torch.profiler``: the kernels'
+    device time and count, the host-to-device copies apart, as they run on
+    the prefetcher's side stream), the idle share, the kernels that take
+    the most device time, and the time the host takes to produce the
+    source's chunks alone (no device work)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.core.device import derive_seed
+    from repro_torch.core.pipeline import fold_pass, scale_pass
+    cp = spec.chunk.chunk_points
+    t0 = time.perf_counter()
+    n_host = sum(c.shape[0] for c in source.chunks(cp))
+    source_s = time.perf_counter() - t0
+    params = scale_pass(source, cp, prefetch=spec.chunk.prefetch,
+                        device="cuda")
+    seed_local = derive_seed(0, 0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fold_pass(source, spec, params, seed_local, device="cuda")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    # the device's activity only: recording the host's operators as well
+    # slowed this fold (about 140,000 launches) from 2.6 s to over a minute
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fold_pass(source, spec, params, seed_local, device="cuda")
+        torch.cuda.synchronize()
+    rows = [(r.key, r.count, r.self_device_time_total / 1e6)
+            for r in prof.key_averages() if r.device_type == DeviceType.CUDA]
+    copies = [r for r in rows if r[0].startswith(("Memcpy", "Memset"))]
+    kernels = [r for r in rows if r not in copies]
+    busy = sum(s for _, _, s in kernels)
+    top = sorted((r for r in kernels if r[2] > 0), key=lambda r: -r[2])[:8]
+    return dict(rows=n_host, source_only_s=source_s, fold_wall_s=wall,
+                device_busy_s=busy, idle_share=max(0.0, 1.0 - busy / wall),
+                device_launches=sum(n for _, n, _ in kernels),
+                copy_s=sum(s for _, _, s in copies),
+                top_kernels=[dict(name=k[:80], calls=n, s=s)
+                             for k, n, s in top])
+
+
+def oocore_5m() -> dict:
+    """The chunked executor at full width (``oocore_5m``), through
+    ``SampledKMeans.fit`` on the ``IterSource``, with ``cuda_fused`` and
+    with ``cuda``; the flush run (``oocore_5m_flush``); each one's exact
+    SSE at most ``QUALITY_LOSS`` above a resident single-mode fit's of the
+    same 5M points.  Returns what the kernel table needs."""
+    from repro_torch.api import SampledKMeans
+    from repro_torch.core import LevelSpec, relative_error, sse_pass
+    from repro_torch.kernels import ref
+    from repro_torch.telemetry import RecordingLogger
+    src = oocore_source()
+    spec = oocore_spec()
+    n_full, tail = divmod(OOCORE_N, OOCORE_CHUNK)
+    check(spec.chunked_pool_schedule(OOCORE_N) == (78_112,),
+          f"oocore_5m pool schedule {spec.chunked_pool_schedule(OOCORE_N)}")
+
+    # the resident reference: the same 5M points in one tensor (160 MB),
+    # fit in single mode, with and without the flush run's level
+    level = (LevelSpec(n_sub=16, compression=4, iters=6),)
+    x5 = torch.cat([torch.from_numpy(c) for c in src.chunks(OOCORE_CHUNK)]
+                   ).cuda()
+    t0 = time.perf_counter()
+    single = SampledKMeans(oocore_spec(mode="single")).fit(x5, seed=0)
+    torch.cuda.synchronize()
+    single_s = time.perf_counter() - t0
+    single_lv = SampledKMeans(oocore_spec(mode="single", levels=level)
+                              ).fit(x5, seed=0)
+    single_sse, single_lv_sse = float(single.sse_), float(single_lv.sse_)
+    del x5, single, single_lv
+    torch.cuda.empty_cache()
+
+    # the executor, cuda_fused: fit, then predict on the source
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    with ShapeRecorder("lloyd_step") as lrec, \
+            ShapeRecorder("assign_argmin") as arec:
+        est = SampledKMeans(spec).fit(src, seed=0)
+        torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t0
+        labels = est.predict(src)
+    torch.cuda.synchronize()
+    launches = read_launches()
+    check(launches["lloyd_step"] > 0 and launches["assign_argmin"] > 0,
+          f"oocore_5m skipped a kernel: {launches}")
+    st = est.chunk_stats_
+    check(st.n_chunks == n_full + 1 == 20 and st.n_points == OOCORE_N
+          and st.max_chunk_points == OOCORE_CHUNK
+          and st.pool_size == 78_112 and st.passes == 2,
+          f"oocore_5m ChunkStats {st}")
+    check(est.centers_.shape == (OOCORE_K, OOCORE_DIM)
+          and bool(torch.isfinite(est.centers_).all()), "oocore_5m centers")
+    exact = float(sse_pass(src, est.centers_, OOCORE_CHUNK))
+    rel = relative_error(exact, single_sse)
+    check(rel <= QUALITY_LOSS, f"oocore_5m SSE {exact} vs resident single "
+          f"{single_sse}: {rel}")
+    check(labels.shape == (OOCORE_N,) and int(labels.min()) >= 0
+          and int(labels.max()) < OOCORE_K, "oocore_5m labels")
+    first = torch.from_numpy(next(src.chunks(OOCORE_CHUNK))).cuda()
+    ridx, _ = ref.assign_argmin_ref(first[None], est.centers_[None])
+    agree = float((labels[:OOCORE_CHUNK] == ridx[0]).float().mean())
+    check(agree > 0.999, f"oocore_5m predict vs plain: {agree}")
+
+    # where the time goes: the stage timers of a logged fit (bit for bit
+    # the unlogged one), and the fold's profile
+    log = RecordingLogger()
+    logged = SampledKMeans(spec, logger=log).fit(src, seed=0)
+    check(torch.equal(logged.centers_, est.centers_)
+          and torch.equal(logged.sse_, est.sse_),
+          "oocore_5m: a logged fit differs from the unlogged one")
+    timers = {e["name"]: e["dur"] for e in log.events
+              if e["kind"] == "timer"}
+    summary = log.named("fit_chunked")[0]
+    profile_ = fold_profile(src, spec)
+
+    # the same fit through the unfused cuda backend
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    with ShapeRecorder("assign_argmin") as crec:
+        est_cuda = SampledKMeans(spec.replace(backend="cuda")).fit(src,
+                                                                   seed=0)
+        torch.cuda.synchronize()
+    cuda_s = time.perf_counter() - t0
+    cuda_launches = read_launches()
+    check(cuda_launches["centroid_update"] > 0
+          and cuda_launches["assign_argmin"] > 0
+          and cuda_launches["lloyd_step"] == 0,
+          f"oocore_5m (cuda) skipped a kernel: {cuda_launches}")
+    cuda_exact = float(sse_pass(src, est_cuda.centers_, OOCORE_CHUNK))
+    cuda_rel = relative_error(cuda_exact, single_sse)
+    check(cuda_rel <= QUALITY_LOSS, f"oocore_5m (cuda) SSE {cuda_exact} vs "
+          f"{single_sse}: {cuda_rel}")
+    emit("oocore_5m", n=OOCORE_N, dim=OOCORE_DIM, k=OOCORE_K,
+         chunk_points=OOCORE_CHUNK, piece_rows=OOCORE_PIECE,
+         chunk_stats=st._asdict(), fit_s=fit_s,
+         points_per_s=OOCORE_N / fit_s, launches=launches,
+         lloyd_shapes={str(k_): v for k_, v in lrec.shapes.items()},
+         exact_sse=exact, pool_sse=float(est.sse_),
+         resident_single_sse=single_sse, resident_single_fit_s=single_s,
+         relative_error=rel, predict_agreement=agree, stage_s=timers,
+         logged_points_per_s=summary["points_per_sec"],
+         peak_rss_mb=summary["peak_rss_mb"], fold_profile=profile_,
+         cuda=dict(fit_s=cuda_s, points_per_s=OOCORE_N / cuda_s,
+                   launches=cuda_launches, exact_sse=cuda_exact,
+                   relative_error=cuda_rel))
+    del labels, est_cuda, logged
+
+    # the flush run: chunks of 65,536 and one equal reduce level; the
+    # accumulator folds every 8 pending chunk pools
+    fspec = oocore_spec(FLUSH_CHUNK, sse="exact", levels=level)
+    sched = fspec.chunked_pool_schedule(OOCORE_N)
+    check(sched == (7104, 1776), f"oocore_5m_flush schedule {sched}")
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    with ShapeRecorder("lloyd_step") as frec:
+        flush = SampledKMeans(fspec).fit(src, seed=0)
+        torch.cuda.synchronize()
+    flush_s = time.perf_counter() - t0
+    flush_launches = read_launches()
+    fst = flush.chunk_stats_
+    check(fst.n_chunks == 77 and fst.pool_size == 1776 and fst.passes == 3
+          and fst.peak_pool_rows <= 10_912, f"oocore_5m_flush {fst}")
+    flush_rel = relative_error(float(flush.sse_), single_lv_sse)
+    check(flush_rel <= QUALITY_LOSS, f"oocore_5m_flush SSE "
+          f"{float(flush.sse_)} vs resident single {single_lv_sse}: "
+          f"{flush_rel}")
+    check(bool(torch.isfinite(flush.centers_).all()), "flush centers")
+    emit("oocore_5m_flush", chunk_points=FLUSH_CHUNK,
+         chunk_stats=fst._asdict(), pool_schedule=list(sched),
+         unflushed_pool_rows=78_112, fit_s=flush_s,
+         points_per_s=OOCORE_N / flush_s, launches=flush_launches,
+         lloyd_shapes={str(k_): v for k_, v in frec.shapes.items()},
+         exact_sse=float(flush.sse_), resident_single_sse=single_lv_sse,
+         relative_error=flush_rel)
+    return dict(est=est, exact_sse=exact, launches=launches,
+                cuda_launches=cuda_launches, flush_launches=flush_launches,
+                assign_rec=arec, cuda_assign_rec=crec, lloyd_rec=lrec,
+                flush_lloyd_rec=frec)
+
+
+def stream_5m(oocore_exact_sse: float) -> dict:
+    """The oocore_5m source and spec with ``mode="stream"``: 20 updates
+    (buffer 1024, decay 0.97), then one exact ``sse_pass``, held to 1.15x
+    the chunked executor's exact SSE (the reference's acceptance bound,
+    ``tests/test_stream.py``)."""
+    from repro_torch.api import SampledKMeans
+    from repro_torch.telemetry import RecordingLogger
+    src = oocore_source()
+    log = RecordingLogger()
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    with ShapeRecorder("lloyd_step") as lrec:
+        est = SampledKMeans(oocore_spec(mode="stream"), logger=log).fit(
+            src, seed=0)
+        torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    launches = read_launches()
+    state = est.stream_state
+    check(int(state.step) == 20 and float(state.n_seen) == OOCORE_N,
+          f"stream_5m: {int(state.step)} updates, {float(state.n_seen)} "
+          f"points")
+    check(launches["lloyd_step"] > 0, f"stream_5m skipped the Lloyd "
+          f"kernel: {launches}")
+    ratio = float(est.sse_) / oocore_exact_sse
+    check(bool(torch.isfinite(est.centers_).all()) and ratio <= 1.15,
+          f"stream_5m SSE {float(est.sse_)} vs chunked {oocore_exact_sse}")
+    ticks = log.named("stream_tick")
+    emit("stream_5m", updates=int(state.step), fit_s=fit_s,
+         points_per_s=OOCORE_N / fit_s,
+         stream_tick_points_per_s=[t["rate_inst"] for t in ticks],
+         stream_tick_median_points_per_s=ticks[-1]["rate"],
+         launches=launches,
+         launches_per_update={n: v / 20 for n, v in launches.items()},
+         lloyd_shapes={str(k_): v for k_, v in lrec.shapes.items()},
+         sse=float(est.sse_), chunked_exact_sse=oocore_exact_sse,
+         sse_ratio=ratio,
+         live_coreset=int((state.coreset_w > 0).sum()))
+    return dict(launches=launches)
+
+
+def stream_drift() -> dict:
+    """``examples/stream_drift.py``'s run: 30 chunks of 2048 drifting
+    points, k = 8, decay 0.9, buffer 1024.  The tracked centers' RMSE to
+    the moving truth must end below a frozen batch fit's, and
+    ``partial_fit`` chunk by chunk must give ``update``'s centers."""
+    from repro_torch.api import SampledKMeans
+    from repro_torch.core import ClusterSpec, sampled_kmeans
+    from repro_torch.data import drifting_blobs
+    from repro_torch.stream import StreamConfig, StreamingClusterer
+    k = 8
+    chunks, _, traj = drifting_blobs(30, 2048, n_clusters=k, dim=2, seed=0,
+                                     drift=0.08)
+    spec = ClusterSpec.make(k, n_sub=8, compression=5, local_iters=8,
+                            global_iters=8)
+
+    def rmse(found, truth):
+        d = np.linalg.norm(found.cpu().numpy()[None] - truth[:, None],
+                           axis=-1)
+        return float(np.sqrt((d.min(1) ** 2).mean()))
+
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    with ShapeRecorder("assign_argmin") as arec:
+        sc = StreamingClusterer(StreamConfig.from_spec(spec, decay=0.9,
+                                                       buffer_size=1024))
+        state = sc.init(dim=2, seed=0)
+        track = []
+        for t, ch in enumerate(chunks):
+            state = sc.update(state, ch)
+            if t % 5 == 4:
+                track.append(rmse(state.centers, traj[t]))
+        idx, last_sse = sc.query(state, chunks[-1])
+        torch.cuda.synchronize()
+    stream_s = time.perf_counter() - t0
+    launches = read_launches()
+    frozen = sampled_kmeans(chunks[0], k, spec=ClusterSpec.make(k),
+                            seed=0).centers
+    frozen_track = [rmse(frozen, traj[t]) for t in range(4, 30, 5)]
+    check(track[-1] < frozen_track[-1], f"stream_drift: tracked RMSE "
+          f"{track[-1]} vs frozen {frozen_track[-1]}")
+    check(idx.shape == (2048,) and bool(torch.isfinite(last_sse)),
+          "stream_drift query")
+    est = SampledKMeans(spec, buffer_size=1024, decay=0.9)
+    for ch in chunks:
+        est.partial_fit(ch, seed=0)
+    check(torch.equal(est.centers_, state.centers),
+          "stream_drift: partial_fit differs from StreamingClusterer.update")
+    emit("stream_drift", chunks=30, chunk_size=2048, k=k, seconds=stream_s,
+         updates_per_s=30 / stream_s, launches=launches,
+         stream_rmse_every_5=track, frozen_rmse_every_5=frozen_track,
+         partial_fit_equals_update=True)
+    return dict(launches=launches, assign_rec=arec)
+
+
+def minibatch_500k(x, spec, full_sse: float) -> dict:
+    """paper_500k with a mini-batch merge (``StopSpec(max_iters=10,
+    minibatch=16_384)``): finite centers, SSE at most 2x the full-batch
+    fit's (the reference's bound, ``tests/test_stop.py``), two runs with
+    one seed bit-identical."""
+    from repro_torch.api import SampledKMeans
+    from repro_torch.core import StopSpec
+    mb = spec.replace(merge=dataclasses.replace(
+        spec.merge, stop=StopSpec(max_iters=10, minibatch=MINIBATCH_ROWS)))
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    with ShapeRecorder("lloyd_step") as lrec:
+        a = SampledKMeans(mb).fit(x, seed=0)
+        torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    launches = read_launches()
+    b = SampledKMeans(mb).fit(x, seed=0)
+    check(torch.equal(a.centers_, b.centers_) and torch.equal(a.sse_, b.sse_),
+          "minibatch_500k: two fits with one seed differ")
+    ratio = float(a.sse_) / full_sse
+    check(bool(torch.isfinite(a.centers_).all()) and ratio <= 2.0,
+          f"minibatch_500k: SSE {float(a.sse_)} vs full batch {full_sse}")
+    shape = (4, MINIBATCH_ROWS, spec.merge.k, 2)
+    check(lrec.shapes.get(shape) == 10, f"minibatch_500k: the merge's "
+          f"steps ran at {lrec.shapes}")
+    emit("minibatch_500k", minibatch=MINIBATCH_ROWS, fit_s=fit_s,
+         launches=launches,
+         lloyd_shapes={str(k_): v for k_, v in lrec.shapes.items()},
+         sse=float(a.sse_), full_batch_sse=full_sse, sse_ratio=ratio,
+         bit_identical=True)
+    return dict(launches=launches)
+
+
+def chunked_one_chunk_pin(x, spec, single) -> None:
+    """paper_500k through ``mode="chunked"`` with ``chunk_points =
+    500_000``: the single fit of the same seed bit for bit, on the card."""
+    from repro_torch.api import SampledKMeans
+    from repro_torch.core import ChunkSpec
+    from repro_torch.data import ArraySource
+    pin = SampledKMeans(spec.replace(mode="chunked",
+                                     chunk=ChunkSpec(chunk_points=500_000))
+                        ).fit(ArraySource(x), seed=0)
+    check(pin.chunk_stats_.n_chunks == 1, "one-chunk pin: several chunks")
+    for name, a, b in zip(single._fields, pin.result_, single):
+        check(torch.equal(a, b), f"one-chunk pin: {name} differs from the "
+              f"single fit")
+    emit("chunked_one_chunk_pin", spec=SPEC_FILE.name, chunk_points=500_000,
+         chunk_stats=pin.chunk_stats_._asdict(), bit_identical=True)
+
+
+# ---------------------------------------------------------------------------
 # clustered-KV decode serving (llama3-8b, long_500k)
 # ---------------------------------------------------------------------------
 
@@ -1239,6 +1624,37 @@ def main() -> int:
          bit_identical=True, landmark_sse_cuda=float(ua.sse),
          landmark_sse_cuda_fused=float(ub.sse), landmark_rel=unfused_rel)
 
+    # -- 7b. the out-of-core executor, the streaming engine and mini-batch
+    # Lloyd: the one-chunk pin, paper_500k with a mini-batch merge,
+    # oocore_5m (cuda_fused, cuda) and its flush run, stream_5m,
+    # stream_drift
+    chunked_one_chunk_pin(x, spec, est.result_)
+    mb = minibatch_500k(x, spec, sse)
+    del x
+    torch.cuda.empty_cache()
+    oo = oocore_5m()
+    st5 = stream_5m(oo.pop("exact_sse"))
+    drift = stream_drift()
+    torch.cuda.empty_cache()
+    # the kernels at these paths' shapes against their plain versions: the
+    # chunk fold (16 partitions of 16,384, 256 centers each), the merge
+    # (4 restarts over the 78,112-row pool), a mini-batch merge step, a
+    # stream update's merge over the coreset, a chunk's predict
+    oo_fold = _case(16, 16_384, 256, 8, seed=28)
+    oo_merge = _case(4, 78_112, OOCORE_K, 8, share_x=True, seed=29)
+    mb_step = _case(4, MINIBATCH_ROWS, 1000, 2, seed=30)
+    st_merge = _case(1, 1024, OOCORE_K, 8, seed=31)
+    oo_cases = [lloyd_parity("lloyd_oocore_fold", *oo_fold),
+                lloyd_parity("lloyd_oocore_merge", *oo_merge),
+                lloyd_parity("lloyd_minibatch_step", *mb_step),
+                lloyd_parity("lloyd_stream_merge", *st_merge),
+                centroid_parity("centroid_oocore_fold", *oo_fold),
+                assign_parity("assign_oocore_predict",
+                              *_case(1, OOCORE_CHUNK, OOCORE_K, 8,
+                                     seed=32)[::2])]
+    cases += oo_cases
+    emit("oocore_parity", cases=oo_cases)
+
     # -- 8. the IVF/PQ index at index_200k -----------------------------------
     repeats2 = 3
     (ispec, w2, q2, index2, stats2, build2_s, exact2_s, sweep2,
@@ -1335,7 +1751,10 @@ def main() -> int:
     assign_calls, assign_shared = {}, set()
     for path, rec in (("paper_500k", fused_assign),
                       ("paper_500k_cuda", cuda_assign),
-                      ("index_200k", assign_rec2), ("index_5m", assign_rec5)):
+                      ("index_200k", assign_rec2), ("index_5m", assign_rec5),
+                      ("oocore_5m", oo["assign_rec"]),
+                      ("oocore_5m_cuda", oo["cuda_assign_rec"]),
+                      ("stream_drift", drift["assign_rec"])):
         assign_shared |= rec.shared
         for shape, n in rec.shapes.items():
             assign_calls.setdefault(shape, {})[path] = n
@@ -1452,6 +1871,10 @@ def main() -> int:
     l_merge = lloyd_entry("merge", *merge)
     l_pq = lloyd_entry("pq_200k", *pq200k)
     l_refresh4 = lloyd_entry("refresh, 4 of 256 lanes", *refresh)
+    l_oocore = [lloyd_entry("oocore_5m fold", *oo_fold),
+                lloyd_entry("oocore_5m merge", *oo_merge),
+                lloyd_entry("minibatch_500k merge step", *mb_step),
+                lloyd_entry("stream_5m merge", *st_merge)]
     # all 256 lanes of a refresh: the plain version's (B, M, K) distances
     # would take 77 GB, so only the kernel is timed there
     xr, wr, cr = (t.repeat(64, *[1] * (t.dim() - 1)) for t in refresh)
@@ -1478,6 +1901,8 @@ def main() -> int:
         l_index.append(e)
     del index_lloyd
     c_refresh = centroid_entry("refresh values, 4 lanes", *refresh)
+    c_oocore = centroid_entry("oocore_5m fold (cuda)", *oo_fold)
+    del oo_fold, oo_merge, mb_step, st_merge
     c_refresh256 = centroid_ids_entry("refresh values, 256 lanes",
                                       *refresh256, 8192)
     del refresh256
@@ -1551,16 +1976,21 @@ def main() -> int:
              launches=launches["lloyd_step"],
              max_abs_err=max(errs["lloyd_local"]["max_sum_err"],
                              errs["lloyd_merge"]["max_sum_err"]),
-             launches_by_path={"paper_500k": launches["lloyd_step"],
-                               "index_200k": index_launches["lloyd_step"],
-                               "index_5m": launches5["lloyd_step"],
-                               "serve_long_500k":
-                                   serve_launches["lloyd_step"]},
+             launches_by_path={
+                 "paper_500k": launches["lloyd_step"],
+                 "index_200k": index_launches["lloyd_step"],
+                 "index_5m": launches5["lloyd_step"],
+                 "serve_long_500k": serve_launches["lloyd_step"],
+                 "oocore_5m": oo["launches"]["lloyd_step"],
+                 "oocore_5m_flush": oo["flush_launches"]["lloyd_step"],
+                 "stream_5m": st5["launches"]["lloyd_step"],
+                 "stream_drift": drift["launches"]["lloyd_step"],
+                 "minibatch_500k": mb["launches"]["lloyd_step"]},
              ms=l_local["ms"], plain_ms=l_local["plain_ms"],
              bound_ms=l_local["bound_ms"], bound_by=l_local["bound_by"],
              library_ms=None,
              shapes=[l_local, l_merge, l_pq, l_refresh4, l_refresh,
-                     l_refresh_bf16, *l_index]),
+                     l_refresh_bf16, *l_index, *l_oocore]),
         dict(name="assign_argmin", route="cuda",
              source="src/repro_torch/kernels/csrc/assign.cu",
              replaces="src/repro/kernels/assign.py:87",
@@ -1571,7 +2001,12 @@ def main() -> int:
                  "paper_500k_cuda": cuda_launches["assign_argmin"],
                  "index_200k": index_launches["assign_argmin"],
                  "index_5m": launches5["assign_argmin"],
-                 "serve_long_500k": serve_launches["assign_argmin"]},
+                 "serve_long_500k": serve_launches["assign_argmin"],
+                 "oocore_5m": oo["launches"]["assign_argmin"],
+                 "oocore_5m_cuda": oo["cuda_launches"]["assign_argmin"],
+                 "stream_5m": st5["launches"]["assign_argmin"],
+                 "stream_drift": drift["launches"]["assign_argmin"],
+                 "minibatch_500k": mb["launches"]["assign_argmin"]},
              ms=a_pred["ms"], plain_ms=a_pred["plain_ms"],
              bound_ms=a_pred["bound_ms"], bound_by=a_pred["bound_by"],
              issue_floor_ms=a_pred["issue_floor_ms"],
@@ -1591,9 +2026,11 @@ def main() -> int:
                  "serve_long_500k_lloyd": serve_launches[
                      "lloyd_centroid_update"],
                  "index_200k_lloyd": index_launches["lloyd_centroid_update"],
-                 "index_5m_lloyd": launches5["lloyd_centroid_update"]},
+                 "index_5m_lloyd": launches5["lloyd_centroid_update"],
+                 "oocore_5m_cuda": oo["cuda_launches"]["centroid_update"]},
              library_ms=c_local["library_ms"],
-             shapes=[c_local, c_merge, c_pq, c_refresh, c_refresh256]),
+             shapes=[c_local, c_merge, c_pq, c_refresh, c_refresh256,
+                     c_oocore]),
         dict(name="adc_scan", route="cuda",
              source="src/repro_torch/kernels/csrc/adc_scan.cu",
              replaces="src/repro/kernels/scan.py:105",

@@ -8,14 +8,23 @@ plan/execute split; the port's counterpart of :mod:`repro.api`.
                        partition=PartitionSpec(scheme="equal", n_sub=16))
     est = SampledKMeans(spec).fit(x)     # on the CUDA device
     labels = est.predict(x)
+    for chunk in stream:                 # or: incremental
+        est.partial_fit(chunk)
 
 :func:`plan` resolves a spec ONCE (execution mode, Lloyd backend, registry
-lookups) into an :class:`ExecutionPlan`; :func:`execute` runs it.  The port
-runs ``mode="single"`` (and ``"auto"``, which resolves to it for a
-resident array).  ``shard_map``, ``stream``, ``chunked`` and
-``chunked_dist`` raise ``NotImplementedError`` until their slices land
-(ROADMAP.md §1), as does ``partial_fit``.  ``fit`` under ``single`` is
-``sampled_kmeans(x, spec=spec)`` bit for bit under the same seed.
+lookups) into an :class:`ExecutionPlan`; :func:`execute` runs it.  Modes:
+
+  ``single``   the one-device pipeline (``core.pipeline.fit_from_spec``)
+  ``chunked``  the out-of-core executor (``core.pipeline.fit_chunked``)
+               over a :class:`~repro_torch.data.source.DataSource`
+  ``stream``   the incremental coreset engine (``stream.engine``); ``fit``
+               feeds the data chunk by chunk, ``partial_fit`` is one update
+  ``auto``     ``chunked`` for a non-resident source, else ``single``
+
+``shard_map`` and ``chunked_dist`` raise ``NotImplementedError`` until the
+distributed slice lands (ROADMAP.md §1).  ``fit`` under ``single`` is
+``sampled_kmeans(x, spec=spec)`` bit for bit under the same seed, and a
+``chunked`` fit of a source that fits in one chunk is the same fit.
 """
 from __future__ import annotations
 
@@ -28,16 +37,18 @@ from repro_torch.core.backend import LloydBackend, get_backend
 from repro_torch.core.device import resolve_device
 from repro_torch.core.kmeans import get_init, pairwise_sqdist
 from repro_torch.core.metrics import map_row_blocks, min_sqdist
-from repro_torch.core.pipeline import SampledClusteringResult, fit_from_spec
+from repro_torch.core.pipeline import (ChunkStats, SampledClusteringResult,
+                                       fit_chunked, fit_from_spec, sse_pass)
 from repro_torch.core.spec import ClusterSpec
 from repro_torch.core.subcluster import get_partitioner
+from repro_torch.data.source import ArraySource, DataSource, as_source
 from repro_torch.telemetry import NULL, RunLogger, get_run_logger
 
 # default row-block of the predict-side surfaces (transform/score): the
 # working set stays O(block · k) however large the query set is
 PREDICT_BLOCK = 16384
 
-_UNPORTED_MODES = ("shard_map", "stream", "chunked", "chunked_dist")
+_UNPORTED_MODES = ("shard_map", "chunked_dist")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -47,7 +58,7 @@ class ExecutionPlan:
     schedule (base stage + ``spec.levels``).  Build with :func:`plan`, run
     with :func:`execute`."""
     spec: ClusterSpec
-    mode: str                      # "single"
+    mode: str                      # "single" | "chunked" | "stream"
     backend: LloydBackend          # resolved once, shared by every stage
     device: torch.device
     data_shape: Optional[tuple] = None
@@ -65,14 +76,18 @@ class ExecutionPlan:
 
 def plan(spec: ClusterSpec, data_shape: Optional[tuple] = None, *,
          device: "torch.device | str | None" = None,
+         source: Optional[DataSource] = None,
          logger: "RunLogger | str | None" = None) -> ExecutionPlan:
     """Resolve a declarative spec into an executable plan on ``device``
     (``None``: the CUDA device; a missing one raises).
 
     Validates every registry name (partitioner, init schemes, backend) up
-    front and picks the execution mode: ``"auto"`` is ``"single"`` for the
-    port's resident tensors; the unported modes raise.  ``data_shape``
-    lets the planner reject schedules whose final pool is below ``k``."""
+    front and picks the execution mode: an explicit
+    ``spec.execution.mode`` wins; ``"auto"`` is ``"chunked"`` when
+    ``source`` is a non-resident :class:`DataSource` (anything but an
+    ``ArraySource``), else ``"single"``; ``shard_map`` and
+    ``chunked_dist`` raise.  ``data_shape`` lets the planner reject
+    schedules whose final pool is below ``k``."""
     get_partitioner(spec.partition.scheme)
     get_init(spec.local.init)
     get_init(spec.merge.init)
@@ -85,35 +100,99 @@ def plan(spec: ClusterSpec, data_shape: Optional[tuple] = None, *,
                                 else spec.execution.telemetry)
     mode = spec.execution.mode
     if mode == "auto":
-        mode = "single"
+        non_resident = (source is not None
+                        and not isinstance(source, ArraySource))
+        mode = "chunked" if non_resident else "single"
     if mode in _UNPORTED_MODES:
         raise NotImplementedError(
             f"repro_torch: execution mode {mode!r} is not ported yet; the "
-            f"port runs mode='single' (see ROADMAP.md §1 for the queue)")
-    if (data_shape is not None and len(data_shape) >= 1
-            and spec.pool_schedule(int(data_shape[0]))[-1] < spec.merge.k):
-        raise ValueError(
-            f"plan: the reduce tree leaves only "
-            f"{spec.pool_schedule(int(data_shape[0]))[-1]} representatives "
-            f"for a k={spec.merge.k} merge — drop a level or lower its "
-            f"compression (pool schedule: "
-            f"{spec.pool_schedule(int(data_shape[0]))})")
+            f"port runs 'single', 'chunked' and 'stream' (see ROADMAP.md §1 "
+            f"for the queue)")
+    n = (int(data_shape[0]) if data_shape is not None and len(data_shape)
+         else None)
+    if mode == "chunked" and n:
+        sched = spec.chunked_pool_schedule(n)
+        if sched[-1] < spec.merge.k:
+            raise ValueError(
+                f"plan: the chunked schedule leaves only {sched[-1]} "
+                f"representatives for a k={spec.merge.k} merge — use larger "
+                f"chunks, drop a level, or lower its compression (chunked "
+                f"pool schedule: {sched})")
+    if mode == "single" and n is not None:
+        sched = spec.pool_schedule(n)
+        if sched[-1] < spec.merge.k:
+            raise ValueError(
+                f"plan: the reduce tree leaves only {sched[-1]} "
+                f"representatives for a k={spec.merge.k} merge — drop a "
+                f"level or lower its compression (pool schedule: {sched})")
     return ExecutionPlan(spec=spec, mode=mode, backend=backend, device=dev,
                          data_shape=data_shape,
                          schedule=spec.level_schedule(), logger=run_logger)
 
 
-def execute(pl: ExecutionPlan, x,
-            seed: "int | torch.Generator" = 0) -> SampledClusteringResult:
-    """Run a plan on ``x``, an (N, d) array-like (moved to the plan's
-    device).  ``spec.execution.donate`` is accepted and has no effect."""
-    return fit_from_spec(x, pl.spec, seed, backend=pl.backend,
-                         logger=pl.logger, device=pl.device)
+def execute(pl: ExecutionPlan, x, seed: "int | torch.Generator" = 0, *,
+            return_stats: bool = False):
+    """Run a plan on ``x``: an (N, d) array-like (moved to the plan's
+    device) or a :class:`DataSource`.  ``single`` fits a resident array
+    (an ``ArraySource`` unwraps; another source is rejected); ``chunked``
+    folds a source chunk by chunk (:func:`fit_chunked`); ``stream`` folds
+    an array as one chunk, a source chunk by chunk, and scores a source
+    with one :func:`sse_pass`.  ``spec.execution.donate`` is accepted and
+    has no effect.
+
+    Returns a :class:`SampledClusteringResult`; with ``return_stats=True``
+    ``(result, ChunkStats | None)``, the out-of-core accounting of a
+    ``chunked`` run."""
+    if pl.mode == "chunked":
+        res, stats = fit_chunked(as_source(x), pl.spec, seed,
+                                 backend=pl.backend, logger=pl.logger,
+                                 device=pl.device)
+        return (res, stats) if return_stats else res
+    if return_stats:
+        return execute(pl, x, seed), None
+    if isinstance(x, DataSource) and pl.mode != "stream":
+        if not isinstance(x, ArraySource):
+            raise ValueError(
+                f"execute: mode={pl.mode!r} needs a resident array, but the "
+                f"input is a {type(x).__name__} — use mode='chunked' (or "
+                f"'auto') for out-of-core sources")
+        x = x.array
+    if pl.mode == "single":
+        return fit_from_spec(x, pl.spec, seed, backend=pl.backend,
+                             logger=pl.logger, device=pl.device)
+    if pl.mode == "stream":
+        from repro_torch.stream.engine import StreamConfig, StreamingClusterer
+        sc = StreamingClusterer(StreamConfig.from_spec(pl.spec),
+                                backend=pl.backend, logger=pl.logger,
+                                device=pl.device)
+        if isinstance(x, DataSource):
+            state = None
+            for chunk in x.chunks(pl.spec.chunk.chunk_points):
+                chunk = torch.as_tensor(chunk, device=pl.device)
+                if state is None:
+                    state = sc.init(dim=chunk.shape[-1], seed=seed,
+                                    dtype=chunk.dtype)
+                state = sc.update(state, chunk)
+            if state is None:
+                raise ValueError("execute: the source yielded no chunks")
+            total = sse_pass(x, state.centers, pl.spec.chunk.chunk_points,
+                             prefetch=pl.spec.chunk.prefetch)
+        else:
+            x = torch.as_tensor(x, device=pl.device)
+            state = sc.init(dim=x.shape[-1], seed=seed, dtype=x.dtype)
+            state = sc.update(state, x)
+            _, total = sc.query(state, x)
+        return SampledClusteringResult(
+            centers=state.centers, sse=total, local_centers=state.coreset,
+            local_weights=state.coreset_w,
+            n_dropped=torch.zeros((), dtype=torch.int64, device=pl.device))
+    raise ValueError(f"unknown plan mode {pl.mode!r}")
 
 
 class SampledKMeans:
     """Estimator-style facade (sklearn-like: ``fit`` populates
-    ``centers_``, ``sse_``, ``result_``).
+    ``centers_``, ``sse_``, ``result_``, and ``chunk_stats_`` for a
+    chunked fit; ``partial_fit`` keeps a live stream state).
 
     Parameters
     ----------
@@ -122,12 +201,15 @@ class SampledKMeans:
     device:  where everything runs; ``None`` means the CUDA device, and a
              missing one raises ``RuntimeError`` (pass ``"cpu"`` for the
              plain PyTorch versions)
+    buffer_size, decay: the stream engine's knobs for ``partial_fit`` (and
+             ``fit`` under ``mode="stream"``)
     logger:  a :class:`repro_torch.telemetry.RunLogger` or registry name;
              overrides ``spec.execution.telemetry``
     """
 
     def __init__(self, spec: ClusterSpec | int, *,
                  device: "torch.device | str | None" = None,
+                 buffer_size: int = 1024, decay: float = 0.97,
                  logger: "RunLogger | str | None" = None):
         if isinstance(spec, int):
             spec = ClusterSpec.make(spec)
@@ -135,14 +217,19 @@ class SampledKMeans:
         self.device = resolve_device(device)
         self.logger = get_run_logger(logger if logger is not None
                                      else spec.execution.telemetry)
+        self._stream_overrides = dict(buffer_size=buffer_size, decay=decay)
+        self._clusterer = None      # the StreamingClusterer of partial_fit
+        self._stream_state = None
         self.result_: Optional[SampledClusteringResult] = None
         self.centers_: Optional[torch.Tensor] = None
         self.sse_: Optional[torch.Tensor] = None
+        self.chunk_stats_: Optional[ChunkStats] = None
 
     # -- planning ---------------------------------------------------------
-    def plan(self, data_shape: Optional[tuple] = None) -> ExecutionPlan:
+    def plan(self, data_shape: Optional[tuple] = None, *,
+             source: Optional[DataSource] = None) -> ExecutionPlan:
         return plan(self.spec, data_shape, device=self.device,
-                    logger=self.logger)
+                    source=source, logger=self.logger)
 
     @property
     def backend(self) -> LloydBackend:
@@ -150,10 +237,32 @@ class SampledKMeans:
 
     # -- fit --------------------------------------------------------------
     def fit(self, x, seed: "int | torch.Generator" = 0) -> "SampledKMeans":
-        """One-shot fit of an (n, d) array-like on the estimator's
-        device."""
-        x = torch.as_tensor(x, device=self.device)
-        self.result_ = execute(self.plan(tuple(x.shape)), x, seed)
+        """One-shot fit of ``x`` on the estimator's device: an (n, d)
+        array-like (any mode) or a :class:`DataSource` (out of core;
+        ``auto`` resolves a non-resident source to ``chunked``).  Always
+        starts fresh: a live ``partial_fit`` stream is discarded."""
+        if isinstance(x, DataSource):
+            src, pl = x, self.plan(x.shape, source=x)
+        else:
+            x = torch.as_tensor(x, device=self.device)
+            src, pl = None, self.plan(tuple(x.shape))
+        self._reset_stream()
+        self.chunk_stats_ = None
+        if pl.mode == "stream":
+            # through partial_fit, which honours the stream-only knobs
+            if src is None:
+                return self.partial_fit(x, seed)
+            for chunk in src.chunks(self.spec.chunk.chunk_points):
+                self.partial_fit(chunk, seed)
+            if self.centers_ is None:
+                raise ValueError("fit: the source yielded no chunks")
+            # unlike partial_fit, a finished fit reports its quality
+            self.sse_ = sse_pass(src, self.centers_,
+                                 self.spec.chunk.chunk_points,
+                                 prefetch=self.spec.chunk.prefetch)
+            return self
+        self.result_, self.chunk_stats_ = execute(pl, x, seed,
+                                                  return_stats=True)
         self.centers_ = self.result_.centers
         self.sse_ = self.result_.sse
         return self
@@ -162,15 +271,39 @@ class SampledKMeans:
                     ) -> torch.Tensor:
         return self.fit(x, seed).predict(x)
 
-    def partial_fit(self, chunk, seed: "int | torch.Generator" = 0):
-        raise NotImplementedError(
-            "repro_torch: partial_fit needs the streaming engine, which is "
-            "not ported yet (see ROADMAP.md §1)")
+    # -- incremental fit --------------------------------------------------
+    def _reset_stream(self):
+        self._clusterer = None
+        self._stream_state = None
+
+    def partial_fit(self, chunk, seed: "int | torch.Generator" = 0
+                    ) -> "SampledKMeans":
+        """Fold one (m, d) chunk through the streaming engine
+        (:class:`repro_torch.stream.StreamingClusterer`).  The first call
+        starts the stream state from ``seed``; later calls ignore it.
+        ``sse_`` is left unset (stale) until the next ``fit``."""
+        from repro_torch.stream.engine import StreamConfig, StreamingClusterer
+        chunk = torch.as_tensor(chunk, device=self.device)
+        if self._clusterer is None:
+            cfg = StreamConfig.from_spec(self.spec, **self._stream_overrides)
+            self._clusterer = StreamingClusterer(cfg, logger=self.logger,
+                                                 device=self.device)
+            self._stream_state = self._clusterer.init(
+                dim=chunk.shape[-1], seed=seed, dtype=chunk.dtype)
+        self._stream_state = self._clusterer.update(self._stream_state,
+                                                    chunk)
+        self.centers_ = self._stream_state.centers
+        self.sse_ = None
+        return self
+
+    @property
+    def stream_state(self):
+        return self._stream_state
 
     # -- inference --------------------------------------------------------
     def _check_fitted(self):
         if self.centers_ is None:
-            raise RuntimeError("SampledKMeans: call fit first")
+            raise RuntimeError("SampledKMeans: call fit/partial_fit first")
 
     def predict(self, x, *, block: int | None = PREDICT_BLOCK
                 ) -> torch.Tensor:
@@ -178,11 +311,21 @@ class SampledKMeans:
         backend.  The plain version goes ``block`` rows at a time
         (O(block · k) working set); the CUDA kernel never forms the
         (n, k) matrix and takes all rows in one launch.  The labels are
-        the same either way."""
+        the same either way.  ``x`` may be a :class:`DataSource`, assigned
+        chunk by chunk (only the (n,) labels are ever whole)."""
         self._check_fitted()
+        be = self.plan().backend
+        if isinstance(x, DataSource):
+            from repro_torch.data.source import prefetch_to_device
+            parts = [be.assign_points(c, self.centers_, block=block)[0]
+                     for c in prefetch_to_device(
+                         x.chunks(self.spec.chunk.chunk_points),
+                         self.spec.chunk.prefetch, device=self.device)]
+            if not parts:
+                raise ValueError("predict: the source yielded no chunks")
+            return parts[0] if len(parts) == 1 else torch.cat(parts)
         x = torch.as_tensor(x, device=self.device)
-        idx, _ = self.plan().backend.assign_points(x, self.centers_,
-                                                   block=block)
+        idx, _ = be.assign_points(x, self.centers_, block=block)
         return idx
 
     def transform(self, x, *, block: int = PREDICT_BLOCK) -> torch.Tensor:

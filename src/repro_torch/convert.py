@@ -6,8 +6,10 @@ serialises a spec with ``to_dict()`` and its results are arrays; here those
 become the port's objects, so a fit made with the JAX package serves
 ``predict``/``transform``/``score`` from the port, and an index built with
 it serves ``search``.  A language model's parameter tree becomes the state
-dict of the port's ``DecoderLM`` (:func:`lm_params_from_jax`).  Only plain Python and numpy cross over: nothing here
-imports the JAX package.
+dict of the port's ``DecoderLM`` (:func:`lm_params_from_jax`), and a
+streaming clusterer's state continues in the port
+(:func:`stream_state_from_jax`).  Only plain Python and numpy cross over:
+nothing here imports the JAX package.
 """
 from __future__ import annotations
 
@@ -21,6 +23,7 @@ from repro_torch.core.device import resolve_device
 from repro_torch.core.pipeline import SampledClusteringResult
 from repro_torch.core.spec import ClusterSpec
 from repro_torch.index import IndexSpec, IVFIndex
+from repro_torch.stream.engine import StreamState
 
 
 def spec_from_reference(d: Mapping[str, Any]) -> ClusterSpec:
@@ -95,6 +98,26 @@ def index_from_jax(spec_dict: Mapping[str, Any], coarse_centers, codebooks,
             f"{tuple(index.codes.shape)}, ids {tuple(index.ids.shape)}, "
             f"counts {tuple(index.counts.shape)}")
     return index
+
+
+def stream_state_from_jax(state, seed: int, *,
+                          device: "torch.device | str | None" = None
+                          ) -> StreamState:
+    """The port's :class:`StreamState` on ``device`` (``None``: the CUDA
+    device) from a JAX-package ``StreamState`` whose fields are numpy
+    arrays (``centers``, ``coreset``, ``coreset_w``, ``n_seen``, ``step``;
+    its PRNG key is not carried).  The port's updates from this state draw
+    from ``seed``, so a stream started in the reference continues in the
+    port."""
+    dev = resolve_device(device)
+
+    def t(a, dtype=None):
+        return torch.as_tensor(np.array(a), dtype=dtype, device=dev)
+
+    return StreamState(centers=t(state.centers), coreset=t(state.coreset),
+                       coreset_w=t(state.coreset_w),
+                       n_seen=t(state.n_seen, torch.float32),
+                       step=t(state.step, torch.int32), key=int(seed))
 
 
 _BLOCK_KEYS = ("ln1", "ln2", "w1", "w3", "w2")

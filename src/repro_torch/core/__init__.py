@@ -12,7 +12,10 @@ Public API (the names of :mod:`repro.core` that this slice ports):
   get_backend, register_backend          — LloydBackend registry (torch |
                                            cuda | cuda_fused | auto)
   fit_from_spec                          — spec-driven single-device pipeline
-  chunk_fold / local_stage / reduce_pool / merge_pool — its stages
+  fit_chunked, ChunkStats                — out-of-core executor over a
+                                           DataSource (mode="chunked")
+  chunk_fold / local_stage / reduce_pool / merge_pool / scale_pass /
+  minmax_pass / sse_pass                 — the stages the executors compose
   sampled_kmeans, standard_kmeans        — thin adapters
   sse, min_sqdist, relative_error, clustering_accuracy — metrics
 
@@ -28,9 +31,10 @@ from .kmeans import (KMeansResult, available_inits, get_init, kmeans,
                      register_init, update_centers)
 from .metrics import (clustering_accuracy, map_row_blocks, min_sqdist,
                       relative_error, sse)
-from .pipeline import (SampledClusteringResult, chunk_fold, fit_from_spec,
-                       local_stage, merge_pool, reduce_pool, sampled_kmeans,
-                       standard_kmeans)
+from .pipeline import (ChunkStats, SampledClusteringResult, chunk_fold,
+                       fit_chunked, fit_from_spec, local_stage, merge_pool,
+                       minmax_pass, reduce_pool, sampled_kmeans, scale_pass,
+                       sse_pass, standard_kmeans)
 from .spec import (ChunkSpec, ClusterSpec, ExecutionSpec, LevelSpec,
                    LocalSpec, MergeSpec, PartitionSpec, StopSpec)
 from .subcluster import (Partition, available_partitioners, equal_partition,
@@ -50,7 +54,8 @@ __all__ = [
     "feature_scale", "unscale", "gather_partitions", "unequal_landmarks",
     "SampledClusteringResult", "fit_from_spec", "sampled_kmeans",
     "standard_kmeans", "local_stage", "reduce_pool", "chunk_fold",
-    "merge_pool", "sse", "min_sqdist", "map_row_blocks", "relative_error",
+    "merge_pool", "ChunkStats", "fit_chunked", "scale_pass", "minmax_pass",
+    "sse_pass", "sse", "min_sqdist", "map_row_blocks", "relative_error",
     "clustering_accuracy", "LloydBackend", "CudaBackend", "CudaFusedBackend",
     "LloydStats",
     "get_backend", "register_backend", "available_backends",

@@ -12,6 +12,9 @@ launch per Lloyd iteration serves the whole batch.
   * the Lloyd machinery is a :class:`~repro_torch.core.backend.LloydBackend`
     (``torch``, ``cuda_fused`` or ``auto``);
   * empty clusters keep their previous center (standard Lloyd fix-up);
+  * ``StopSpec.minibatch > 0`` switches the loop to mini-batch Lloyd
+    (weight-proportional row draws per lane, a cumulative-count learning
+    rate), the reference's ``_lloyd_minibatch``;
   * the final pass is one more Lloyd-kernel pass at the final centers: its
     ``idx``, ``sse`` and ``counts`` are the result's, so the counts are
     reduced in the kernel's fixed order (no float atomics) and a repeated
@@ -267,36 +270,111 @@ def _stop_update(stop: StopSpec, *, sse: torch.Tensor,
     return streak, done
 
 
-def _lloyd_converged(be: LloydBackend, prep: Prepared,
-                     centers0: torch.Tensor, stop: StopSpec
+LloydFn = Callable[[torch.Tensor, torch.Tensor],
+                   tuple[torch.Tensor, torch.Tensor, torch.Tensor]]
+
+
+def _full_batch_step(be: LloydBackend, prep: Prepared) -> LloydFn:
+    """One full-batch Lloyd iteration as ``(centers, carry) -> (new centers,
+    carry, SSE at the old centers)``; the carry is unused."""
+    def step(centers, carry):
+        st = be.step(prep, centers)
+        return _centers_from_stats(st.sums, st.counts, centers), carry, st.sse
+    return step
+
+
+def _lloyd_converged(step: LloydFn, centers0: torch.Tensor,
+                     carry0: torch.Tensor, stop: StopSpec
                      ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Full-batch Lloyd under a ``tol>0`` policy, masked per lane: a lane
-    whose own loop condition (``i < max_iters`` and not done) fails keeps
-    its carry (``torch.where``) while the others step, and the batch exits
-    once every lane is done.  Returns ``(centers, n_iter)`` with the true
-    per-lane count.  One host sync per iteration decides the exit."""
+    """Lloyd under a ``tol>0`` policy, masked per lane: a lane whose own
+    loop condition (``i < max_iters`` and not done) fails keeps its carry
+    (``torch.where``) while the others step, and the batch exits once
+    every lane is done.  ``step`` is one iteration (full batch, or a
+    mini-batch whose per-lane carry is the cumulative counts).  Returns
+    ``(centers, n_iter)`` with the true per-lane count.  One host sync per
+    iteration decides the exit."""
     b = centers0.shape[0]
     dev = centers0.device
     i = torch.zeros(b, dtype=torch.int32, device=dev)
     prev_sse = torch.full((b,), torch.inf, device=dev)
     streak = torch.zeros(b, dtype=torch.int32, device=dev)
     done = torch.zeros(b, dtype=torch.bool, device=dev)
-    centers = centers0
+    centers, carry = centers0, carry0
     while True:
         active = (i < stop.max_iters) & ~done
         if not bool(active.any()):
             return centers, i
-        st = be.step(prep, centers)
-        sse = st.sse.float()
-        new = _centers_from_stats(st.sums, st.counts, centers)
+        new, carry_n, sse = step(centers, carry)
+        sse = sse.float()
         streak_n, done_n = _stop_update(
             stop, sse=sse, prev_sse=prev_sse, new_centers=new,
             old_centers=centers, i=i, streak=streak)
         centers = torch.where(active[:, None, None], new, centers)
+        carry = torch.where(active[:, None], carry_n, carry)
         prev_sse = torch.where(active, sse, prev_sse)
         streak = torch.where(active, streak_n, streak)
         done = torch.where(active, done_n, done)
         i = i + active.to(torch.int32)
+
+
+# ---------------------------------------------------------------------------
+# Mini-batch Lloyd (StopSpec.minibatch > 0)
+# ---------------------------------------------------------------------------
+
+def minibatch_ids(cdf: torch.Tensor, n: int,
+                  gen: torch.Generator) -> torch.Tensor:
+    """``n`` row ids per lane, drawn with replacement with probability
+    proportional to weight, from ``cdf`` (B, m), the running sums of each
+    lane's weights (:func:`_weight_cdf`).  A row of weight 0 is never
+    drawn: the first running sum above a uniform draw in [0, total) belongs
+    to a row of positive weight.  A lane without mass draws row 0."""
+    total = cdf[:, -1:].contiguous()
+    u = torch.rand((cdf.shape[0], n), generator=gen, device=cdf.device,
+                   dtype=cdf.dtype) * total
+    last = torch.searchsorted(cdf, total)       # the last row with weight
+    return torch.minimum(torch.searchsorted(cdf, u, right=True), last)
+
+
+def _weight_cdf(weights: torch.Tensor) -> torch.Tensor:
+    """Running sums (f64) of each lane's weights, negatives counted as 0."""
+    return weights.double().clamp_min(0.0).cumsum(-1)
+
+
+def minibatch_update(be: LloydBackend, x: torch.Tensor,
+                     sample_w: torch.Tensor, centers: torch.Tensor,
+                     cum_counts: torch.Tensor, ids: torch.Tensor
+                     ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """One mini-batch step (Sculley) on the rows ``ids`` (B, n) of ``x``
+    (B, m, d), each of sample weight ``sample_w`` (B, n): one backend step
+    on the block, then every center moves toward its batch mean with the
+    learning rate ``counts / cum_counts`` in f32, cast back to the centers'
+    dtype.  A center the batch did not reach keeps its place.  Returns
+    ``(centers, cum_counts, the block's SSE at the old centers)``."""
+    st = be.step(be.prepare(_rows(x, ids), sample_w), centers)
+    cum_counts = cum_counts + st.counts
+    mean = st.sums / st.counts.clamp_min(1e-12)[..., None]
+    lr = (st.counts / cum_counts.clamp_min(1e-12))[..., None]
+    stepped = ((1.0 - lr) * centers.float() + lr * mean).to(centers.dtype)
+    new = torch.where((st.counts <= 0.0)[..., None], centers, stepped)
+    return new, cum_counts, st.sse
+
+
+def _minibatch_step(be: LloydBackend, x: torch.Tensor,
+                    weights: torch.Tensor, n: int,
+                    gen: torch.Generator) -> LloydFn:
+    """A mini-batch iteration as a :data:`LloydFn` whose carry is the
+    per-lane cumulative counts: each lane draws its own ``min(n, m)`` rows
+    (:func:`minibatch_ids`) at unit sample weight (mass enters through the
+    draw).  A lane without mass gets sample weight 0, so no step moves its
+    centers."""
+    n = min(int(n), x.shape[1])
+    cdf = _weight_cdf(weights)
+    sample_w = (cdf[:, -1:] > 0).to(x.dtype).expand(-1, n).contiguous()
+
+    def step(centers, cum_counts):
+        return minibatch_update(be, x, sample_w, centers, cum_counts,
+                                minibatch_ids(cdf, n, gen))
+    return step
 
 
 def kmeans_batched(x: torch.Tensor, k: int, *, weights: torch.Tensor,
@@ -310,11 +388,9 @@ def kmeans_batched(x: torch.Tensor, k: int, *, weights: torch.Tensor,
     the device the work runs on.  Returns a :class:`KMeansResult` with the
     leading batch axis.  ``init`` is a registered name, one (k, d) array
     shared by the B sets, or a (B, k, d) array with one per set (restart 0
-    keeps it verbatim, later restarts jitter it)."""
-    if stop.minibatch > 0:
-        raise NotImplementedError(
-            "repro_torch: mini-batch Lloyd (StopSpec.minibatch > 0) is not "
-            "ported yet; see ROADMAP.md §1")
+    keeps it verbatim, later restarts jitter it).  ``stop.minibatch > 0``
+    runs mini-batch Lloyd, each lane drawing its own rows every iteration
+    (:func:`_minibatch_step`); the final pass still runs over all points."""
     b, m, d = x.shape
     be = get_backend(backend, device=x.device)
     r = max(1, int(restarts))
@@ -343,12 +419,16 @@ def kmeans_batched(x: torch.Tensor, k: int, *, weights: torch.Tensor,
                 centers.repeat_interleave(r, 0), xr, generator, lane_r)
     prep = be.prepare(xr, wr)
 
+    if stop.minibatch > 0:
+        step = _minibatch_step(be, xr, wr, stop.minibatch, generator)
+    else:
+        step = _full_batch_step(be, prep)
+    carry = torch.zeros((b * r, k), device=x.device)
     if stop.tol > 0:
-        centers, n_iter = _lloyd_converged(be, prep, centers, stop)
+        centers, n_iter = _lloyd_converged(step, centers, carry, stop)
     else:           # fixed trip count: no data-dependent exit, no host sync
         for _ in range(stop.max_iters):
-            st = be.step(prep, centers)
-            centers = _centers_from_stats(st.sums, st.counts, centers)
+            centers, carry, _ = step(centers, carry)
         n_iter = torch.full((b * r,), stop.max_iters, dtype=torch.int32,
                             device=x.device)
     final = be.step(prep, centers)

@@ -78,8 +78,8 @@ class StopSpec:
 
     In the batched local stage (one lane per partition) a ``tol>0`` loop
     is masked per lane: converged partitions freeze (``torch.where`` keeps
-    their carry) and the batched loop exits once every lane is done.
-    ``minibatch > 0`` is not ported to :mod:`repro_torch` yet (ROADMAP.md).
+    their carry) and the batched loop exits once every lane is done;
+    under ``minibatch > 0`` each lane draws its own rows.
     """
     max_iters: int = 25
     tol: float = 0.0

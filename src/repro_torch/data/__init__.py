@@ -2,7 +2,8 @@
 the chunked data sources of the out-of-core paths."""
 from .source import (ArraySource, DataSource, IterSource, SyntheticSource,
                      as_source, prefetch_to_device)
-from .synthetic import blobs
+from .synthetic import blobs, drifting_blobs
 
-__all__ = ["blobs", "DataSource", "ArraySource", "IterSource",
-           "SyntheticSource", "as_source", "prefetch_to_device"]
+__all__ = ["blobs", "drifting_blobs", "DataSource", "ArraySource",
+           "IterSource", "SyntheticSource", "as_source",
+           "prefetch_to_device"]

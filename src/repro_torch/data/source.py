@@ -311,7 +311,7 @@ def prefetch_to_device(chunks: Iterable, depth: int = 2, *,
     def put(x):
         t = x if isinstance(x, torch.Tensor) else torch.from_numpy(
             np.ascontiguousarray(x))
-        if t.device == dev or side is None:
+        if t.device.type != "cpu" or side is None:   # on a device already
             return t.to(dev), None, None
         pinned = t.pin_memory()
         with torch.cuda.stream(side):

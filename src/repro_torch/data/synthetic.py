@@ -1,8 +1,8 @@
 """Synthetic data for the PyTorch port.
 
-``blobs`` is a copy of the JAX package's generator (numpy only), so the
-port's tests, ``chip_smoke.py`` and the JAX package build the same points
-from the same seed.
+``blobs`` and ``drifting_blobs`` are copies of the JAX package's
+generators (numpy only), so the port's tests, ``chip_smoke.py`` and the JAX
+package build the same points from the same seed.
 """
 from __future__ import annotations
 
@@ -25,3 +25,24 @@ def blobs(n_points: int, n_clusters: int | None = None, dim: int = 2,
     labels = np.repeat(np.arange(n_clusters), sizes)
     perm = rng.permutation(n_points)
     return pts[perm], labels[perm], centers.astype(np.float32)
+
+
+def drifting_blobs(n_chunks: int, chunk_size: int, n_clusters: int = 8,
+                   dim: int = 2, seed: int = 0, drift: float = 0.05,
+                   spread: float = 0.04):
+    """Non-stationary stream for the streaming engine: Gaussian clusters
+    whose centers random-walk by ``drift`` per chunk.  Returns numpy
+    ``(chunks (n_chunks, chunk_size, dim) f32, labels (n_chunks,
+    chunk_size), center_traj (n_chunks, n_clusters, dim) f32)``;
+    ``center_traj[t]`` is the ground truth while chunk t was emitted."""
+    rng = np.random.default_rng(seed)
+    centers = rng.uniform(0.0, 10.0, (n_clusters, dim))
+    chunks, labels, traj = [], [], []
+    for _ in range(n_chunks):
+        centers = centers + rng.normal(0.0, drift, centers.shape)
+        ids = rng.integers(0, n_clusters, chunk_size)
+        pts = centers[ids] + rng.normal(0.0, spread * 10.0, (chunk_size, dim))
+        chunks.append(pts.astype(np.float32))
+        labels.append(ids)
+        traj.append(centers.astype(np.float32).copy())
+    return np.stack(chunks), np.stack(labels), np.stack(traj)

@@ -1,7 +1,25 @@
-"""Streaming pieces of the PyTorch port.  Ported so far: the incremental
-clustered-KV decode-cache refresh (used by :mod:`repro_torch.serve`).  The
-streaming clusterer (``StreamingClusterer`` and its stages) is still to
-port (ROADMAP §1)."""
+"""Streaming sampled clustering in the PyTorch port — the paper's pipeline
+run continuously.
+
+Public API (the names of :mod:`repro.stream` that the port has):
+  StreamConfig, StreamState, StreamingClusterer — the online engine
+      (init / update / query); ``StreamConfig.from_spec`` derives the
+      config from a ``ClusterSpec`` (``StreamingClusterer`` and
+      ``SampledKMeans.partial_fit`` also accept one)
+  summarize_chunk, fold_coreset, reseed_dead_centers, fold_and_merge
+      — the engine's stages
+  refresh_clustered_cache, refresh_layer_cache — the incremental
+      clustered-KV decode-cache refresh (used by repro_torch.serve)
+
+``make_sharded_update`` waits for the distributed slice (ROADMAP §1).
+"""
+from .engine import (StreamConfig, StreamState, StreamingClusterer,
+                     fold_and_merge, fold_coreset, reseed_dead_centers,
+                     summarize_chunk)
 from .kv import refresh_clustered_cache, refresh_layer_cache
 
-__all__ = ["refresh_clustered_cache", "refresh_layer_cache"]
+__all__ = [
+    "StreamConfig", "StreamState", "StreamingClusterer", "summarize_chunk",
+    "fold_coreset", "reseed_dead_centers", "fold_and_merge",
+    "refresh_clustered_cache", "refresh_layer_cache",
+]

@@ -6,11 +6,12 @@ See :mod:`repro_torch.telemetry.logger` for the schema and the
 """
 from .logger import (EVENT_KINDS, NULL, SCHEMA_VERSION, JsonlLogger,
                      MedianWindow, NullLogger, RateMeter, RecordingLogger,
-                     RunLogger, get_run_logger, register_run_logger,
-                     validate_event)
+                     RunLogger, get_run_logger, peak_rss_mb,
+                     register_run_logger, validate_event)
 
 __all__ = [
     "EVENT_KINDS", "NULL", "SCHEMA_VERSION", "JsonlLogger", "MedianWindow",
     "NullLogger", "RateMeter", "RecordingLogger", "RunLogger",
-    "get_run_logger", "register_run_logger", "validate_event",
+    "get_run_logger", "peak_rss_mb", "register_run_logger",
+    "validate_event",
 ]

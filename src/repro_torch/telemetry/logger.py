@@ -288,6 +288,15 @@ def register_run_logger(name: str,
     _RUN_LOGGERS[name] = factory
 
 
+def peak_rss_mb() -> float:
+    """Process high-water-mark resident set, MB (``ru_maxrss`` is KB on
+    Linux, bytes on macOS)."""
+    import resource
+    import sys
+    peak = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss
+    return peak / 1024.0 if sys.platform != "darwin" else peak / 2 ** 20
+
+
 def get_run_logger(spec: "str | RunLogger | None") -> RunLogger:
     """Resolve a telemetry spec: a live :class:`RunLogger` passes through,
     ``None``/``"off"`` is :data:`NULL`, and ``"name[:arg]"`` consults the

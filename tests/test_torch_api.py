@@ -82,20 +82,40 @@ def test_predict_blocks_do_not_change_labels(pts):
                                rtol=1e-6, atol=0.0)
 
 
-@pytest.mark.parametrize("mode", ["shard_map", "stream", "chunked",
-                                  "chunked_dist"])
+@pytest.mark.parametrize("mode", ["shard_map", "chunked_dist"])
 def test_unported_modes_raise(mode):
     spec = ClusterSpec.make(5, mode=mode)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         SampledKMeans(spec, device="cpu").fit(np.zeros((100, 2), np.float32))
 
 
-def test_partial_fit_and_unfitted_calls_raise():
+@pytest.mark.parametrize("mode", ["chunked", "stream"])
+def test_ported_modes_fit(pts, mode):
+    """The two modes of the out-of-core slice fit an array: ``chunked`` as
+    one chunk (the single fit bit for bit), ``stream`` as one update."""
+    spec = ClusterSpec.make(5, n_sub=5, compression=5, mode=mode)
+    est = SampledKMeans(spec, device="cpu").fit(pts, seed=3)
+    assert est.centers_.shape == (5, 3)
+    assert bool(torch.isfinite(est.centers_).all())
+    if mode == "chunked":
+        assert est.chunk_stats_.n_chunks == 1
+        single = sampled_kmeans(pts, 5, spec=spec.replace(mode="single"),
+                                seed=3, device="cpu")
+        assert torch.equal(est.centers_, single.centers)
+    else:
+        assert int(est.stream_state.step) == 1 and est.sse_ is None
+        assert est.predict(pts).shape == (2000,)
+
+
+def test_partial_fit_folds_and_unfitted_calls_raise(pts):
     est = SampledKMeans(5, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        est.partial_fit(np.zeros((10, 2), np.float32))
     with pytest.raises(RuntimeError, match="fit first"):
         est.predict(np.zeros((10, 2), np.float32))
+    est.partial_fit(pts[:1000])
+    est.partial_fit(pts[1000:])
+    assert int(est.stream_state.step) == 2
+    assert float(est.stream_state.n_seen) == 2000.0
+    assert est.predict(pts).shape == (2000,)
 
 
 def test_plan_resolves_and_validates():

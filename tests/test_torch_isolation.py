@@ -19,6 +19,7 @@ import repro_torch.kernels.scan, repro_torch.kernels.centroid
 import repro_torch.kernels.cluster_attn, repro_torch.models
 import repro_torch.models.lm, repro_torch.models.attention
 import repro_torch.stream, repro_torch.stream.kv, repro_torch.serve
+import repro_torch.stream.engine, repro_torch.data.synthetic
 import repro_torch.serve.engine, repro_torch.launch.serve
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith(("jax.", "jaxlib"))
@@ -52,7 +53,8 @@ def test_no_source_file_imports_jax_or_the_reference():
             "repro_torch/kernels/cluster_attn.py",
             "repro_torch/models/attention.py", "repro_torch/models/lm.py",
             "repro_torch/models/layers.py", "repro_torch/models/registry.py",
-            "repro_torch/stream/kv.py", "repro_torch/serve/engine.py",
+            "repro_torch/stream/kv.py", "repro_torch/stream/engine.py",
+            "repro_torch/serve/engine.py",
             "repro_torch/launch/serve.py",
             "repro_torch/configs/llama3_8b.py"} <= names
     offenders = [str(f.relative_to(ROOT)) for f in files

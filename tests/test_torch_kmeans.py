@@ -156,12 +156,141 @@ def test_kmeans_batched_lanes_are_independent(pts):
         assert torch.equal(both.assignment[lane], alone.assignment)
 
 
-def test_stop_and_iters_conflict_and_minibatch_not_ported(pts):
+def test_stop_and_iters_conflict_and_minibatch_runs(pts):
     with pytest.raises(TypeError):
         kmeans(pts, 4, iters=3, stop=StopSpec(max_iters=3), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        kmeans(pts, 4, stop=StopSpec(max_iters=3, minibatch=64),
+    res = kmeans(pts, 4, stop=StopSpec(max_iters=3, minibatch=64),
+                 device="cpu")
+    assert res.centers.shape == (4, 3) and int(res.n_iter) == 3
+    assert bool(torch.isfinite(res.centers).all())
+
+
+# ---------------------------------------------------------------------------
+# mini-batch Lloyd (StopSpec.minibatch > 0)
+# ---------------------------------------------------------------------------
+
+def _minibatch_blobs(n=800, k=4, seed=0):
+    return blobs(n, n_clusters=k, dim=3, seed=seed)[0]
+
+
+def test_minibatch_updates_match_jax_given_its_ids():
+    """The reference's own row ids, regenerated from the key it passes to
+    ``_lloyd_minibatch``, drive the port's update: after every step the
+    centers equal the reference's at rtol 1e-5."""
+    from repro.core.backend import get_backend as jax_backend
+    from repro.core.kmeans import _MINIBATCH_SALT, _lloyd_minibatch
+    from repro_torch.core.backend import get_backend
+    from repro_torch.core.kmeans import minibatch_update
+    x = _minibatch_blobs()
+    w = np.random.default_rng(0).uniform(0.0, 2.0, 800).astype(np.float32)
+    w[::7] = 0.0
+    key = jax.random.fold_in(jax.random.PRNGKey(5), _MINIBATCH_SALT)
+    c0 = jnp.asarray(x[[0, 200, 400, 600]])
+    logits = jnp.where(jnp.asarray(w) > 0, jnp.log(jnp.maximum(
+        jnp.asarray(w), 1e-30)), -jnp.inf)
+    n = 128
+    be = get_backend("torch", device="cpu")
+    centers = torch.from_numpy(np.array(c0))[None]
+    cum = torch.zeros(1, 4)
+    for i in range(6):
+        ids = np.asarray(jax.random.categorical(jax.random.fold_in(key, i),
+                                                logits, shape=(n,)))
+        centers, cum, _ = minibatch_update(
+            be, torch.from_numpy(x)[None], torch.ones(1, n), centers, cum,
+            torch.from_numpy(ids.astype(np.int64))[None])
+        ref, _ = _lloyd_minibatch(
+            jax_backend("jnp"), jnp.asarray(x), jnp.asarray(w), c0,
+            JaxStop(max_iters=i + 1, minibatch=n), key)
+        np.testing.assert_allclose(centers[0].numpy(), np.asarray(ref),
+                                   rtol=1e-5, err_msg=f"step {i}")
+
+
+def test_minibatch_is_bit_identical_and_within_2x_of_full_batch():
+    x = _minibatch_blobs()
+    stop = StopSpec(max_iters=12, minibatch=128)
+    a = kmeans(x, 4, stop=stop, seed=5, device="cpu")
+    b = kmeans(x, 4, stop=stop, seed=5, device="cpu")
+    for u, v in zip(a, b):
+        assert torch.equal(u, v)
+    assert a.assignment.shape == (800,)        # the final pass: all points
+    full = kmeans(x, 4, iters=12, seed=5, device="cpu")
+    assert float(a.sse) <= 2.0 * float(full.sse)
+    ref = jax_kmeans(jnp.asarray(x), 4, stop=JaxStop(max_iters=12,
+                                                     minibatch=128),
+                     key=jax.random.PRNGKey(5))
+    assert float(a.sse) <= 2.0 * float(ref.sse)
+
+
+def test_minibatch_through_the_kernel_wrappers():
+    """The kernel wrappers check the kernels' input contract on the CPU
+    too (contiguous weight rows, shapes), then run the plain versions:
+    the cuda_fused backend's mini-batch fit is the torch backend's."""
+    x = _minibatch_blobs()
+    stop = StopSpec(max_iters=6, minibatch=100)
+    a = kmeans(x, 4, stop=stop, seed=2, restarts=2, backend="cuda_fused",
                device="cpu")
+    b = kmeans(x, 4, stop=stop, seed=2, restarts=2, backend="torch",
+               device="cpu")
+    for u, v in zip(a, b):
+        assert torch.equal(u, v)
+
+
+def test_minibatch_with_tol_stops_early():
+    x = _minibatch_blobs(k=3)
+    res = kmeans(x, 3, stop=StopSpec(max_iters=100, minibatch=256, tol=1e-3,
+                                     patience=3), seed=6, device="cpu")
+    assert int(res.n_iter) < 100
+
+
+def test_minibatch_restarts_and_point_sets_run_as_lanes():
+    """Restarts and point sets are lanes of one batch; each lane draws its
+    own rows, and the lowest-SSE restart of each set wins."""
+    from repro_torch.core.kmeans import _weight_cdf, minibatch_ids
+    xs = torch.from_numpy(np.stack([_minibatch_blobs(seed=s)
+                                    for s in (1, 2)]))
+    stop = StopSpec(max_iters=8, minibatch=64)
+    both = kmeans_batched(xs, 4, weights=torch.ones(2, 800),
+                          generator=make_generator(1, CPU), restarts=3,
+                          stop=stop)
+    assert both.centers.shape == (2, 4, 3) and both.n_iter.tolist() == [8, 8]
+    for lane in range(2):
+        assert torch.equal(both.sse[lane], kmeans_batched(
+            xs[lane:lane + 1], 4, weights=torch.ones(1, 800),
+            generator=make_generator(1, CPU), init=both.centers[lane:lane + 1],
+            stop=StopSpec(max_iters=0)).sse[0])
+    ids = minibatch_ids(_weight_cdf(torch.ones(3, 800)), 64,
+                        make_generator(0, CPU))
+    assert ids.shape == (3, 64)
+    assert not torch.equal(ids[0], ids[1])
+
+
+def test_minibatch_never_draws_a_zero_weight_row():
+    from repro_torch.core.kmeans import _weight_cdf, minibatch_ids
+    w = torch.zeros(3, 50)
+    w[0, [0, 7, 49]] = torch.tensor([1.0, 3.0, 0.5])
+    w[1, 10:] = 1.0                     # the leading rows have no weight
+    ids = minibatch_ids(_weight_cdf(w), 4000, make_generator(2, CPU))
+    assert set(ids[0].tolist()) == {0, 7, 49}
+    assert int(ids[1].min()) >= 10
+    assert set(ids[2].tolist()) == {0}  # a lane without mass: row 0
+    frac = float((ids[0] == 7).float().mean())
+    assert abs(frac - 3.0 / 4.5) < 0.05
+
+
+def test_minibatch_zero_mass_lane_stays_finite_and_unmoved():
+    """The reference's categorical over all -inf logits has no defined
+    draw; the port's lane without mass gets sample weight 0, so no step
+    moves its centers (ROADMAP §3)."""
+    x = torch.from_numpy(np.stack([_minibatch_blobs(seed=3)] * 2))
+    w = torch.ones(2, 800)
+    w[1] = 0.0
+    init = x[:, [0, 100, 200, 300]]
+    res = kmeans_batched(x, 4, weights=w, generator=make_generator(0, CPU),
+                         init=init, stop=StopSpec(max_iters=5, minibatch=64))
+    assert bool(torch.isfinite(res.centers).all())
+    assert torch.equal(res.centers[1], init[1])
+    assert not torch.equal(res.centers[0], init[0])
+    assert float(res.sse[1]) == 0.0
 
 
 def test_entry_point_defaults_to_cuda_and_never_falls_back(pts, monkeypatch):
