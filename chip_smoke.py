@@ -17,6 +17,16 @@ after:
   * the IVF/PQ index (``build_index`` then ``search``) at
     ``benchmarks/specs/index_200k.json`` and ``index_5m.json``, with
     recall@10 against the exact search;
+  * the multi-device executors over a mesh of the visible cards (with one
+    card, W entries of ``cuda:0``): ``paper_500k`` in ``mode="shard_map"``
+    over 4 shards (both merge paths, and the ``cuda`` backend) and its
+    exact landmark check against the plain version on a CPU mesh;
+    ``benchmarks/specs/chunked_dist_50m.json`` (50,000,000 x 8,
+    ``mode="chunked_dist"``) over 8 shards; ``oocore_5m`` on one shard
+    (``fit_chunked`` bit for bit); ``index_5m`` built over 4 shards (the
+    unsharded index bit for bit); ``stream_5m`` through
+    ``make_sharded_update`` over 4 shards; each kernel at every shape
+    these paths launched it at against its plain version;
   * clustered-KV decode serving: ``ServeEngine`` over llama3-8b at full
     width (random bf16 weights from a seed) with the ``long_500k`` cache
     (8192 centroids + a 1024-token window per layer and kv head), two
@@ -26,6 +36,7 @@ after:
     through the launcher (``python -m repro_torch.launch.serve``).
 
     python3 chip_smoke.py          # needs one CUDA device (sm_90a) and nvcc
+    python3 chip_smoke.py --stream-sweep 6   # only the stream's seed sweep
 
 Every phase prints one JSON line; any failed check raises (non-zero exit).
 Before the last line it prints the card's name and power limit (as
@@ -36,6 +47,7 @@ the JAX package.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import itertools
 import json
@@ -510,10 +522,11 @@ def read_launches() -> dict:
 
 class ShapeRecorder:
     """Within ``with``: records the (B, M, K, d) of every call the paths
-    make to one kernel's wrapper, ``lloyd_step(x, w, c)`` or
-    ``assign_argmin(x, c)`` (``shapes``: shape -> calls; ``shared``: the
-    shapes whose points one batch broadcast shares) and, where ``timed``,
-    CUDA events around each call, read with :meth:`device_ms`."""
+    make to one kernel's wrapper, ``lloyd_step(x, w, c)``,
+    ``assign_argmin(x, c)`` or ``centroid_update(x, idx, w, k)``
+    (``shapes``: shape -> calls; ``shared``: the shapes whose points one
+    batch broadcast shares) and, where ``timed``, CUDA events around each
+    call, read with :meth:`device_ms`."""
 
     def __init__(self, kernel: str, timed: bool = False):
         self.kernel = kernel
@@ -527,7 +540,8 @@ class ShapeRecorder:
         self._orig = orig = getattr(mod, self.kernel)
 
         def recording(x, *args):
-            key = (x.shape[0], x.shape[1], args[-1].shape[1], x.shape[2])
+            k = args[-1] if isinstance(args[-1], int) else args[-1].shape[1]
+            key = (x.shape[0], x.shape[1], k, x.shape[2])
             self.shapes[key] = self.shapes.get(key, 0) + 1
             if x.shape[0] > 1 and x.stride(0) == 0:
                 self.shared.add(key)
@@ -612,6 +626,7 @@ def build_and_sweep(spec_file: Path, nprobes, repeats: int):
     exact_s = time.perf_counter() - t0
     for p in sweep:
         p["recall"] = recall_at_k(p["ids"], true_ids)
+        p["true_ids"] = true_ids
     check(index.n_points == w["n"] and stats.n_points == w["n"],
           f"{spec_file.name}: indexed {index.n_points} of {w['n']} rows")
     for p in sweep:
@@ -710,16 +725,48 @@ def oocore_spec(chunk_points: int = OOCORE_CHUNK, sse: str = "pool",
         execution=ExecutionSpec(mode=mode), levels=levels)
 
 
-def fold_profile(source, spec) -> dict:
-    """Where the chunked fold's time goes: the wall time of one unprofiled
-    :func:`fold_pass` (the device synchronised at both ends), the device's
-    busy time in a second, profiled one (``torch.profiler``: the kernels'
-    device time and count, the host-to-device copies apart, as they run on
-    the prefetcher's side stream), the idle share, the kernels that take
-    the most device time, and the time the host takes to produce the
-    source's chunks alone (no device work)."""
+def device_profile(fn) -> dict:
+    """Where the time of ``fn()`` goes: the wall time of one unprofiled
+    call (every card synchronised at both ends), the device's busy time in
+    a second, profiled call (``torch.profiler``: the kernels' device time
+    and count on every card, the copies apart, as the prefetchers' run on
+    their side streams), the idle share of one card's worth of busy time,
+    and the kernels that take the most device time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+    sync_all()
+    t0 = time.perf_counter()
+    fn()
+    sync_all()
+    wall = time.perf_counter() - t0
+    # the device's activity only: recording the host's operators as well
+    # slowed a fold of about 140,000 launches from 2.6 s to over a minute
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        sync_all()
+    rows = [(r.key, r.count, r.self_device_time_total / 1e6)
+            for r in prof.key_averages() if r.device_type == DeviceType.CUDA]
+    copies = [r for r in rows if r[0].startswith(("Memcpy", "Memset"))]
+    kernels = [r for r in rows if r not in copies]
+    busy = sum(s for _, _, s in kernels)
+    top = sorted((r for r in kernels if r[2] > 0), key=lambda r: -r[2])[:8]
+    return dict(wall_s=wall, device_busy_s=busy,
+                idle_share=max(0.0, 1.0 - busy / wall),
+                device_launches=sum(n for _, n, _ in kernels),
+                copy_s=sum(s for _, _, s in copies),
+                top_kernels=[dict(name=k[:80], calls=n, s=s)
+                             for k, n, s in top])
+
+
+def sync_all() -> None:
+    for i in range(torch.cuda.device_count()):
+        torch.cuda.synchronize(i)
+
+
+def fold_profile(source, spec) -> dict:
+    """Where the chunked fold's time goes (:func:`device_profile` of one
+    :func:`fold_pass`), and the time the host takes to produce the
+    source's chunks alone (no device work)."""
     from repro_torch.core.device import derive_seed
     from repro_torch.core.pipeline import fold_pass, scale_pass
     cp = spec.chunk.chunk_points
@@ -729,28 +776,10 @@ def fold_profile(source, spec) -> dict:
     params = scale_pass(source, cp, prefetch=spec.chunk.prefetch,
                         device="cuda")
     seed_local = derive_seed(0, 0)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    fold_pass(source, spec, params, seed_local, device="cuda")
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    # the device's activity only: recording the host's operators as well
-    # slowed this fold (about 140,000 launches) from 2.6 s to over a minute
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        fold_pass(source, spec, params, seed_local, device="cuda")
-        torch.cuda.synchronize()
-    rows = [(r.key, r.count, r.self_device_time_total / 1e6)
-            for r in prof.key_averages() if r.device_type == DeviceType.CUDA]
-    copies = [r for r in rows if r[0].startswith(("Memcpy", "Memset"))]
-    kernels = [r for r in rows if r not in copies]
-    busy = sum(s for _, _, s in kernels)
-    top = sorted((r for r in kernels if r[2] > 0), key=lambda r: -r[2])[:8]
-    return dict(rows=n_host, source_only_s=source_s, fold_wall_s=wall,
-                device_busy_s=busy, idle_share=max(0.0, 1.0 - busy / wall),
-                device_launches=sum(n for _, n, _ in kernels),
-                copy_s=sum(s for _, _, s in copies),
-                top_kernels=[dict(name=k[:80], calls=n, s=s)
-                             for k, n, s in top])
+    prof = device_profile(lambda: fold_pass(source, spec, params,
+                                            seed_local, device="cuda"))
+    return dict(rows=n_host, source_only_s=source_s,
+                fold_wall_s=prof.pop("wall_s"), **prof)
 
 
 def oocore_5m() -> dict:
@@ -889,7 +918,8 @@ def oocore_5m() -> dict:
          lloyd_shapes={str(k_): v for k_, v in frec.shapes.items()},
          exact_sse=float(flush.sse_), resident_single_sse=single_lv_sse,
          relative_error=flush_rel)
-    return dict(est=est, exact_sse=exact, launches=launches,
+    return dict(est=est, exact_sse=exact, resident_sse=single_sse,
+                launches=launches,
                 cuda_launches=cuda_launches, flush_launches=flush_launches,
                 assign_rec=arec, cuda_assign_rec=crec, lloyd_rec=lrec,
                 flush_lloyd_rec=frec)
@@ -933,7 +963,7 @@ def stream_5m(oocore_exact_sse: float) -> dict:
          sse=float(est.sse_), chunked_exact_sse=oocore_exact_sse,
          sse_ratio=ratio,
          live_coreset=int((state.coreset_w > 0).sum()))
-    return dict(launches=launches)
+    return dict(launches=launches, sse=float(est.sse_))
 
 
 def stream_drift() -> dict:
@@ -1040,6 +1070,489 @@ def chunked_one_chunk_pin(x, spec, single) -> None:
               f"single fit")
     emit("chunked_one_chunk_pin", spec=SPEC_FILE.name, chunk_points=500_000,
          chunk_stats=pin.chunk_stats_._asdict(), bit_identical=True)
+
+
+# ---------------------------------------------------------------------------
+# the multi-device executors over a mesh of the visible cards
+# ---------------------------------------------------------------------------
+
+def phase_mesh(n_shards: int):
+    """A 1-D ``"data"`` mesh of ``n_shards`` entries over the visible
+    cards in turn: distinct cards where as many are visible, and with one
+    card ``n_shards`` entries of ``cuda:0`` (the shards then run one after
+    another on it, with the multi-shard results)."""
+    from repro_torch.launch.mesh import make_mesh
+    n = torch.cuda.device_count()
+    return make_mesh((n_shards,), ("data",),
+                     [f"cuda:{i % n}" for i in range(n_shards)])
+
+
+# the sharded landmark fit on the card against its plain version: on the
+# H100 the single fit's own exact check (``landmark_exact``) differs by
+# 1.6e-6 in SSE and 6.7e-5 of the largest coordinate in its centers, the
+# 4-shard fit by 1.7e-6 and 3.1e-5 (the Lloyd kernel sums a cluster's ~25k
+# points in block order, the CPU in another); 1e-6 was asked and is below
+# what the single fit reaches
+LANDMARK_SSE_RTOL = 1e-5
+LANDMARK_CENTER_RTOL = 1e-4
+
+# shards of each mesh phase
+MESH_SHARDS = {"shard_map_500k": 4, "shard_map_landmark_exact": 4,
+               "chunked_dist_50m": 8, "chunked_dist_one_shard_pin": 1,
+               "index_5m_sharded": 4, "stream_5m_sharded": 4}
+
+
+def recorded(*kernels):
+    """One :class:`ShapeRecorder` per kernel, entered together."""
+    stack = contextlib.ExitStack()
+    recs = [stack.enter_context(ShapeRecorder(k)) for k in kernels]
+    return stack, recs
+
+
+def _equal_results(a, b) -> bool:
+    return all(torch.equal(u, v) for u, v in zip(a, b))
+
+
+def shard_map_500k(x, spec, std_sse: float, single) -> dict:
+    """paper_500k over 4 shards of 125,000 points, 16 partitions each (64
+    in all, as the single fit): the replicated and the distributed merge
+    under ``cuda_fused``, the replicated one under ``cuda``; each fit then
+    predict, SSE within the reference's 0.15 of ``standard_kmeans``
+    (tests/test_pipeline.py), two fits with one seed bit-identical, the
+    kernels' launches and shapes.  On one shard the fit is ``single``'s
+    (the single fit of the same seed) bit for bit."""
+    from repro_torch.api import SampledKMeans
+    from repro_torch.core import relative_error
+    mesh = phase_mesh(MESH_SHARDS["shard_map_500k"])
+    sharded = spec.replace(n_sub=16)
+    runs, out = {}, {}
+    for name, s in (("replicated", sharded.replace(merge_path="replicated")),
+                    ("distributed",
+                     sharded.replace(merge_path="distributed")),
+                    ("cuda", sharded.replace(merge_path="replicated",
+                                             backend="cuda"))):
+        sync_all()
+        reset_launches()
+        t0 = time.perf_counter()
+        stack, recs = recorded("lloyd_step", "assign_argmin",
+                               "centroid_update")
+        with stack:
+            est = SampledKMeans(s, mesh=mesh).fit(x, seed=0)
+            sync_all()
+            fit_s = time.perf_counter() - t0
+            labels = est.predict(x)
+            sync_all()
+        launches = read_launches()
+        if name == "cuda":
+            check(launches["centroid_update"] > 0
+                  and launches["assign_argmin"] > 0
+                  and launches["lloyd_step"] == 0,
+                  f"shard_map_500k ({name}) skipped a kernel: {launches}")
+        else:
+            check(launches["lloyd_step"] > 0
+                  and launches["assign_argmin"] > 0,
+                  f"shard_map_500k ({name}) skipped a kernel: {launches}")
+        again = SampledKMeans(s, mesh=mesh).fit(x, seed=0)
+        check(_equal_results(est.result_, again.result_),
+              f"shard_map_500k ({name}): two fits with one seed differ")
+        sse = float(est.sse_)
+        rel = relative_error(sse, std_sse)
+        check(est.centers_.shape == (1000, 2)
+              and bool(torch.isfinite(est.centers_).all())
+              and rel < 0.15, f"shard_map_500k ({name}): SSE {sse} vs "
+              f"standard {std_sse}: {rel}")
+        check(labels.shape == (500_000,) and int(labels.min()) >= 0
+              and int(labels.max()) < 1000, f"shard_map_500k ({name}) labels")
+        check(est.result_.local_centers.shape[0] == 4 * 16 * 1562,
+              f"shard_map_500k ({name}) pool "
+              f"{est.result_.local_centers.shape}")
+        runs[name] = dict(fit_s=fit_s, fit_points_per_s=500_000 / fit_s,
+                          launches=launches, sse=sse,
+                          relative_error=rel, bit_identical=True,
+                          pool=int(est.result_.local_centers.shape[0]),
+                          lloyd_shapes={str(k): v for k, v in
+                                        recs[0].shapes.items()})
+        out[name] = dict(launches=launches, recs=recs)
+    one = SampledKMeans(spec, mesh=phase_mesh(1)).fit(x, seed=0).result_
+    for name in ("centers", "local_centers", "sse"):
+        check(torch.equal(getattr(one, name), getattr(single, name)),
+              f"shard_map_500k on one shard: {name} differs from the single "
+              f"fit's")
+    prof = device_profile(lambda: SampledKMeans(
+        sharded.replace(merge_path="distributed"), mesh=mesh).fit(x, seed=0))
+    emit("shard_map_500k", spec=SPEC_FILE.name, shards=mesh.size,
+         n_sub_per_shard=16, mesh=[str(d) for d in mesh.devices.flat],
+         standard_sse=std_sse, runs=runs, one_shard_equals_single=True,
+         distributed_profile=prof)
+    return out
+
+
+def shard_map_landmark_exact(x, coarse) -> dict:
+    """The single mode's exact-check recipe over 4 shards (ROADMAP §3):
+    the 500,000 points with coarse landmark stages (compression 2000,
+    k = 20, tol = 0), 16 partitions a shard, both merge paths, the card's
+    kernels against the port's plain version on a mesh of 4 CPU entries:
+    the weights equal, the SSE within ``LANDMARK_SSE_RTOL`` and the
+    centers within ``LANDMARK_CENTER_RTOL`` of the largest center
+    coordinate."""
+    from repro_torch.core import make_distributed_sampled_kmeans
+    from repro_torch.launch.mesh import make_mesh
+    mesh = phase_mesh(MESH_SHARDS["shard_map_landmark_exact"])
+    cpu = make_mesh((mesh.size,), ("data",), ["cpu"] * mesh.size)
+    x_cpu = x.cpu()
+    out, launches, recs = {}, {}, {}
+    for merge in ("replicated", "distributed"):
+        s = coarse.replace(n_sub=16, merge_path=merge)
+        reset_launches()
+        stack, recs[merge] = recorded("lloyd_step", "assign_argmin")
+        with stack:
+            got = make_distributed_sampled_kmeans(mesh, spec=s)(x, 0)
+            sync_all()
+        launches[merge] = read_launches()
+        check(launches[merge]["lloyd_step"] > 0,
+              f"shard_map_landmark_exact ({merge}) skipped the Lloyd kernel")
+        want = make_distributed_sampled_kmeans(cpu, spec=s)(x_cpu, 0)
+        rel_sse = abs(float(got.sse) - float(want.sse)) / float(want.sse)
+        rel_c = float((got.centers.cpu() - want.centers).abs().amax()
+                      / want.centers.abs().amax())
+        rel_local = float((got.local_centers.cpu()
+                           - want.local_centers).abs().amax()
+                          / want.local_centers.abs().amax())
+        same_w = torch.equal(got.local_weights.cpu(), want.local_weights)
+        check(rel_sse <= LANDMARK_SSE_RTOL and rel_c <= LANDMARK_CENTER_RTOL
+              and same_w,
+              f"shard_map_landmark_exact ({merge}): SSE {rel_sse}, centers "
+              f"{rel_c} relative, weights equal {same_w}")
+        out[merge] = dict(sse_kernels=float(got.sse),
+                          sse_plain=float(want.sse), rel_sse=rel_sse,
+                          rel_centers=rel_c, rel_local_centers=rel_local,
+                          weights_equal=same_w, launches=launches[merge])
+    emit("shard_map_landmark_exact", shards=mesh.size, n_sub_per_shard=16,
+         compression=2000, k=20, plain_mesh="cpu x 4", **out)
+    return dict(launches=launches, recs=recs)
+
+
+CHUNKED_DIST_SPEC = SPECS / "chunked_dist_50m.json"
+
+
+def chunked_dist_50m() -> dict:
+    """``benchmarks/specs/chunked_dist_50m.json`` as written (50,000,000 x
+    8 synthetic points, chunks of 1,048,576, 8 partitions at compression
+    512, one reduce level, weighted k = 256, the distributed merge, pool
+    SSE) over 8 shards under ``cuda_fused``, with
+    ``benchmarks/chunked_dist_smoke.py``'s checks: 8 devices, every point
+    folded, per-device chunk counts within 1, a pool of at least k, the
+    centers unscaled (inside the generating centers' box +- 1).  Then
+    ``fit_chunked`` on ``ref_fraction`` of the points, timed as that
+    script times it, the fold's profile on one shard and the whole fit's
+    device profile."""
+    from repro_torch.api import execute, plan
+    from repro_torch.core import ClusterSpec, fit_chunked
+    from repro_torch.data import SyntheticSource
+    from repro_torch.telemetry import RecordingLogger
+    payload = json.loads(CHUNKED_DIST_SPEC.read_text())
+    spec = ClusterSpec.from_dict(payload["cluster_spec"])
+    wl = payload["workload"]
+    n, dim, seed = int(wl["n"]), int(wl["dim"]), int(wl.get("seed", 0))
+    n_clusters = int(wl.get("n_clusters", 0)) or None
+    frac = float(wl.get("ref_fraction", 1.0))
+    src = SyntheticSource(n, dim=dim, n_clusters=n_clusters, seed=seed)
+    mesh = phase_mesh(MESH_SHARDS["chunked_dist_50m"])
+    pl = plan(spec, src.shape, mesh=mesh, source=src)
+    check(pl.mode == "chunked_dist" and pl.backend.name == "cuda_fused",
+          f"chunked_dist_50m plans {pl.mode} on {pl.backend.name}")
+    sync_all()
+    reset_launches()
+    t0 = time.perf_counter()
+    stack, recs = recorded("lloyd_step", "assign_argmin")
+    with stack:
+        res, stats = execute(pl, src, seed, return_stats=True)
+        sync_all()
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    check(launches["lloyd_step"] > 0, f"chunked_dist_50m skipped the Lloyd "
+          f"kernel: {launches}")
+    check(stats.n_devices == mesh.size and stats.n_points == n,
+          f"chunked_dist_50m {stats}")
+    balance = max(stats.per_device_chunks) - min(stats.per_device_chunks)
+    check(balance <= 1, f"round-robin imbalance {stats.per_device_chunks}")
+    check(stats.pool_size >= spec.merge.k, f"chunked_dist_50m pool {stats}")
+    lo = torch.from_numpy(src.centers.min(axis=0) - 1.0).cuda()
+    hi = torch.from_numpy(src.centers.max(axis=0) + 1.0).cuda()
+    check(res.centers.shape == (spec.merge.k, dim)
+          and bool(torch.isfinite(res.centers).all())
+          and bool((res.centers >= lo - 1e-3).all())
+          and bool((res.centers <= hi + 1e-3).all()),
+          "chunked_dist_50m: centers not unscaled")
+    # where the time goes: the stage timers of a logged fit (the same fit
+    # bit for bit), and the fold's profile on one shard's chunks
+    log = RecordingLogger()
+    logged, _ = execute(plan(spec, src.shape, mesh=mesh, source=src,
+                             logger=log), src, seed, return_stats=True)
+    check(_equal_results(logged, res),
+          "chunked_dist_50m: a logged fit differs from the unlogged one")
+    del logged
+    timers = {}
+    for e in log.events:
+        if e["kind"] == "timer":
+            timers[e["name"]] = timers.get(e["name"], 0.0) + e["dur"]
+    summary = log.named("fit_chunked_dist")[0]
+    fold = fold_profile(src.shard(0, mesh.size), spec)
+
+    # benchmarks/chunked_dist_smoke.py's reference: fit_chunked on
+    # ref_fraction of the points, one device
+    n_ref = max(spec.chunk.chunk_points, int(n * frac))
+    ref_src = SyntheticSource(n_ref, dim=dim, n_clusters=n_clusters,
+                              seed=seed)
+    sync_all()
+    t0 = time.perf_counter()
+    ref, _ = fit_chunked(ref_src, spec, seed, device="cuda")
+    sync_all()
+    ref_wall = time.perf_counter() - t0
+    check(bool(torch.isfinite(ref.centers).all()),
+          "chunked_dist_50m: the reference fit's centers")
+    emit("chunked_dist_50m", spec=CHUNKED_DIST_SPEC.name, n=n, dim=dim,
+         shards=mesh.size, mesh=[str(d) for d in mesh.devices.flat],
+         fit_s=wall, points_per_s=n / wall,
+         logged_points_per_s=summary["points_per_sec"],
+         stage_s=timers, chunk_stats=stats._asdict(),
+         peak_pool_rows_per_device=stats.peak_pool_rows,
+         per_device_chunks=list(stats.per_device_chunks),
+         launches=launches,
+         lloyd_shapes={str(k): v for k, v in recs[0].shapes.items()},
+         pool_sse=float(res.sse),
+         reference=dict(n=n_ref, fit_s=ref_wall,
+                        points_per_s=n_ref / ref_wall,
+                        pool_sse=float(ref.sse)),
+         fold_scaling=(n / wall) / (n_ref / ref_wall),
+         fold_profile_one_shard=fold, peak_rss_mb=summary["peak_rss_mb"])
+    return dict(launches=launches, recs=recs)
+
+
+def chunked_dist_one_shard_pin(chunked) -> dict:
+    """``oocore_5m`` on a one-entry mesh: ``fit_chunked``'s fit bit for bit
+    on the card (centers, local centers, weights, SSE, n_dropped), as
+    tests/test_chunked_dist.py pins it in the JAX package."""
+    from repro_torch.core import fit_chunked_dist
+    mesh = phase_mesh(MESH_SHARDS["chunked_dist_one_shard_pin"])
+    reset_launches()
+    res, stats = fit_chunked_dist(oocore_source(), oocore_spec(), mesh, 0)
+    launches = read_launches()
+    check(launches["lloyd_step"] > 0, "one-shard pin skipped the Lloyd "
+          f"kernel: {launches}")
+    for name, a, b in zip(res._fields, res, chunked):
+        check(torch.equal(a, b), f"one-shard pin: {name} differs from "
+              f"fit_chunked's")
+    emit("chunked_dist_one_shard_pin", chunk_stats=stats._asdict(),
+         launches=launches, bit_identical=True)
+    return launches
+
+
+# the seeds over which the sharded stream's quality is held: on oocore_5m's
+# 64 separated blobs one seed's stream misses blobs or not (the merge's
+# kmeans++), and over seeds 0-5 the unsharded stream read 0.94-1.28x the
+# chunked fit's exact SSE, the 4-shard one 0.72-1.20x (PERF.md §6), so a
+# bound of QUALITY_LOSS holds on the mean of several seeds, not on one
+STREAM_SEEDS = (0, 1, 2)
+
+
+def _stream_run(on, n_sub: int, seed: int):
+    """``stream_5m``'s 20 updates through ``make_sharded_update`` on the
+    mesh ``on`` with ``n_sub`` partitions a shard; the final state."""
+    from repro_torch.stream import (StreamConfig, StreamingClusterer,
+                                    make_sharded_update)
+    cfg = StreamConfig.from_spec(oocore_spec(mode="stream"))
+    sc = StreamingClusterer(dataclasses.replace(cfg, n_sub=n_sub),
+                            device=on.devices.flat[0])
+    update = make_sharded_update(sc, on)
+    state = sc.init(dim=OOCORE_DIM, seed=seed)
+    for chunk in oocore_source().chunks(OOCORE_CHUNK):
+        state = update(state, torch.from_numpy(chunk))
+    return state
+
+
+def stream_seed_rows(seeds, known: dict = None) -> list:
+    """For each seed the exact SSE over oocore_5m's points of: the chunked
+    fit, the unsharded stream (16 partitions of 16,384 rows an update),
+    the 4-shard stream at 4 partitions a shard (the same partitions) and at
+    16 a shard (64 of 4,096 rows), and the unsharded stream at 64
+    partitions (the same 4,096-row partitions as 16 a shard).  ``known``
+    maps a seed to the entries already measured."""
+    from repro_torch.api import SampledKMeans
+    from repro_torch.core import sse_pass
+    src = oocore_source()
+    mesh = phase_mesh(MESH_SHARDS["stream_5m_sharded"])
+    one = phase_mesh(1)
+    n_sub = oocore_spec().partition.n_sub
+
+    def exact(centers):
+        return float(sse_pass(src, centers, OOCORE_CHUNK))
+
+    runs = dict(unsharded=(one, n_sub), sharded=(mesh, n_sub // mesh.size),
+                sharded_16_a_shard=(mesh, n_sub),
+                unsharded_64=(one, n_sub * mesh.size))
+    rows = []
+    for seed in seeds:
+        row = dict(seed=seed, **(known or {}).get(seed, {}))
+        if "chunked" not in row:
+            row["chunked"] = exact(SampledKMeans(oocore_spec()).fit(
+                src, seed=seed).centers_)
+        for name, (on, n) in runs.items():
+            if name not in row:
+                row[name] = exact(_stream_run(on, n, seed).centers)
+        rows.append(row)
+    return rows
+
+
+def stream_5m_sharded(seed0: dict) -> dict:
+    """``stream_5m``'s source and config through ``make_sharded_update``
+    over 4 shards, 20 updates.  ``cfg.n_sub`` counts partitions per shard,
+    so ``stream_5m``'s 16 partitions of a 262,144-row chunk are 4 per shard
+    (16,384 rows each, as unsharded); the config's own 16 per shard make
+    64 partitions of 4,096 rows.  Seed 0's run is timed and counted; then
+    :func:`stream_seed_rows` over ``STREAM_SEEDS`` (``seed0``: seed 0's
+    chunked and unsharded SSE, which oocore_5m and stream_5m measured).
+    Checks, on the means over the seeds: the sharded stream at most
+    ``QUALITY_LOSS`` above the chunked fit, and at each decomposition at
+    most ``QUALITY_LOSS`` above the unsharded stream of the same
+    partitions (what sharding costs)."""
+    from repro_torch.core import sse_pass
+    mesh = phase_mesh(MESH_SHARDS["stream_5m_sharded"])
+    n_sub = oocore_spec().partition.n_sub // mesh.size
+    sync_all()
+    reset_launches()
+    t0 = time.perf_counter()
+    stack, recs = recorded("lloyd_step", "assign_argmin")
+    with stack:
+        state = _stream_run(mesh, n_sub, 0)
+        sync_all()
+    fit_s = time.perf_counter() - t0
+    launches = read_launches()
+    check(int(state.step) == 20 and float(state.n_seen) == OOCORE_N,
+          f"stream_5m_sharded: {int(state.step)} updates")
+    check(launches["lloyd_step"] > 0, f"stream_5m_sharded skipped the "
+          f"Lloyd kernel: {launches}")
+    check(bool(torch.isfinite(state.centers).all()),
+          "stream_5m_sharded: centers not finite")
+    seed0 = dict(seed0, sharded=float(sse_pass(oocore_source(), state.centers,
+                                               OOCORE_CHUNK)))
+    seeds = stream_seed_rows(STREAM_SEEDS, {0: seed0})
+
+    def mean_ratio(a, b):
+        return sum(r[a] / r[b] for r in seeds) / len(seeds)
+
+    ratios = {f"{a}_to_{b}": mean_ratio(a, b) for a, b in (
+        ("sharded", "chunked"), ("sharded", "unsharded"),
+        ("sharded_16_a_shard", "unsharded_64"),
+        ("sharded_16_a_shard", "chunked"), ("unsharded_64", "chunked"),
+        ("unsharded", "chunked"))}
+    for name in ("sharded_to_chunked", "sharded_to_unsharded",
+                 "sharded_16_a_shard_to_unsharded_64"):
+        check(ratios[name] <= 1.0 + QUALITY_LOSS,
+              f"stream_5m_sharded: mean {name} {ratios[name]} over seeds "
+              f"{STREAM_SEEDS}: {seeds}")
+    emit("stream_5m_sharded", shards=mesh.size, n_sub_per_shard=n_sub,
+         updates=20, fit_s=fit_s, s_per_update=fit_s / 20,
+         points_per_s=OOCORE_N / fit_s, launches=launches,
+         lloyd_shapes={str(k): v for k, v in recs[0].shapes.items()},
+         live_coreset=int((state.coreset_w > 0).sum()), seeds=seeds,
+         mean_ratios=ratios)
+    return dict(launches=launches, recs=recs)
+
+
+def index_5m_sharded(spec_file: Path, unsharded, true_ids) -> dict:
+    """``index_5m`` built with a 4-entry mesh from the same seed.  Its
+    source is an ``IterSource``, whose shards take every fourth chunk, so
+    ids number the rows shard by shard; mapped back to the source's rows,
+    the lists, codes and counts are the unsharded build's bit for bit
+    (training is shared and encoding is row by row), and so are the
+    search's distances and ids.  Recall@10 at nprobe = 2 against the
+    exact search."""
+    from repro_torch.index import build_index, recall_at_k
+    ispec, w, src, queries = index_workload(spec_file)
+    mesh = phase_mesh(MESH_SHARDS["index_5m_sharded"])
+    sync_all()
+    reset_launches()
+    t0 = time.perf_counter()
+    stack, recs = recorded("lloyd_step", "assign_argmin")
+    with stack:
+        index, stats = build_index(src, ispec, w["seed"], mesh=mesh)
+        sync_all()
+        build_s = time.perf_counter() - t0
+        d, ids = index.search(queries, w["k"], nprobe=2, q_block=w["q_block"])
+        sync_all()
+    launches = read_launches()
+    check(all(launches[k] > 0 for k in ("lloyd_step", "assign_argmin",
+                                        "adc_scan")),
+          f"index_5m_sharded skipped a kernel: {launches}")
+    check(stats.n_shards == mesh.size and stats.n_points == w["n"],
+          f"index_5m_sharded {stats}")
+    # shard-major position -> source row
+    cp = ispec.coarse.chunk.chunk_points
+    n_chunks = -(-w["n"] // cp)
+    rows = torch.cat([torch.arange(j * cp, min((j + 1) * cp, w["n"]))
+                      for i in range(mesh.size)
+                      for j in range(i, n_chunks, mesh.size)]).cuda()
+
+    def by_row(idx, to_row):
+        live = idx.ids >= 0
+        r = idx.ids[live].long()
+        r = rows[r] if to_row else r
+        cell = torch.full((w["n"],), -1, dtype=torch.long,
+                          device=idx.ids.device)
+        code = torch.zeros((w["n"], idx.codes.shape[2]), dtype=torch.uint8,
+                           device=idx.ids.device)
+        cell[r] = live.nonzero()[:, 0]
+        code[r] = idx.codes[live]
+        return cell, code
+
+    for f in ("coarse_centers", "codebooks", "counts"):
+        check(torch.equal(getattr(index, f), getattr(unsharded, f)),
+              f"index_5m_sharded: {f} differ from the unsharded build's")
+    for a, b in zip(by_row(index, True), by_row(unsharded, False)):
+        check(torch.equal(a, b), "index_5m_sharded: a row's cell or codes "
+              "differ from the unsharded build's")
+    mapped = torch.where(ids >= 0, rows[ids.long().clamp_min(0)], ids)
+    recall = recall_at_k(mapped, true_ids)
+    want_d, want_ids = unsharded.search(queries, w["k"], nprobe=2,
+                                        q_block=w["q_block"])
+    check(torch.equal(d, want_d) and torch.equal(mapped.to(want_ids.dtype),
+                                                 want_ids),
+          "index_5m_sharded: the search differs from the unsharded index's")
+    emit("index_5m_sharded", shards=mesh.size,
+         mesh=[str(dv) for dv in mesh.devices.flat], build_s=build_s,
+         stats=stats._asdict(), launches=launches, recall_at_10=recall,
+         equal_to_unsharded=True)
+    return dict(launches=launches, recs=recs)
+
+
+def cross_device_check() -> dict:
+    """With two or more cards: each kernel's wrapper, given tensors on
+    ``cuda:1`` while ``cuda:0`` is current, launches there (its outputs
+    are on ``cuda:1``) and agrees with its plain version.  With one card
+    there is no other device to launch on, and the line says so."""
+    n = torch.cuda.device_count()
+    if n < 2:
+        return dict(run=False, reason=f"{n} visible card")
+    from repro_torch.kernels import assign, centroid, lloyd, scan
+    torch.cuda.set_device(0)
+    dev = torch.device("cuda:1")
+    x, w, c = (t.to(dev) for t in _case(3, 4000, 50, 2, seed=40))
+    g = torch.Generator("cuda").manual_seed(41)
+    luts = torch.rand((8, 16, 16), generator=g, device="cuda").to(dev)
+    codes = torch.randint(0, 16, (8, 700, 16), generator=g, device="cuda",
+                          dtype=torch.uint8).to(dev)
+    cases = [lloyd_parity("cross_device_lloyd", x, w, c),
+             assign_parity("cross_device_assign", x, c),
+             centroid_parity("cross_device_centroid", x, w, c),
+             scan_parity("cross_device_scan", luts, codes)]
+    idx, _ = assign.assign_argmin(x, c)
+    outs = [lloyd.lloyd_step(x, w, c)[0], idx,
+            centroid.centroid_update(x, idx, w, c.shape[1])[0],
+            scan.adc_scan_cuda(luts, codes)]
+    check(all(o.device == dev for o in outs),
+          "a kernel's outputs are not on its inputs' device")
+    return dict(run=True, devices=n, cases=cases)
 
 
 # ---------------------------------------------------------------------------
@@ -1630,11 +2143,25 @@ def main() -> int:
     # stream_drift
     chunked_one_chunk_pin(x, spec, est.result_)
     mb = minibatch_500k(x, spec, sse)
+
+    # -- 7c. the multi-device executors: one line with the cards and each
+    # phase's mesh, then paper_500k over 4 shards and its exact check
+    emit("meshes", device_count=torch.cuda.device_count(),
+         meshes={name: [str(d) for d in phase_mesh(n).devices.flat]
+                 for name, n in MESH_SHARDS.items()},
+         cross_device=cross_device_check())
+    sm = shard_map_500k(x, spec, float(std.sse), est.result_)
+    sm_exact = shard_map_landmark_exact(x, coarse)
     del x
     torch.cuda.empty_cache()
     oo = oocore_5m()
-    st5 = stream_5m(oo.pop("exact_sse"))
+    oo_exact = oo.pop("exact_sse")
+    st5 = stream_5m(oo_exact)
+    pin1 = chunked_dist_one_shard_pin(oo["est"].result_)
+    st5s = stream_5m_sharded(dict(chunked=oo_exact, unsharded=st5["sse"]))
     drift = stream_drift()
+    torch.cuda.empty_cache()
+    cd50 = chunked_dist_50m()
     torch.cuda.empty_cache()
     # the kernels at these paths' shapes against their plain versions: the
     # chunk fold (16 partitions of 16,384, 256 centers each), the merge
@@ -1722,7 +2249,10 @@ def main() -> int:
                                    ids_swapped_at_near_ties=n_swapped),
          scan_parity=cases[-1])
     torch.cuda.synchronize()
+    ix5s = index_5m_sharded(SPECS / "index_5m.json", index5,
+                            sweep5[0]["true_ids"])
     del index2, index5, sweep2, sweep5, kern_d, plain_d
+    torch.cuda.empty_cache()
 
     # the Lloyd kernel at the index builds' coarse-fit shapes (as their runs
     # gave them) with d >= TC_MIN_D, against the plain version where the
@@ -1748,13 +2278,25 @@ def main() -> int:
     # their runs recorded them), with each path's calls; where d >=
     # TC_MIN_D (the index builds' routing of chunks to cells) on the route
     # its shape takes, against the plain version
+    # the mesh paths' recorders: (Lloyd, assignment[, centroid]) each
+    mesh_paths = [
+        ("shard_map_500k", sm["replicated"]["recs"]),
+        ("shard_map_500k_distributed", sm["distributed"]["recs"]),
+        ("shard_map_500k_cuda", sm["cuda"]["recs"]),
+        ("shard_map_landmark_exact", sm_exact["recs"]["replicated"]),
+        ("shard_map_landmark_exact_distributed",
+         sm_exact["recs"]["distributed"]),
+        ("chunked_dist_50m", cd50["recs"]),
+        ("stream_5m_sharded", st5s["recs"]),
+        ("index_5m_sharded", ix5s["recs"])]
     assign_calls, assign_shared = {}, set()
     for path, rec in (("paper_500k", fused_assign),
                       ("paper_500k_cuda", cuda_assign),
                       ("index_200k", assign_rec2), ("index_5m", assign_rec5),
                       ("oocore_5m", oo["assign_rec"]),
                       ("oocore_5m_cuda", oo["cuda_assign_rec"]),
-                      ("stream_drift", drift["assign_rec"])):
+                      ("stream_drift", drift["assign_rec"]),
+                      *((path, recs[1]) for path, recs in mesh_paths)):
         assign_shared |= rec.shared
         for shape, n in rec.shapes.items():
             assign_calls.setdefault(shape, {})[path] = n
@@ -1768,6 +2310,47 @@ def main() -> int:
           f"the index builds' routing took another route: {index_assign}")
     cases += index_assign
     emit("index_assign_parity", cases=index_assign)
+
+    # the kernels at every shape the mesh paths launched them at (as their
+    # runs recorded them) against their plain versions: the Lloyd and the
+    # centroid kernel at each, the assignment kernel at each with d <
+    # TC_MIN_D (index_assign_parity holds the others)
+    def mesh_recorded(kind):
+        shapes, shared = {}, set()
+        for path, recs in mesh_paths:
+            if len(recs) > kind:
+                shared |= recs[kind].shared
+                for shape in recs[kind].shapes:
+                    shapes.setdefault(shape, []).append(path)
+        return sorted(shapes.items()), shared
+
+    def shape_name(kernel, shape, paths):
+        return f"{kernel}_{'+'.join(paths)}_{'x'.join(map(str, shape))}"
+
+    mesh_cases = []
+    lloyd_mesh, shared = mesh_recorded(0)
+    for i, (shape, paths) in enumerate(lloyd_mesh):
+        inputs = _case(*shape, share_x=shape in shared, seed=45 + i)
+        mesh_cases.append(lloyd_parity(
+            shape_name("lloyd", shape, paths), *inputs,
+            cancel=(dot_rounding_bound(inputs[0], inputs[2])
+                    if tiles.lloyd_route(shape[2], shape[3]) == "tc"
+                    else None)))
+    assign_mesh, shared = mesh_recorded(1)
+    for i, (shape, paths) in enumerate(assign_mesh):
+        if shape[3] < tiles.TC_MIN_D:
+            mesh_cases.append(assign_parity(
+                shape_name("assign", shape, paths),
+                *_case(*shape, share_x=shape in shared, seed=65 + i)[::2]))
+    centroid_mesh, shared = mesh_recorded(2)
+    for i, (shape, paths) in enumerate(centroid_mesh):
+        mesh_cases.append(centroid_parity(
+            shape_name("centroid", shape, paths),
+            *_case(*shape, share_x=shape in shared, seed=85 + i)))
+    check(len(lloyd_mesh) > 0 and len(centroid_mesh) > 0,
+          "the mesh paths recorded no Lloyd or centroid shape")
+    cases += mesh_cases
+    emit("mesh_parity", cases=mesh_cases)
 
     # -- 10. clustered-KV decode serving, llama3-8b at full width ------------
     serve_requests, served_parity = serve_long_500k()
@@ -1903,6 +2486,39 @@ def main() -> int:
     c_refresh = centroid_entry("refresh values, 4 lanes", *refresh)
     c_oocore = centroid_entry("oocore_5m fold (cuda)", *oo_fold)
     del oo_fold, oo_merge, mb_step, st_merge
+
+    # the Lloyd and centroid kernels at the shapes the mesh paths launched
+    # them at that no row above times, with each path's calls
+    def mesh_shapes(kind, timed):
+        calls, shared = {}, set()
+        for path, recs in mesh_paths:
+            if len(recs) > kind:
+                shared |= recs[kind].shared
+                for shape, n in recs[kind].shapes.items():
+                    if shape not in timed:
+                        calls.setdefault(shape, {})[path] = n
+        return sorted(calls.items()), shared
+
+    def dims(entries):
+        return {(e["b"], e["m"], e["k"], e["d"]) for e in entries}
+
+    l_mesh = []
+    calls, shared = mesh_shapes(0, dims([l_local, l_merge, l_pq, l_refresh4,
+                                         *l_index, *l_oocore]))
+    for shape, by_path in calls:
+        e = lloyd_entry(f"{'+'.join(by_path)} {'x'.join(map(str, shape))}",
+                        *_case(*shape, share_x=shape in shared, seed=43))
+        e["calls_by_path"] = by_path
+        l_mesh.append(e)
+    c_mesh = []
+    calls, shared = mesh_shapes(2, dims([c_local, c_merge, c_pq, c_refresh,
+                                         c_oocore]))
+    for shape, by_path in calls:
+        e = centroid_entry(f"{'+'.join(by_path)} "
+                           f"{'x'.join(map(str, shape))}",
+                           *_case(*shape, share_x=shape in shared, seed=44))
+        e["calls_by_path"] = by_path
+        c_mesh.append(e)
     c_refresh256 = centroid_ids_entry("refresh values, 256 lanes",
                                       *refresh256, 8192)
     del refresh256
@@ -1969,6 +2585,22 @@ def main() -> int:
                 for shape, calls in sorted(assign_calls.items())]
     a_pred = next(e for e in a_shapes if e["shape"] == "predict")
     errs = {c["case"]: c for c in cases}
+    mesh_runs = {
+        "shard_map_500k": sm["replicated"]["launches"],
+        "shard_map_500k_distributed": sm["distributed"]["launches"],
+        "shard_map_500k_cuda": sm["cuda"]["launches"],
+        "shard_map_landmark_exact": sm_exact["launches"]["replicated"],
+        "shard_map_landmark_exact_distributed":
+            sm_exact["launches"]["distributed"],
+        "chunked_dist_50m": cd50["launches"],
+        "chunked_dist_one_shard_pin": pin1,
+        "stream_5m_sharded": st5s["launches"],
+        "index_5m_sharded": ix5s["launches"]}
+
+    def mesh_launches(kernel):
+        """A kernel's launches on each mesh path that launched it."""
+        return {p: n[kernel] for p, n in mesh_runs.items() if n[kernel]}
+
     kernels = [
         dict(name="lloyd_step", route="cuda",
              source="src/repro_torch/kernels/csrc/lloyd.cu",
@@ -1985,12 +2617,13 @@ def main() -> int:
                  "oocore_5m_flush": oo["flush_launches"]["lloyd_step"],
                  "stream_5m": st5["launches"]["lloyd_step"],
                  "stream_drift": drift["launches"]["lloyd_step"],
-                 "minibatch_500k": mb["launches"]["lloyd_step"]},
+                 "minibatch_500k": mb["launches"]["lloyd_step"],
+                 **mesh_launches("lloyd_step")},
              ms=l_local["ms"], plain_ms=l_local["plain_ms"],
              bound_ms=l_local["bound_ms"], bound_by=l_local["bound_by"],
              library_ms=None,
              shapes=[l_local, l_merge, l_pq, l_refresh4, l_refresh,
-                     l_refresh_bf16, *l_index, *l_oocore]),
+                     l_refresh_bf16, *l_index, *l_oocore, *l_mesh]),
         dict(name="assign_argmin", route="cuda",
              source="src/repro_torch/kernels/csrc/assign.cu",
              replaces="src/repro/kernels/assign.py:87",
@@ -2006,7 +2639,8 @@ def main() -> int:
                  "oocore_5m_cuda": oo["cuda_launches"]["assign_argmin"],
                  "stream_5m": st5["launches"]["assign_argmin"],
                  "stream_drift": drift["launches"]["assign_argmin"],
-                 "minibatch_500k": mb["launches"]["assign_argmin"]},
+                 "minibatch_500k": mb["launches"]["assign_argmin"],
+                 **mesh_launches("assign_argmin")},
              ms=a_pred["ms"], plain_ms=a_pred["plain_ms"],
              bound_ms=a_pred["bound_ms"], bound_by=a_pred["bound_by"],
              issue_floor_ms=a_pred["issue_floor_ms"],
@@ -2027,14 +2661,20 @@ def main() -> int:
                      "lloyd_centroid_update"],
                  "index_200k_lloyd": index_launches["lloyd_centroid_update"],
                  "index_5m_lloyd": launches5["lloyd_centroid_update"],
-                 "oocore_5m_cuda": oo["cuda_launches"]["centroid_update"]},
+                 "oocore_5m_cuda": oo["cuda_launches"]["centroid_update"],
+                 **mesh_launches("centroid_update"),
+                 **{f"{p}_lloyd": n for p, n in
+                    mesh_launches("lloyd_centroid_update").items()}},
              library_ms=c_local["library_ms"],
              shapes=[c_local, c_merge, c_pq, c_refresh, c_refresh256,
-                     c_oocore]),
+                     c_oocore, *c_mesh]),
         dict(name="adc_scan", route="cuda",
              source="src/repro_torch/kernels/csrc/adc_scan.cu",
              replaces="src/repro/kernels/scan.py:105",
              launches=index_launches["adc_scan"],
+             launches_by_path={"index_200k": index_launches["adc_scan"],
+                               "index_5m": launches5["adc_scan"],
+                               **mesh_launches("adc_scan")},
              max_abs_err=errs["scan_index_200k"]["max_abs_err"],
              ms=s_200k["ms"], plain_ms=s_200k["plain_ms"],
              bound_ms=s_200k["bound_ms"], bound_by=s_200k["bound_by"],
@@ -2060,5 +2700,24 @@ def main() -> int:
     return 0
 
 
+def stream_sweep(n_seeds: int) -> int:
+    """``--stream-sweep N``: only :func:`stream_seed_rows` for seeds 0 to
+    N - 1, one JSON line a seed (the sweep PERF.md §6 cites)."""
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.kernels import build
+    build.build(["lloyd", "assign", "centroid"])
+    for seed in range(n_seeds):
+        t0 = time.perf_counter()
+        row = stream_seed_rows([seed])[0]
+        print(json.dumps(dict(row, seconds=time.perf_counter() - t0)),
+              flush=True)
+    return 0
+
+
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--stream-sweep"]:
+        sys.exit(stream_sweep(int(sys.argv[2])))
     sys.exit(main())

@@ -3,10 +3,13 @@ plan/execute split; the port's counterpart of :mod:`repro.api`.
 
     from repro_torch.api import SampledKMeans
     from repro_torch.core import ClusterSpec, MergeSpec, PartitionSpec
+    from repro_torch.launch.mesh import make_mesh
 
     spec = ClusterSpec(merge=MergeSpec(k=40),
                        partition=PartitionSpec(scheme="equal", n_sub=16))
     est = SampledKMeans(spec).fit(x)     # on the CUDA device
+    est = SampledKMeans(spec, mesh=make_mesh((4,), ("data",))).fit(x)
+    #                                    # over four cards, 4 x 16 partitions
     labels = est.predict(x)
     for chunk in stream:                 # or: incremental
         est.partial_fit(chunk)
@@ -14,17 +17,25 @@ plan/execute split; the port's counterpart of :mod:`repro.api`.
 :func:`plan` resolves a spec ONCE (execution mode, Lloyd backend, registry
 lookups) into an :class:`ExecutionPlan`; :func:`execute` runs it.  Modes:
 
-  ``single``   the one-device pipeline (``core.pipeline.fit_from_spec``)
-  ``chunked``  the out-of-core executor (``core.pipeline.fit_chunked``)
-               over a :class:`~repro_torch.data.source.DataSource`
-  ``stream``   the incremental coreset engine (``stream.engine``); ``fit``
-               feeds the data chunk by chunk, ``partial_fit`` is one update
-  ``auto``     ``chunked`` for a non-resident source, else ``single``
+  ``single``     the one-device pipeline (``core.pipeline.fit_from_spec``)
+  ``shard_map``  the pipeline over a device mesh
+                 (``core.distributed.make_distributed_sampled_kmeans``) —
+                 pass ``mesh=`` (:mod:`repro_torch.launch.mesh`)
+  ``chunked``    the out-of-core executor (``core.pipeline.fit_chunked``)
+                 over a :class:`~repro_torch.data.source.DataSource`
+  ``chunked_dist``  out of core and over a mesh
+                 (``core.distributed.fit_chunked_dist``): one source shard
+                 per mesh entry, the pools merged across the mesh
+  ``stream``     the incremental coreset engine (``stream.engine``); ``fit``
+                 feeds the data chunk by chunk, ``partial_fit`` is one update
+  ``auto``       ``chunked_dist`` for a mesh and a non-resident source,
+                 ``shard_map`` for a mesh and resident data, ``chunked`` for
+                 a non-resident source, else ``single``
 
-``shard_map`` and ``chunked_dist`` raise ``NotImplementedError`` until the
-distributed slice lands (ROADMAP.md §1).  ``fit`` under ``single`` is
-``sampled_kmeans(x, spec=spec)`` bit for bit under the same seed, and a
-``chunked`` fit of a source that fits in one chunk is the same fit.
+``fit`` under ``single`` is ``sampled_kmeans(x, spec=spec)`` bit for bit
+under the same seed, and a ``chunked`` fit of a source that fits in one
+chunk is the same fit; the mesh modes are their direct entry points'
+fits.
 """
 from __future__ import annotations
 
@@ -42,13 +53,12 @@ from repro_torch.core.pipeline import (ChunkStats, SampledClusteringResult,
 from repro_torch.core.spec import ClusterSpec
 from repro_torch.core.subcluster import get_partitioner
 from repro_torch.data.source import ArraySource, DataSource, as_source
+from repro_torch.launch.mesh import Mesh, check_mesh
 from repro_torch.telemetry import NULL, RunLogger, get_run_logger
 
 # default row-block of the predict-side surfaces (transform/score): the
 # working set stays O(block · k) however large the query set is
 PREDICT_BLOCK = 16384
-
-_UNPORTED_MODES = ("shard_map", "chunked_dist")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -58,9 +68,11 @@ class ExecutionPlan:
     schedule (base stage + ``spec.levels``).  Build with :func:`plan`, run
     with :func:`execute`."""
     spec: ClusterSpec
-    mode: str                      # "single" | "chunked" | "stream"
+    mode: str                      # "single" | "shard_map" | "chunked" |
+    #                                "chunked_dist" | "stream"
     backend: LloydBackend          # resolved once, shared by every stage
     device: torch.device
+    mesh: Optional[Mesh] = None
     data_shape: Optional[tuple] = None
     schedule: tuple = ()           # tuple[LevelSpec, ...], base level first
     logger: RunLogger = NULL       # resolved spec.execution.telemetry
@@ -74,27 +86,41 @@ class ExecutionPlan:
         return len(self.schedule)
 
 
+def _home(device, mesh) -> torch.device:
+    """The device of a plan or estimator: ``device``; else the first mesh
+    entry; else the CUDA device (a missing one raises)."""
+    if mesh is not None:
+        check_mesh(mesh)
+        if device is None:
+            device = mesh.devices.flat[0]
+    return resolve_device(device)
+
+
 def plan(spec: ClusterSpec, data_shape: Optional[tuple] = None, *,
+         mesh: Optional[Mesh] = None,
          device: "torch.device | str | None" = None,
          source: Optional[DataSource] = None,
          logger: "RunLogger | str | None" = None) -> ExecutionPlan:
     """Resolve a declarative spec into an executable plan on ``device``
-    (``None``: the CUDA device; a missing one raises).
+    (``None``: the first entry of ``mesh``, or the CUDA device; a missing
+    one raises).
 
     Validates every registry name (partitioner, init schemes, backend) up
     front and picks the execution mode: an explicit
-    ``spec.execution.mode`` wins; ``"auto"`` is ``"chunked"`` when
-    ``source`` is a non-resident :class:`DataSource` (anything but an
-    ``ArraySource``), else ``"single"``; ``shard_map`` and
-    ``chunked_dist`` raise.  ``data_shape`` lets the planner reject
-    schedules whose final pool is below ``k``."""
+    ``spec.execution.mode`` wins; ``"auto"`` is ``"chunked_dist"`` for a
+    mesh and a non-resident :class:`DataSource` (anything but an
+    ``ArraySource``), ``"shard_map"`` for a mesh otherwise, ``"chunked"``
+    for a non-resident source alone, else ``"single"``.  ``data_shape``
+    lets the planner reject schedules whose final pool is below ``k``,
+    shard_map rows that do not divide over the mesh, and chunked_dist runs
+    with fewer chunks than shards."""
     get_partitioner(spec.partition.scheme)
     get_init(spec.local.init)
     get_init(spec.merge.init)
     for lvl in spec.levels:
         get_partitioner(lvl.scheme)
         get_init(lvl.init)
-    dev = resolve_device(device)
+    dev = _home(device, mesh)
     backend = get_backend(spec.execution.backend, device=dev)
     run_logger = get_run_logger(logger if logger is not None
                                 else spec.execution.telemetry)
@@ -102,14 +128,46 @@ def plan(spec: ClusterSpec, data_shape: Optional[tuple] = None, *,
     if mode == "auto":
         non_resident = (source is not None
                         and not isinstance(source, ArraySource))
-        mode = "chunked" if non_resident else "single"
-    if mode in _UNPORTED_MODES:
-        raise NotImplementedError(
-            f"repro_torch: execution mode {mode!r} is not ported yet; the "
-            f"port runs 'single', 'chunked' and 'stream' (see ROADMAP.md §1 "
-            f"for the queue)")
+        if mesh is not None:
+            mode = "chunked_dist" if non_resident else "shard_map"
+        else:
+            mode = "chunked" if non_resident else "single"
     n = (int(data_shape[0]) if data_shape is not None and len(data_shape)
          else None)
+    axis = spec.execution.mesh_axis
+    if mode in ("shard_map", "chunked_dist") and mesh is None:
+        raise ValueError(f"plan: mode={mode!r} needs a mesh= (see "
+                         f"repro_torch.launch.mesh.make_mesh)")
+    if mode == "shard_map":
+        if axis not in mesh.axis_names:
+            raise ValueError(f"plan: mesh has no {axis!r} axis "
+                             f"(axes: {mesh.axis_names})")
+        if n is not None and n % mesh.shape[axis]:
+            raise ValueError(f"plan: {n} rows do not divide over "
+                             f"{mesh.shape[axis]} devices along {axis!r}")
+    if mode == "chunked_dist":
+        if tuple(mesh.axis_names) != (axis,):
+            raise ValueError(
+                f"plan: mode='chunked_dist' needs a 1-D mesh over the "
+                f"{axis!r} axis (spec.execution.mesh_axis), got axes "
+                f"{mesh.axis_names}")
+        if n:
+            n_dev = mesh.shape[axis]
+            n_chunks = -(-n // spec.chunk.chunk_points)
+            if n_chunks < n_dev:
+                raise ValueError(
+                    f"plan: {n} rows make only {n_chunks} chunks of "
+                    f"{spec.chunk.chunk_points} — not enough to feed "
+                    f"{n_dev} devices one shard each (shrink chunk_points "
+                    f"or the mesh)")
+            sched = spec.chunked_dist_pool_schedule(n, n_dev)
+            if sched[-1] < spec.merge.k:
+                raise ValueError(
+                    f"plan: the sharded chunk schedule leaves only "
+                    f"{sched[-1]} representatives for a k={spec.merge.k} "
+                    f"merge — use larger chunks, drop a level, or lower "
+                    f"its compression (per-shard + global schedule: "
+                    f"{sched})")
     if mode == "chunked" and n:
         sched = spec.chunked_pool_schedule(n)
         if sched[-1] < spec.merge.k:
@@ -126,27 +184,34 @@ def plan(spec: ClusterSpec, data_shape: Optional[tuple] = None, *,
                 f"representatives for a k={spec.merge.k} merge — drop a "
                 f"level or lower its compression (pool schedule: {sched})")
     return ExecutionPlan(spec=spec, mode=mode, backend=backend, device=dev,
-                         data_shape=data_shape,
+                         mesh=mesh, data_shape=data_shape,
                          schedule=spec.level_schedule(), logger=run_logger)
 
 
 def execute(pl: ExecutionPlan, x, seed: "int | torch.Generator" = 0, *,
             return_stats: bool = False):
     """Run a plan on ``x``: an (N, d) array-like (moved to the plan's
-    device) or a :class:`DataSource`.  ``single`` fits a resident array
-    (an ``ArraySource`` unwraps; another source is rejected); ``chunked``
-    folds a source chunk by chunk (:func:`fit_chunked`); ``stream`` folds
-    an array as one chunk, a source chunk by chunk, and scores a source
-    with one :func:`sse_pass`.  ``spec.execution.donate`` is accepted and
-    has no effect.
+    device) or a :class:`DataSource`.  ``single`` and ``shard_map`` fit a
+    resident array (an ``ArraySource`` unwraps; another source is
+    rejected); ``chunked`` folds a source chunk by chunk
+    (:func:`fit_chunked`), ``chunked_dist`` one source shard per mesh
+    entry (:func:`~repro_torch.core.distributed.fit_chunked_dist`);
+    ``stream`` folds an array as one chunk, a source chunk by chunk, and
+    scores a source with one :func:`sse_pass`.
+    ``spec.execution.donate`` is accepted and has no effect.
 
     Returns a :class:`SampledClusteringResult`; with ``return_stats=True``
-    ``(result, ChunkStats | None)``, the out-of-core accounting of a
-    ``chunked`` run."""
+    ``(result, ChunkStats | ChunkDistStats | None)``, the out-of-core
+    accounting of a ``chunked`` or ``chunked_dist`` run."""
     if pl.mode == "chunked":
         res, stats = fit_chunked(as_source(x), pl.spec, seed,
                                  backend=pl.backend, logger=pl.logger,
                                  device=pl.device)
+        return (res, stats) if return_stats else res
+    if pl.mode == "chunked_dist":
+        from repro_torch.core.distributed import fit_chunked_dist
+        res, stats = fit_chunked_dist(as_source(x), pl.spec, pl.mesh, seed,
+                                      backend=pl.backend, logger=pl.logger)
         return (res, stats) if return_stats else res
     if return_stats:
         return execute(pl, x, seed), None
@@ -160,6 +225,17 @@ def execute(pl: ExecutionPlan, x, seed: "int | torch.Generator" = 0, *,
     if pl.mode == "single":
         return fit_from_spec(x, pl.spec, seed, backend=pl.backend,
                              logger=pl.logger, device=pl.device)
+    if pl.mode == "shard_map":
+        from repro_torch.core.distributed import (
+            make_distributed_sampled_kmeans)
+        res = make_distributed_sampled_kmeans(
+            pl.mesh, spec=pl.spec, backend=pl.backend,
+            logger=pl.logger)(x, seed)
+        return SampledClusteringResult(
+            centers=res.centers, sse=res.sse, local_centers=res.local_centers,
+            local_weights=res.local_weights,
+            n_dropped=torch.zeros((), dtype=torch.int64,
+                                  device=res.centers.device))
     if pl.mode == "stream":
         from repro_torch.stream.engine import StreamConfig, StreamingClusterer
         sc = StreamingClusterer(StreamConfig.from_spec(pl.spec),
@@ -198,9 +274,12 @@ class SampledKMeans:
     ----------
     spec:    the declarative job (or an int — shorthand for
              ``ClusterSpec.make(k)``)
-    device:  where everything runs; ``None`` means the CUDA device, and a
-             missing one raises ``RuntimeError`` (pass ``"cpu"`` for the
-             plain PyTorch versions)
+    mesh:    a :class:`repro_torch.launch.mesh.Mesh`; enables and steers
+             the ``shard_map`` and ``chunked_dist`` modes
+    device:  where everything else runs and the results live; ``None``
+             means the first mesh entry, or without a mesh the CUDA
+             device, and a missing one raises ``RuntimeError`` (pass
+             ``"cpu"`` for the plain PyTorch versions)
     buffer_size, decay: the stream engine's knobs for ``partial_fit`` (and
              ``fit`` under ``mode="stream"``)
     logger:  a :class:`repro_torch.telemetry.RunLogger` or registry name;
@@ -208,13 +287,15 @@ class SampledKMeans:
     """
 
     def __init__(self, spec: ClusterSpec | int, *,
+                 mesh: Optional[Mesh] = None,
                  device: "torch.device | str | None" = None,
                  buffer_size: int = 1024, decay: float = 0.97,
                  logger: "RunLogger | str | None" = None):
         if isinstance(spec, int):
             spec = ClusterSpec.make(spec)
         self.spec = spec
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        self.device = _home(device, mesh)
         self.logger = get_run_logger(logger if logger is not None
                                      else spec.execution.telemetry)
         self._stream_overrides = dict(buffer_size=buffer_size, decay=decay)
@@ -228,8 +309,8 @@ class SampledKMeans:
     # -- planning ---------------------------------------------------------
     def plan(self, data_shape: Optional[tuple] = None, *,
              source: Optional[DataSource] = None) -> ExecutionPlan:
-        return plan(self.spec, data_shape, device=self.device,
-                    source=source, logger=self.logger)
+        return plan(self.spec, data_shape, mesh=self.mesh,
+                    device=self.device, source=source, logger=self.logger)
 
     @property
     def backend(self) -> LloydBackend:
@@ -237,10 +318,11 @@ class SampledKMeans:
 
     # -- fit --------------------------------------------------------------
     def fit(self, x, seed: "int | torch.Generator" = 0) -> "SampledKMeans":
-        """One-shot fit of ``x`` on the estimator's device: an (n, d)
-        array-like (any mode) or a :class:`DataSource` (out of core;
-        ``auto`` resolves a non-resident source to ``chunked``).  Always
-        starts fresh: a live ``partial_fit`` stream is discarded."""
+        """One-shot fit of ``x`` on the estimator's device (or mesh): an
+        (n, d) array-like (any mode) or a :class:`DataSource` (out of core;
+        ``auto`` resolves a non-resident source to ``chunked``, or to
+        ``chunked_dist`` when the estimator has a mesh).  Always starts
+        fresh: a live ``partial_fit`` stream is discarded."""
         if isinstance(x, DataSource):
             src, pl = x, self.plan(x.shape, source=x)
         else:

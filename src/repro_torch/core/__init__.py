@@ -14,6 +14,10 @@ Public API (the names of :mod:`repro.core` that this slice ports):
   fit_from_spec                          — spec-driven single-device pipeline
   fit_chunked, ChunkStats                — out-of-core executor over a
                                            DataSource (mode="chunked")
+  make_distributed_sampled_kmeans,       — the multi-device executors over a
+  DistributedClusteringResult,             repro_torch.launch.mesh.Mesh
+  fit_chunked_dist, ChunkDistStats,        (mode="shard_map",
+  merge_pool_distributed                   mode="chunked_dist")
   chunk_fold / local_stage / reduce_pool / merge_pool / scale_pass /
   minmax_pass / sse_pass                 — the stages the executors compose
   sampled_kmeans, standard_kmeans        — thin adapters
@@ -25,6 +29,9 @@ The estimator facade (`SampledKMeans`) lives one level up in
 from .backend import (CudaBackend, CudaFusedBackend, LloydBackend,
                       LloydStats, available_backends, get_backend,
                       register_backend)
+from .distributed import (ChunkDistStats, DistributedClusteringResult,
+                          fit_chunked_dist, make_distributed_sampled_kmeans,
+                          merge_pool_distributed)
 from .kmeans import (KMeansResult, available_inits, get_init, kmeans,
                      kmeans_batched, kmeans_parallel_init, kmeans_pp_init,
                      landmark_init, pairwise_sqdist, random_init,
@@ -57,6 +64,8 @@ __all__ = [
     "merge_pool", "ChunkStats", "fit_chunked", "scale_pass", "minmax_pass",
     "sse_pass", "sse", "min_sqdist", "map_row_blocks", "relative_error",
     "clustering_accuracy", "LloydBackend", "CudaBackend", "CudaFusedBackend",
-    "LloydStats",
+    "LloydStats", "DistributedClusteringResult",
+    "make_distributed_sampled_kmeans", "ChunkDistStats", "fit_chunked_dist",
+    "merge_pool_distributed",
     "get_backend", "register_backend", "available_backends",
 ]

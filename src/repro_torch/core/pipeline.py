@@ -21,8 +21,9 @@ The method is factored into the same stage functions:
 :class:`repro_torch.data.source.DataSource`, so the dataset only ever
 exists chunk by chunk on the device (``mode="chunked"``, the out-of-core
 executor); :mod:`repro_torch.stream.engine` folds them incrementally.
-``sampled_kmeans`` / ``standard_kmeans`` are the thin adapters.  The
-distributed executors are not ported yet (ROADMAP.md §1).
+``sampled_kmeans`` / ``standard_kmeans`` are the thin adapters; the
+multi-device executors of :mod:`repro_torch.core.distributed` reuse the same
+stages per shard.
 """
 from __future__ import annotations
 
@@ -33,7 +34,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from .backend import BackendSpec, get_backend
+from .backend import BackendSpec, LloydBackend, get_backend
 from .device import derive_seed, make_generator, resolve_device, seed_of
 from .kmeans import KMeansResult, kmeans_batched
 from .metrics import sse as sse_fn
@@ -58,6 +59,10 @@ _CHUNK_KEY_OFFSET = 1_000_003
 # the bounded accumulator's flush j draws from child
 # (``_FLUSH_KEY_OFFSET + shard``, j), apart from the chunks' and levels'
 _FLUSH_KEY_OFFSET = 7_000_003
+# shard i > 0 of a mesh path draws its local stream from child
+# ``_SHARD_KEY_OFFSET + i`` of the fit's (core/distributed.py::shard_seed);
+# shard 0 draws the one-device path's
+_SHARD_KEY_OFFSET = 5_000_011
 
 
 class SampledClusteringResult(NamedTuple):
@@ -403,55 +408,94 @@ class FoldResult(NamedTuple):
     peak_pool_rows: int
 
 
+class ShardFold:
+    """One source shard's fold state on its device: the bounded pool
+    accumulator and the counts (``n_dropped`` and the Lloyd iterations stay
+    on the device; rows and chunks are counted from shapes).
+    :func:`fold_pass` runs one; the sharded executor one per mesh entry.
+
+    Chunk j of shard s draws from the local stream ``seed_local`` itself
+    for s = j = 0 and from its child ``(s + 1) * _CHUNK_KEY_OFFSET + j``
+    otherwise, so shard 0 draws the one-shard fold's streams.  A chunk
+    smaller than ``n_sub`` clamps its partition count to its rows."""
+
+    def __init__(self, spec: ClusterSpec, params, seed_local: int,
+                 device: torch.device, backend: LloydBackend, *,
+                 shard: int = 0, log=None):
+        self._base = spec.level_schedule()[0]
+        self._params = params
+        self._seed_local = seed_local
+        self._shard = shard
+        self._device = device
+        self._backend = backend
+        self.acc = _PoolAccumulator(spec.levels, seed_local, device,
+                                    shard=shard, backend=backend, log=log)
+        self.n_dropped = torch.zeros((), dtype=torch.int64, device=device)
+        self.fold_iters = torch.zeros((), dtype=torch.int64, device=device)
+        self.fold_budget = self.n_points = self.n_chunks = 0
+        self.max_chunk_points = 0
+
+    def add(self, j: int, chunk: torch.Tensor) -> int:
+        """Fold chunk ``j`` of this shard's stream; returns its rows."""
+        m = int(chunk.shape[0])
+        if m == 0:
+            return 0
+        base = self._base
+        lv = (base if m >= base.n_sub
+              else dataclasses.replace(base, n_sub=max(1, m)))
+        cs = (self._seed_local if self._shard == 0 and j == 0
+              else derive_seed(self._seed_local,
+                               (self._shard + 1) * _CHUNK_KEY_OFFSET + j))
+        c, w, nd, iters = _fold_scaled_chunk(
+            chunk, self._params, lv, make_generator(cs, self._device),
+            self._backend)
+        self.acc.add(c, w)
+        self.n_dropped = self.n_dropped + nd
+        self.fold_iters = self.fold_iters + iters
+        self.fold_budget += lv.effective_stop.max_iters * lv.n_sub
+        self.n_points += m
+        self.n_chunks += 1
+        self.max_chunk_points = max(self.max_chunk_points, m)
+        return m
+
+    def result(self) -> "FoldResult":
+        """The accumulated pool (the head folded through ``levels[0]``
+        plus the pending chunk pools) and the accounting."""
+        pool, pool_w = self.acc.finalize()
+        n_dropped = self.n_dropped
+        if self.acc.w_dropped is not None:   # flushes clamp overflow mass
+            n_dropped = n_dropped + torch.round(self.acc.w_dropped).to(
+                n_dropped.dtype)
+        return FoldResult(pool, pool_w, n_dropped, self.fold_iters,
+                          self.fold_budget, self.n_points, self.n_chunks,
+                          self.max_chunk_points, self.acc.peak_rows)
+
+
 def fold_pass(source, spec: ClusterSpec, params, seed_local: int, *,
               backend: BackendSpec = None, logger=None,
               device: "torch.device | str | None" = None) -> FoldResult:
     """The out-of-core executor's fold: each chunk of ``source`` is scaled
     by ``params`` (``(lo, span)`` or ``None``), partitioned and summarised
-    by :func:`chunk_fold`, and its pool goes into the bounded accumulator.
-    Chunk 0 draws from the local stream ``seed_local`` itself, chunk i > 0
-    from its child ``_CHUNK_KEY_OFFSET + i``.  A tail chunk smaller than
-    ``n_sub`` clamps its partition count to its rows.  Nothing is read back
-    from the device unless a logger is on."""
+    by :func:`chunk_fold`, and its pool goes into the bounded accumulator
+    (:class:`ShardFold`: chunk 0 draws from the local stream ``seed_local``
+    itself, chunk i > 0 from its child ``_CHUNK_KEY_OFFSET + i``).  Nothing
+    is read back from the device unless a logger is on."""
     from repro_torch.data.source import prefetch_to_device
     from repro_torch.telemetry import get_run_logger
     log = get_run_logger(logger)
     dev = resolve_device(device)
-    be = get_backend(backend, device=dev)
-    base = spec.level_schedule()[0]
-    acc = _PoolAccumulator(spec.levels, seed_local, dev, backend=be, log=log)
-    n_dropped = torch.zeros((), dtype=torch.int64, device=dev)
-    fold_iters = torch.zeros((), dtype=torch.int64, device=dev)
-    fold_budget = n_points = n_chunks = max_chunk = 0
+    fold = ShardFold(spec, params, seed_local, dev,
+                     get_backend(backend, device=dev), log=log)
     fold_rate = log.rate("fold_rate", units="points")
     for i, chunk in enumerate(prefetch_to_device(
             source.chunks(spec.chunk.chunk_points), spec.chunk.prefetch,
             device=dev)):
-        m = int(chunk.shape[0])
-        if m == 0:
-            continue
-        lv = (base if m >= base.n_sub
-              else dataclasses.replace(base, n_sub=max(1, m)))
-        cs = (seed_local if i == 0
-              else derive_seed(seed_local, _CHUNK_KEY_OFFSET + i))
-        c, w, nd, iters = _fold_scaled_chunk(
-            chunk, params, lv, make_generator(cs, dev), be)
-        acc.add(c, w)
-        n_dropped = n_dropped + nd
-        fold_iters = fold_iters + iters
-        fold_budget += lv.effective_stop.max_iters * lv.n_sub
-        n_points += m
-        n_chunks += 1
-        max_chunk = max(max_chunk, m)
-        fold_rate.tick(m, chunk=i, rows=m)
-    if n_chunks == 0:
+        m = fold.add(i, chunk)
+        if m:
+            fold_rate.tick(m, chunk=i, rows=m)
+    if fold.n_chunks == 0:
         raise ValueError("fit_chunked: the source yielded no points")
-    pool, pool_w = acc.finalize()
-    if acc.w_dropped is not None:   # early flushes can clamp overflow mass
-        n_dropped = n_dropped + torch.round(acc.w_dropped).to(
-            n_dropped.dtype)
-    return FoldResult(pool, pool_w, n_dropped, fold_iters, fold_budget,
-                      n_points, n_chunks, max_chunk, acc.peak_rows)
+    return fold.result()
 
 
 def fit_chunked(source, spec: ClusterSpec,

@@ -12,7 +12,9 @@ Build (:func:`build_index`) is two streaming passes over any
   2. **encode** — every chunk is prefetched to the device, routed to its
      cell by the backend's assignment (the assignment kernel) and
      PQ-encoded; the host holds the training sample plus ``prefetch``
-     chunks at most.
+     chunks at most.  With a mesh, the source splits into one shard per
+     mesh entry, each encoding on its own device (one chunk per live shard
+     per round).
 
 Inverted lists are padded dense tensors — ``(nlist, cap)`` slots with a
 per-cell ``counts`` — so a query is: route to the ``nprobe`` nearest
@@ -34,9 +36,11 @@ import torch
 from repro_torch.api import ExecutionPlan, execute, plan
 from repro_torch.core.backend import LloydBackend
 from repro_torch.core.device import derive_seed, resolve_device, seed_of
+from repro_torch.core.distributed import mesh_concat, on_device, replicate
 from repro_torch.core.kmeans import pairwise_sqdist
 from repro_torch.data.source import DataSource, as_source, prefetch_to_device
 from repro_torch.kernels.scan import adc_scan_cuda
+from repro_torch.launch.mesh import Mesh, check_mesh
 from repro_torch.telemetry import NULL, RunLogger, get_run_logger
 
 from .pq import ENCODE_BLOCK, build_luts, encode_residuals, train_codebooks
@@ -63,6 +67,7 @@ class IndexPlan:
     coarse: ExecutionPlan
     dim: Optional[int] = None
     n_points: Optional[int] = None
+    mesh: Optional[Mesh] = None
     logger: RunLogger = NULL
 
     @property
@@ -79,11 +84,14 @@ class IndexPlan:
 
 
 def plan_index(spec: IndexSpec, data_shape: Optional[tuple] = None, *,
+               mesh: Optional[Mesh] = None,
                source: Optional[DataSource] = None,
                device: "torch.device | str | None" = None,
                logger: "RunLogger | str | None" = None) -> IndexPlan:
     """Fail-fast validation for an :class:`IndexSpec`, on ``device``
-    (``None``: the CUDA device):
+    (``None``: the first entry of ``mesh``, or the CUDA device).  The
+    coarse quantizer trains on that one device; ``mesh`` shards only the
+    encode pass.  Checks:
 
       * ``nprobe <= nlist``;
       * ``train_points`` must cover both codebook training (``>= 2**bits``
@@ -120,10 +128,14 @@ def plan_index(spec: IndexSpec, data_shape: Optional[tuple] = None, *,
         raise ValueError(
             f"plan_index: n_subspaces={spec.pq.n_subspaces} does not "
             f"divide d={d} — PQ needs equal subspace widths")
+    if mesh is not None:
+        check_mesh(mesh)
+        if device is None:
+            device = mesh.devices.flat[0]
     train_n = spec.train_points if n is None else min(n, spec.train_points)
     coarse_shape = (train_n, d) if d is not None else None
     cplan = plan(spec.coarse, coarse_shape, device=device, logger=logger)
-    return IndexPlan(spec=spec, coarse=cplan, dim=d, n_points=n,
+    return IndexPlan(spec=spec, coarse=cplan, dim=d, n_points=n, mesh=mesh,
                      logger=cplan.logger)
 
 
@@ -266,15 +278,19 @@ def build_index(source, spec: IndexSpec,
     the CUDA device); see the module docstring for the two passes.
     ``seed`` takes the place of the JAX package's ``key``: the coarse fit
     and the codebook fits draw from child streams derived from it.
-    Returns ``(index, IndexBuildStats)``.  ``mesh`` (the sharded encode)
-    is not ported yet and raises ``NotImplementedError``."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "repro_torch: the sharded index build (mesh=) is not ported "
-            "yet; see ROADMAP.md §1")
+    Returns ``(index, IndexBuildStats)``.
+
+    With ``mesh`` the encode pass splits the source into one shard per
+    mesh entry (``source.shard(i, n)``), each prefetched onto and encoded
+    on its own device with its own copy of the centers and codebooks;
+    training is the unsharded build's.  Ids are assigned shard-major,
+    which for contiguous row-range shards (``ArraySource``) is the
+    source's row order, and the index is the unsharded build's bit for
+    bit.  The index lives on ``device`` (``None``: the first mesh
+    entry)."""
     src = as_source(source)
-    iplan = plan_index(spec, src.shape, source=src, device=device,
-                       logger=logger)
+    iplan = plan_index(spec, src.shape, mesh=mesh, source=src,
+                       device=device, logger=logger)
     log = iplan.logger
     dev = iplan.device
     base = seed_of(seed)
@@ -305,21 +321,37 @@ def build_index(source, spec: IndexSpec,
                                         backend=cplan.backend)
 
         # -- pass 2: stream-encode every row -------------------------------
-        cell_parts, code_parts = [], []
+        devices = list(mesh.devices.flat) if mesh is not None else [dev]
+        n_shards = len(devices)
+        shards = ([src] if n_shards == 1 else
+                  [src.shard(i, n_shards) for i in range(n_shards)])
+        streams = [prefetch_to_device(s.chunks(chunk_points), prefetch,
+                                      device=d)
+                   for s, d in zip(shards, devices)]
+        params = list(zip(replicate(centers, devices),
+                          replicate(codebooks, devices)))
+        shard_parts: list = [[] for _ in range(n_shards)]
         n_chunks = max_chunk = 0
-        with log.timer("index_encode", n_shards=1):
+        with log.timer("index_encode", n_shards=n_shards):
             meter = log.rate("index_encode_rate", units="points")
-            for chunk in prefetch_to_device(src.chunks(chunk_points),
-                                            prefetch, device=dev):
-                idx, codes = _encode_chunk(cplan.backend, chunk, centers,
-                                           codebooks)
-                cell_parts.append(idx)
-                code_parts.append(codes)
-                n_chunks += 1
-                max_chunk = max(max_chunk, int(chunk.shape[0]))
-                meter.tick(int(chunk.shape[0]), shard=0)
-        cells = torch.cat(cell_parts)
-        codes = torch.cat(code_parts)
+            live = list(range(n_shards))
+            while live:
+                # one chunk per live shard per round: nothing waits on the
+                # host, so distinct devices encode at once
+                for i in list(live):
+                    chunk = next(streams[i], None)
+                    if chunk is None:
+                        live.remove(i)
+                        continue
+                    with on_device(devices[i]):
+                        shard_parts[i].append(_encode_chunk(
+                            cplan.backend, chunk, *params[i]))
+                    n_chunks += 1
+                    max_chunk = max(max_chunk, int(chunk.shape[0]))
+                    meter.tick(int(chunk.shape[0]), shard=i)
+        parts = [p for ps in shard_parts for p in ps]   # shard-major
+        cells = mesh_concat([c for c, _ in parts], dev)
+        codes = mesh_concat([q for _, q in parts], dev)
 
         with log.timer("index_assemble", nlist=spec.nlist):
             list_codes, list_ids, counts = _assemble_lists(
@@ -335,7 +367,7 @@ def build_index(source, spec: IndexSpec,
                               min(max_chunk * prefetch, n)),
         prefetch=prefetch,
         passes=2,
-        n_shards=1,
+        n_shards=n_shards,
     )
     log.event("index_built", **stats._asdict())
     index = IVFIndex(spec=spec, coarse_centers=centers, codebooks=codebooks,

@@ -1,2 +1,3 @@
-"""Command-line entry points of the PyTorch port (``python -m
-repro_torch.launch.serve``)."""
+"""Launching the PyTorch port: device meshes for the multi-device
+executors (:mod:`repro_torch.launch.mesh`) and the command-line entry points
+(``python -m repro_torch.launch.serve``)."""

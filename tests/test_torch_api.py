@@ -83,10 +83,22 @@ def test_predict_blocks_do_not_change_labels(pts):
 
 
 @pytest.mark.parametrize("mode", ["shard_map", "chunked_dist"])
-def test_unported_modes_raise(mode):
-    spec = ClusterSpec.make(5, mode=mode)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        SampledKMeans(spec, device="cpu").fit(np.zeros((100, 2), np.float32))
+def test_mesh_modes_fit(pts, mode):
+    """The two mesh modes fit through the facade on a mesh of two CPU
+    entries: ``shard_map`` an array, ``chunked_dist`` a source; the
+    estimator's device is the mesh's first entry."""
+    from repro_torch.data import ArraySource
+    from repro_torch.launch.mesh import make_mesh
+    spec = ClusterSpec.make(5, n_sub=5, compression=5, mode=mode,
+                            chunk_points=500)
+    est = SampledKMeans(spec, mesh=make_mesh((2,), ("data",), ["cpu"] * 2))
+    assert est.device == torch.device("cpu")
+    est.fit(pts if mode == "shard_map" else ArraySource(pts), seed=3)
+    assert est.centers_.shape == (5, 3)
+    assert bool(torch.isfinite(est.centers_).all()) and float(est.sse_) > 0
+    if mode == "chunked_dist":
+        assert est.chunk_stats_.per_device_chunks == (2, 2)
+    assert est.predict(pts).shape == (2000,)
 
 
 @pytest.mark.parametrize("mode", ["chunked", "stream"])

@@ -338,7 +338,7 @@ def test_build_and_search_reject_bad_calls(corpus, built):
         index.search(q, k=5, nprobe=index.nlist + 1)
     with pytest.raises(ValueError, match="queries"):
         index.search(q[:, :4], k=5)
-    with pytest.raises(NotImplementedError, match="mesh"):
+    with pytest.raises(TypeError, match="mesh"):
         build_index(x, _spec(IndexSpec), mesh=object(), device="cpu")
     with pytest.raises(ValueError, match="no rows"):
         build_index(IterSource(lambda: iter([]), dim=8), _spec(IndexSpec),

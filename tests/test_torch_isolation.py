@@ -21,6 +21,8 @@ import repro_torch.models.lm, repro_torch.models.attention
 import repro_torch.stream, repro_torch.stream.kv, repro_torch.serve
 import repro_torch.stream.engine, repro_torch.data.synthetic
 import repro_torch.serve.engine, repro_torch.launch.serve
+import repro_torch.launch.mesh, repro_torch.core.distributed
+import repro_torch.stream.distributed
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith(("jax.", "jaxlib"))
              or m == "repro" or m.startswith("repro."))
@@ -55,7 +57,9 @@ def test_no_source_file_imports_jax_or_the_reference():
             "repro_torch/models/layers.py", "repro_torch/models/registry.py",
             "repro_torch/stream/kv.py", "repro_torch/stream/engine.py",
             "repro_torch/serve/engine.py",
-            "repro_torch/launch/serve.py",
+            "repro_torch/launch/serve.py", "repro_torch/launch/mesh.py",
+            "repro_torch/core/distributed.py",
+            "repro_torch/stream/distributed.py",
             "repro_torch/configs/llama3_8b.py"} <= names
     offenders = [str(f.relative_to(ROOT)) for f in files
                  if _FORBIDDEN.search(f.read_text())]
