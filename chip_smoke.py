@@ -5,10 +5,11 @@ with the kernels' launch counts set to 0 just before it and read just
 after:
 
   * the clustering main path (``SampledKMeans(spec).fit(x)`` then
-    ``predict(x)``) at the paper's 500k-point / k=1000 workload, and the
-    same fit through the unfused ``cuda`` backend, through
-    ``mode="chunked"`` in one chunk (bit for bit the same fit) and with a
-    mini-batch merge;
+    ``predict(x)``, backend ``auto``: ``cuda_tuned``) at the paper's
+    500k-point / k=1000 workload, and the same fit through the unfused
+    ``cuda`` backend, through ``cuda_fused`` (which ``cuda_tuned`` equals
+    bit for bit at the derived plan), through ``mode="chunked"`` in one
+    chunk (bit for bit the same fit) and with a mini-batch merge;
   * the out-of-core executor (``mode="chunked"``) over
     ``examples/cluster_oocore.py``'s 5,000,000 x 8 ``IterSource`` (and a
     run whose bounded accumulator flushes), the streaming engine
@@ -27,6 +28,12 @@ after:
     unsharded index bit for bit); ``stream_5m`` through
     ``make_sharded_update`` over 4 shards; each kernel at every shape
     these paths launched it at against its plain version;
+  * the launch-parameter tuner (``kernels/autotune.py``): a sweep of the
+    kernels the paths look up at ``autotune.SWEEP_SHAPES`` (derived plan, table
+    row and best candidate, each checked against the plain version and
+    the derived plan), its lookup layers and their host cost, and every
+    committed row of the card at every shape the paths recorded in its
+    bucket;
   * clustered-KV decode serving: ``ServeEngine`` over llama3-8b at full
     width (random bf16 weights from a seed) with the ``long_500k`` cache
     (8192 centroids + a 1024-token window per layer and kv head), two
@@ -49,7 +56,6 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
-import itertools
 import json
 import subprocess
 import sys
@@ -69,7 +75,6 @@ SPEC_FILE = SPECS / "paper_500k.json"
 FP32_PEAK = 67e12          # FLOP/s
 TF32_PEAK = 495e12         # FLOP/s
 HBM_BYTES_PER_S = 3.35e12  # B/s
-L2_BYTES = 50 * 2**20      # the H100's L2 cache
 SPIN_CYCLES = 200_000_000  # ~0.1 s at the H100's clock: time to queue calls
 ISSUE_PER_SM_CLOCK = 128   # thread-instructions an SM issues a clock (4 x 32)
 
@@ -103,21 +108,14 @@ def n_read(t: torch.Tensor) -> int:
     return t[:1].numel() if t.stride(0) == 0 else t.numel()
 
 
-def _copy(t: torch.Tensor) -> torch.Tensor:
-    """A fresh copy of ``t``; a batch broadcast stays one."""
-    return t[:1].clone().expand_as(t) if t.stride(0) == 0 else t.clone()
-
-
 def rotating(fn, *inputs):
     """A no-argument call of ``fn`` that cycles through copies of
     ``inputs``, enough that one call's inputs have left the L2 cache by the
-    time it is made again (the copies together hold over twice the L2).
-    Each call then reads its inputs from HBM, as the byte bound assumes."""
-    size = sum(n_read(t) * t.element_size() for t in inputs)
-    sets = [inputs] + [tuple(_copy(t) for t in inputs)
-                       for _ in range(-(-2 * L2_BYTES // size))]
-    turn = itertools.count()
-    return lambda: fn(*sets[next(turn) % len(sets)])
+    time it is made again (``autotune.input_copies``, the tuner's timing
+    inputs).  Each call then reads its inputs from HBM, as the byte bound
+    assumes."""
+    from repro_torch.kernels.autotune import cycling, input_copies
+    return cycling(fn, input_copies(inputs))
 
 
 def device_ms(fn, *, iters: int = 20) -> float:
@@ -216,62 +214,42 @@ def lloyd_bound_ms(x: torch.Tensor, k: int, n_bytes: int,
 
 def _case(b, m, k, d, *, dtype=torch.float32, share_x=False, seed=0):
     """Points in the unit box (the scaled space the pipeline clusters in),
-    centers drawn from the points, 0/1 weights with a masked tail."""
-    g = torch.Generator(device="cuda").manual_seed(seed)
-    nb = 1 if share_x else b
-    x = torch.rand((nb, m, d), generator=g, device="cuda")
-    pick = torch.randint(0, m, (b, k), generator=g, device="cuda")
-    c = x.expand(b, -1, -1).gather(1, pick[..., None].expand(-1, -1, d))
-    c = c + 1e-3 * torch.randn(c.shape, generator=g, device="cuda")
-    w = torch.ones((nb, m), device="cuda")
-    w[-1, m - min(32, m // 4):] = 0.0            # capacity padding
-    if share_x:
-        x, w = x.expand(b, -1, -1), w.expand(b, -1)
-    return x.to(dtype), w.to(dtype), c.contiguous().to(dtype)
+    centers drawn from the points, 0/1 weights with a masked tail
+    (capacity padding): the tuner's sweep inputs (``autotune.lloyd_inputs``)
+    on the card."""
+    from repro_torch.kernels.autotune import lloyd_inputs
+    return lloyd_inputs(b, m, k, d, dtype, seed, "cuda", share_x)
 
 
 def dot_rounding_bound(x, c) -> float:
-    """Worst-case f32 rounding error of the expanded-form distance
-    |x|^2 + |c|^2 - 2 x.c at width d: the three length-d sums each err by
-    at most about d eps times the sum of their terms' magnitudes (Higham's
-    bound), so (d + 2) eps (|x|^2 + |c|^2 + 2 |x| |c|) at the largest
-    norms.  At the paper's d = 2 the default bound of
-    :func:`_check_assignment` is tighter; at d = 128 this one applies."""
-    x2 = float((x.float() ** 2).sum(-1).amax())
-    c2 = float((c.float() ** 2).sum(-1).amax())
-    eps = torch.finfo(torch.float32).eps
-    return (x.shape[-1] + 2) * eps * (x2 + c2 + 2 * (x2 * c2) ** 0.5)
+    """Worst-case f32 rounding error of the expanded-form distance at width
+    d (``autotune.dot_rounding_bound``, which the tuner's checks share).
+    At the paper's d = 2 the default bound of :func:`_check_assignment` is
+    tighter; at d = 128 this one applies."""
+    from repro_torch.kernels.autotune import dot_rounding_bound as bound
+    return bound(x, c)
 
 
 def _check_assignment(name, x, c, idx, dist, ridx, rdist, cancel=None):
-    """Distances at rtol 1e-4 (plus the expanded form's cancellation
-    error ``cancel``, by default a few ulps of |x|^2 + |c|^2); a label may
-    differ from the plain one only where the plain distances to the two
+    """The tuner's near-tie rule (``autotune.assignment_mismatch``):
+    distances at rtol 1e-4 (plus the expanded form's cancellation error
+    ``cancel``, by default a few ulps of |x|^2 + |c|^2); a label may differ
+    from the plain one only where the plain distances to the two
     candidates differ by less than 1e-5 relative plus ``cancel`` (a
-    near-tie under reordered arithmetic)."""
-    xf, cf = x.float(), c.float()
-    if cancel is None:
-        scale = float((xf * xf).sum(-1).amax() + (cf * cf).sum(-1).amax())
-        cancel = 4 * torch.finfo(torch.float32).eps * scale
-    derr = ((dist - rdist).abs() - 1e-4 * rdist.abs()).amax()
-    check(float(derr) <= cancel, f"{name}: dist off by {float(derr)}")
-    diff = (idx != ridx).nonzero(as_tuple=True)
-    n_diff = int(diff[0].numel())
-    if n_diff:
-        xs = xf[diff]
-        ck = cf[diff[0], idx[diff].long()]
-        cr = cf[diff[0], ridx[diff].long()]
-        dk = ((xs - ck) ** 2).sum(-1)
-        dr = ((xs - cr) ** 2).sum(-1)
-        gap = float(((dk - dr).abs() - 1e-5 * dr.abs()).amax())
-        check(gap <= cancel, f"{name}: {n_diff} labels differ, not at "
-              f"near-ties (gap {gap})")
+    near-tie under reordered arithmetic).  Returns the labels that
+    differ."""
+    from repro_torch.kernels.autotune import assignment_mismatch
+    bad, n_diff = assignment_mismatch(x, c, idx, dist, ridx, rdist, cancel)
+    check(bad is None, f"{name}: {bad}")
     return n_diff
 
 
-def lloyd_parity(name, x, w, c, cancel=None):
+def lloyd_parity(name, x, w, c, cancel=None, config=None):
+    """The Lloyd kernel (at ``config``, ``None``: the derived plan) against
+    its plain version: labels by the near-tie rule, counts exactly, sums
+    and SSE at 1e-4, a repeated launch bit-identical."""
     from repro_torch.kernels import lloyd, ref, tiles
-    sums, counts, sse, idx, dist = lloyd.lloyd_step(x, w, c)
+    sums, counts, sse, idx, dist = lloyd.lloyd_step(x, w, c, config)
     rsums, rcounts, rsse, ridx, rdist = ref.lloyd_step_ref(x, w, c)
     n_diff = _check_assignment(name, x, c, idx, dist, ridx, rdist, cancel)
     # the statistics against the plain accumulation of the kernel's own
@@ -288,7 +266,7 @@ def lloyd_parity(name, x, w, c, cancel=None):
     check(torch.allclose(sse, csse, rtol=1e-4, atol=0.0), f"{name}: sse off")
     check(torch.allclose(sse, rsse, rtol=1e-4, atol=0.0),
           f"{name}: sse off vs plain step")
-    again = lloyd.lloyd_step(x, w, c)
+    again = lloyd.lloyd_step(x, w, c, config)
     check(all(torch.equal(a, b) for a, b in
               zip(again, (sums, counts, sse, idx, dist))),
           f"{name}: a repeated step is not bit-identical")
@@ -299,19 +277,20 @@ def lloyd_parity(name, x, w, c, cancel=None):
                 max_sse_rel_err=float(((sse - rsse).abs() / rsse).amax()))
 
 
-def assign_parity(name, x, c):
-    """The assignment kernel against its plain version on the route its
-    shape takes: on the tensor-core route (three TF32 passes) labels may
-    move at near-ties within :func:`dot_rounding_bound`, as the Lloyd
-    kernel's there; a repeated launch bit-identical."""
+def assign_parity(name, x, c, config=None):
+    """The assignment kernel (at ``config``, ``None``: the derived plan)
+    against its plain version on the route its shape takes: on the
+    tensor-core route (three TF32 passes) labels may move at near-ties
+    within :func:`dot_rounding_bound`, as the Lloyd kernel's there; a
+    repeated launch bit-identical."""
     from repro_torch.kernels import assign, ref, tiles
     route = tiles.assign_route(c.shape[1], x.shape[2])
-    idx, dist = assign.assign_argmin(x, c)
+    idx, dist = assign.assign_argmin(x, c, config)
     ridx, rdist = ref.assign_argmin_ref(x, c)
     n_diff = _check_assignment(name, x, c, idx, dist, ridx, rdist,
                                dot_rounding_bound(x, c) if route == "tc"
                                else None)
-    again = assign.assign_argmin(x, c)
+    again = assign.assign_argmin(x, c, config)
     check(torch.equal(again[0], idx) and torch.equal(again[1], dist),
           f"{name}: a repeated launch is not bit-identical")
     return dict(case=name, shape=list(x.shape) + [c.shape[1]], route=route,
@@ -424,18 +403,18 @@ def centroid_worst_cases() -> list:
     return cases
 
 
-def scan_parity(name, luts, codes):
-    """The ADC scan kernel against its plain version: within 1e-5
-    relative (the tables hold squared distances, >= 0), a repeated launch
-    bit-identical."""
+def scan_parity(name, luts, codes, config=None):
+    """The ADC scan kernel (at ``config``, ``None``: the tuner's lookup)
+    against its plain version: within 1e-5 relative (the tables hold
+    squared distances, >= 0), a repeated launch bit-identical."""
     from repro_torch.kernels import ref, scan
     scan.check_codes(codes, luts.shape[2])
-    out = scan.adc_scan_cuda(luts, codes)
+    out = scan.adc_scan_cuda(luts, codes, config)
     want = ref.adc_scan_ref(luts, codes)
     abs_err = (out - want).abs()
     rel = float((abs_err / want.abs().clamp_min(1e-30)).amax())
     check(rel <= 1e-5, f"{name}: relative error {rel}")
-    check(torch.equal(scan.adc_scan_cuda(luts, codes), out),
+    check(torch.equal(scan.adc_scan_cuda(luts, codes, config), out),
           f"{name}: a repeated launch is not bit-identical")
     return dict(case=name, shape=list(codes.shape) + [luts.shape[2]],
                 lut_dtype=str(luts.dtype), code_dtype=str(codes.dtype),
@@ -538,18 +517,22 @@ class ShapeRecorder:
     def __enter__(self):
         mod = _kernel_modules()[self.kernel]
         self._orig = orig = getattr(mod, self.kernel)
+        # the argument that gives K: the centers, or centroid_update's k
+        k_at = {"lloyd_step": 1, "assign_argmin": 0, "centroid_update": 2}[
+            self.kernel]
 
-        def recording(x, *args):
-            k = args[-1] if isinstance(args[-1], int) else args[-1].shape[1]
+        def recording(x, *args, **kw):
+            k = args[k_at] if isinstance(args[k_at], int) else \
+                args[k_at].shape[1]
             key = (x.shape[0], x.shape[1], k, x.shape[2])
             self.shapes[key] = self.shapes.get(key, 0) + 1
             if x.shape[0] > 1 and x.stride(0) == 0:
                 self.shared.add(key)
             if not self.timed:
-                return orig(x, *args)
+                return orig(x, *args, **kw)
             ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
             ev[0].record()
-            out = orig(x, *args)
+            out = orig(x, *args, **kw)
             ev[1].record()
             self.events.append(ev)
             return out
@@ -784,8 +767,8 @@ def fold_profile(source, spec) -> dict:
 
 def oocore_5m() -> dict:
     """The chunked executor at full width (``oocore_5m``), through
-    ``SampledKMeans.fit`` on the ``IterSource``, with ``cuda_fused`` and
-    with ``cuda``; the flush run (``oocore_5m_flush``); each one's exact
+    ``SampledKMeans.fit`` on the ``IterSource``, with ``auto``
+    (``cuda_tuned``) and with ``cuda``; the flush run (``oocore_5m_flush``); each one's exact
     SSE at most ``QUALITY_LOSS`` above a resident single-mode fit's of the
     same 5M points.  Returns what the kernel table needs."""
     from repro_torch.api import SampledKMeans
@@ -813,7 +796,7 @@ def oocore_5m() -> dict:
     del x5, single, single_lv
     torch.cuda.empty_cache()
 
-    # the executor, cuda_fused: fit, then predict on the source
+    # the executor, auto (cuda_tuned): fit, then predict on the source
     torch.cuda.synchronize()
     reset_launches()
     t0 = time.perf_counter()
@@ -1116,7 +1099,8 @@ def _equal_results(a, b) -> bool:
 def shard_map_500k(x, spec, std_sse: float, single) -> dict:
     """paper_500k over 4 shards of 125,000 points, 16 partitions each (64
     in all, as the single fit): the replicated and the distributed merge
-    under ``cuda_fused``, the replicated one under ``cuda``; each fit then
+    under ``auto`` (``cuda_tuned``), the replicated one under ``cuda``;
+    each fit then
     predict, SSE within the reference's 0.15 of ``standard_kmeans``
     (tests/test_pipeline.py), two fits with one seed bit-identical, the
     kernels' launches and shapes.  On one shard the fit is ``single``'s
@@ -1239,7 +1223,7 @@ def chunked_dist_50m() -> dict:
     """``benchmarks/specs/chunked_dist_50m.json`` as written (50,000,000 x
     8 synthetic points, chunks of 1,048,576, 8 partitions at compression
     512, one reduce level, weighted k = 256, the distributed merge, pool
-    SSE) over 8 shards under ``cuda_fused``, with
+    SSE) over 8 shards under ``auto`` (``cuda_tuned``), with
     ``benchmarks/chunked_dist_smoke.py``'s checks: 8 devices, every point
     folded, per-device chunk counts within 1, a pool of at least k, the
     centers unscaled (inside the generating centers' box +- 1).  Then
@@ -1259,7 +1243,7 @@ def chunked_dist_50m() -> dict:
     src = SyntheticSource(n, dim=dim, n_clusters=n_clusters, seed=seed)
     mesh = phase_mesh(MESH_SHARDS["chunked_dist_50m"])
     pl = plan(spec, src.shape, mesh=mesh, source=src)
-    check(pl.mode == "chunked_dist" and pl.backend.name == "cuda_fused",
+    check(pl.mode == "chunked_dist" and pl.backend.name == "cuda_tuned",
           f"chunked_dist_50m plans {pl.mode} on {pl.backend.name}")
     sync_all()
     reset_launches()
@@ -1558,6 +1542,236 @@ def cross_device_check() -> dict:
 # ---------------------------------------------------------------------------
 # clustered-KV decode serving (llama3-8b, long_500k)
 # ---------------------------------------------------------------------------
+
+# ---------------------------------------------------------------------------
+# the launch-parameter tuner: its sweep, its lookup layers, cuda_tuned
+# ---------------------------------------------------------------------------
+
+TUNE_ITERS = 5          # timed calls a candidate in the tune phase's sweep
+# most host time a lookup may take: one runs before every tuned launch of
+# the fit, search and stream paths, which are host-bound (idle 0.77-0.85);
+# half of the 0.1 ms of host work a kernel wrapper's call takes (PERF.md
+# section 7), and five times the 10.2 us an H100 host measured
+LOOKUP_US_MAX = 50.0
+
+
+@contextlib.contextmanager
+def star_rows_only():
+    """Within ``with``: the committed table cut to its ``"*"`` rows (the
+    derived plan) and empty tuner caches."""
+    from repro_torch.kernels import autotune, tune_table
+    saved = tune_table.TABLE
+    tune_table.TABLE = {k: {"*": rows["*"]} for k, rows in saved.items()}
+    autotune.clear_caches()
+    try:
+        yield
+    finally:
+        tune_table.TABLE = saved
+        autotune.clear_caches()
+
+
+def tune_backends(x, spec, std_sse: float, auto_est) -> dict:
+    """``cuda_tuned`` against ``cuda_fused`` at paper_500k: with the derived
+    plan (empty caches, the ``"*"`` rows) the same fit and labels bit for
+    bit; ``auto`` resolves to ``cuda_tuned``, and its fit (the main path's,
+    ``auto_est``) holds relative SSE < 0.10; every Lloyd lookup of a
+    planned tuned fit hits the LRU that ``plan`` pre-warmed; the fit and
+    predict times of both backends from this run, in turns (fused, tuned,
+    tuned, fused)."""
+    from repro_torch.api import SampledKMeans
+    from repro_torch.core import CudaTunedBackend, get_backend, relative_error
+    check(isinstance(get_backend("auto", device=x.device), CudaTunedBackend),
+          "auto does not resolve to cuda_tuned on the card")
+    fused_spec = spec.replace(backend="cuda_fused")
+    fused = SampledKMeans(fused_spec).fit(x, seed=0)
+    fused_labels = fused.predict(x)
+    with star_rows_only():
+        star = SampledKMeans(spec.replace(backend="cuda_tuned")).fit(x,
+                                                                    seed=0)
+        star_labels = star.predict(x)
+    check(_equal_results(star.result_, fused.result_)
+          and torch.equal(star_labels, fused_labels),
+          "cuda_tuned at the derived plan differs from cuda_fused")
+    # the layer each Lloyd lookup of a planned fit hits
+    from repro_torch.api import execute, plan
+    from repro_torch.kernels import autotune
+    real, sources = autotune.lookup, []
+
+    def spy(kernel, **kw):
+        cfg, src = real(kernel, with_source=True, **kw)
+        if kernel == "lloyd":
+            sources.append(src)
+        return cfg
+    with star_rows_only():
+        pl = plan(spec.replace(backend="cuda_tuned"), tuple(x.shape),
+                  device=x.device)
+        autotune.lookup = spy
+        try:
+            execute(pl, x, seed=0)
+        finally:
+            autotune.lookup = real
+    check(sources and set(sources) == {"memory"},
+          f"the fit's Lloyd lookups were not pre-warmed: "
+          f"{ {src: sources.count(src) for src in set(sources)} }")
+    auto_equal = _equal_results(auto_est.result_, fused.result_)
+    rel = relative_error(float(auto_est.sse_), std_sse)
+    check(rel < 0.10, f"paper_500k through auto: relative SSE {rel}")
+    times = {"cuda_fused": [], "auto": []}
+    for name in ("cuda_fused", "auto", "auto", "cuda_fused"):
+        s = fused_spec if name == "cuda_fused" else spec
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        est = SampledKMeans(s).fit(x, seed=0)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        est.predict(x)
+        torch.cuda.synchronize()
+        times[name].append(dict(fit_s=t1 - t0,
+                                predict_s=time.perf_counter() - t1))
+    out = dict(derived_plan_equals_cuda_fused=True,
+               prewarmed_lloyd_lookups=len(sources),
+               auto_equals_cuda_fused=auto_equal, auto_relative_error=rel,
+               cuda_fused_relative_error=relative_error(float(fused.sse_),
+                                                        std_sse),
+               times=times)
+    emit("tune_backends", spec=SPEC_FILE.name, **out)
+    return out
+
+
+def tune_sweep() -> list:
+    """Each kernel a path looks up (Lloyd, assignment, ADC scan) at every
+    shape of ``autotune.SWEEP_SHAPES`` over
+    the committed grid, ``TUNE_ITERS`` timed calls a candidate: one line a
+    shape with the derived plan's, the table config's and the best
+    candidate's ms, each candidate's verdict (launch, ms, note, axes that
+    moved bits).  Every candidate must pass the plain version's check and
+    equal the derived plan's output bit for bit but on the axes that
+    regroup float sums (``autotune.BIT_AXES``)."""
+    from repro_torch.kernels import autotune
+    records = []
+    for kernel, shapes in autotune.SWEEP_SHAPES.items():
+        for shape in shapes:
+            r = autotune.sweep_shape(kernel, shape, iters=TUNE_ITERS)
+            bad = [(c["launch"], c["note"]) for c in r["candidates"]
+                   if not c["ok"]]
+            check(not bad, f"tune {kernel} {shape.name}: rejected {bad[:3]}")
+            check(set(r["moved_bits"])
+                  <= set(autotune.BIT_AXES.get(kernel, ())),
+                  f"tune {kernel} {shape.name}: bits moved on "
+                  f"{r['moved_bits']}")
+            emit("tune_sweep", **{k: v for k, v in r.items()
+                                  if k != "candidates"},
+                 verdicts=[[*c["launch"].values(), c["ms"],
+                            c["note"] or "ok", c["moved"]]
+                           for c in r["candidates"]])
+            records.append(r)
+    return records
+
+
+def tune_layers(records) -> dict:
+    """The lookup layers on the card: every committed row of this card
+    resolves from the table at a swept shape of its bucket, then from the
+    in-process LRU; a bucket without a row resolves to the derived plan; a
+    persistent file's entry resolves from disk; an LRU hit takes at most
+    ``LOOKUP_US_MAX`` microseconds of host time."""
+    import tempfile
+    from repro_torch.kernels import autotune, tune_table
+    dev = torch.device("cuda", 0)
+    kind, _ = autotune.device_info(dev)
+    hits = []
+    autotune.clear_caches()
+    for r in records:
+        kernel, dims = r["kernel"], r["dims"]
+        row = tune_table.load_default(kernel, kind, r["bucket"])
+        got = [autotune.lookup(kernel, device=dev, path=False,
+                               with_source=True, **dims) for _ in range(2)]
+        check(got == [(row, "table"), (row, "memory")]
+              or got[0][1] == "memory",
+              f"lookup layers at {kernel} {r['shape']}: {got}")
+        if row != autotune.DEFAULT:
+            hits.append(dict(kernel=kernel, shape=r["shape"],
+                             bucket=r["bucket"], row=row.to_dict()))
+    for kernel, rows in tune_table.TABLE.items():
+        for pattern, buckets in rows.items():
+            if pattern != "*" and pattern.lower() in kind.lower():
+                check({h["bucket"] for h in hits if h["kernel"] == kernel}
+                      >= set(buckets) - {"*"},
+                      f"{kernel}: a {pattern} row was never looked up")
+    dims = dict(b=128, l=1586, msub=64, c=256)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = Path(tmp) / "tune.json"
+        key = autotune.cache_key("scan", device=dev, **dims)
+        check(autotune.save_entry(key, autotune.TileConfig(blocks=3), path),
+              "the tuner's cache file was not written")
+        autotune.clear_caches()
+        disk = autotune.lookup("scan", device=dev, path=path,
+                               with_source=True, **dims)
+    check(disk == (autotune.TileConfig(blocks=3), "disk"),
+          f"the disk layer gave {disk}")
+    autotune.clear_caches()
+    x = torch.empty((64, 7813, 2), device=dev)
+    n = 20_000
+    autotune.lookup("lloyd", b=64, m=7813, d=2, k=1562, device=x.device)
+    t0 = time.perf_counter()
+    for _ in range(n):
+        autotune.lookup("lloyd", b=64, m=7813, d=2, k=1562, dtype=x.dtype,
+                        device=x.device)
+    us = (time.perf_counter() - t0) / n * 1e6
+    check(us <= LOOKUP_US_MAX, f"a lookup takes {us} us of host time")
+    autotune.clear_caches()
+    out = dict(device_kind=kind, table_hits=hits, disk_layer=True,
+               lookup_us=us)
+    emit("tune_layers", **out)
+    return out
+
+
+def tune_rows_at_paths(by_kernel: dict, scans) -> list:
+    """Every committed row of this card against the plain version at every
+    shape the paths recorded in its bucket (``by_kernel``: kernel ->
+    (shape -> calls, shared shapes); ``scans``: the probed scan inputs),
+    and against the derived plan there: bit for bit but on the axes that
+    regroup float sums."""
+    from repro_torch.kernels import assign, autotune, lloyd, scan, tune_table
+    kind, _ = autotune.device_info(torch.device("cuda", 0))
+    parity = {"lloyd_step": lloyd_parity, "assign_argmin": assign_parity}
+    derived = {"lloyd_step": lambda x, w, c: lloyd.lloyd_step(x, w, c),
+               "assign_argmin": lambda x, w, c: assign.assign_argmin(x, c)}
+    name_of = {"lloyd_step": "lloyd", "assign_argmin": "assign"}
+    cases = []
+    for kernel, (shapes, shared) in by_kernel.items():
+        tk = name_of[kernel]
+        for i, shape in enumerate(sorted(shapes)):
+            b, m, k, d = shape
+            row = tune_table.load_default(tk, kind, autotune.shape_bucket(
+                tk, b=b, m=m, d=d, k=k))
+            if row == autotune.DEFAULT:
+                continue
+            x, w, c = _case(*shape, share_x=shape in shared, seed=105 + i)
+            args = (x, c) if kernel == "assign_argmin" else (x, w, c)
+            case = parity[kernel](f"{tk}_row_{'x'.join(map(str, shape))}",
+                                  *args, config=row)
+            run = {"lloyd_step": lambda: lloyd.lloyd_step(x, w, c, row),
+                   "assign_argmin": lambda: assign.assign_argmin(x, c, row)
+                   }[kernel]
+            moved, why = autotune.moved_bits(
+                tk, tuple(run()), tuple(derived[kernel](x, w, c)),
+                autotune.AXES[tk])
+            check(why is None, f"{case['case']}: {why}")
+            cases.append(dict(case, row=row.to_dict(), moved_bits=moved))
+    for luts, codes in scans:
+        b, l, m = codes.shape
+        row = tune_table.load_default("scan", kind, autotune.shape_bucket(
+            "scan", b=b, l=l, msub=m, c=luts.shape[2]))
+        if row != autotune.DEFAULT:
+            case = scan_parity(f"scan_row_{b}x{l}x{m}", luts, codes, row)
+            check(torch.equal(scan.adc_scan_cuda(luts, codes, row),
+                              scan.adc_scan_cuda(luts, codes,
+                                                 autotune.DEFAULT)),
+                  f"{case['case']}: differs from the derived plan")
+            cases.append(dict(case, row=row.to_dict(), moved_bits=()))
+    emit("tune_rows_at_paths", device_kind=kind, cases=cases)
+    return cases
+
 
 SERVE_SEED = 0
 PROMPT_LEN = 512       # tokens per request (prefill by decode steps)
@@ -2006,7 +2220,8 @@ def main() -> int:
     pts, _, _ = blobs(500_000, dim=2, seed=0)
     x = torch.from_numpy(pts).cuda()
     # warm-up, same seed; the shapes of its assignment calls
-    with ShapeRecorder("assign_argmin") as fused_assign:
+    with ShapeRecorder("assign_argmin") as fused_assign, \
+            ShapeRecorder("lloyd_step") as fused_lloyd:
         warm = SampledKMeans(spec).fit(x, seed=0)
         warm.predict(x)
     torch.cuda.synchronize()
@@ -2137,9 +2352,12 @@ def main() -> int:
          bit_identical=True, landmark_sse_cuda=float(ua.sse),
          landmark_sse_cuda_fused=float(ub.sse), landmark_rel=unfused_rel)
 
+    # -- 7a. cuda_tuned (auto) against cuda_fused at paper_500k -------------
+    tuned = tune_backends(x, spec, float(std.sse), est)
+
     # -- 7b. the out-of-core executor, the streaming engine and mini-batch
     # Lloyd: the one-chunk pin, paper_500k with a mini-batch merge,
-    # oocore_5m (cuda_fused, cuda) and its flush run, stream_5m,
+    # oocore_5m (auto, cuda) and its flush run, stream_5m,
     # stream_drift
     chunked_one_chunk_pin(x, spec, est.result_)
     mb = minibatch_500k(x, spec, sse)
@@ -2352,6 +2570,31 @@ def main() -> int:
     cases += mesh_cases
     emit("mesh_parity", cases=mesh_cases)
 
+    # -- 9b. the tuner: the sweep of the kernels the paths look up, the lookup
+    # layers, and every committed row at every shape the paths recorded in
+    # its bucket
+    t_tune = time.perf_counter()
+    sweep = tune_sweep()
+    layers = tune_layers(sweep)
+
+    def recorded_shapes(recs):
+        shapes, shared = {}, set()
+        for rec in recs:
+            shapes.update(dict.fromkeys(rec.shapes if hasattr(rec, "shapes")
+                                        else rec))
+            shared |= getattr(rec, "shared", set())
+        return shapes, shared
+
+    row_cases = tune_rows_at_paths(
+        {"lloyd_step": recorded_shapes(
+            [fused_lloyd, lloyd_shapes2, lloyd_shapes5, oo["lloyd_rec"],
+             oo["flush_lloyd_rec"], *(recs[0] for _, recs in mesh_paths)]),
+         "assign_argmin": (assign_calls, assign_shared)},
+        [scan200k, scan5m])
+    emit("tune", seconds=time.perf_counter() - t_tune, shapes=len(sweep),
+         rows_checked_at_paths=len(row_cases),
+         lookup_us=layers["lookup_us"])
+
     # -- 10. clustered-KV decode serving, llama3-8b at full width ------------
     serve_requests, served_parity = serve_long_500k()
     cases.append(served_parity)
@@ -2367,6 +2610,17 @@ def main() -> int:
     # ms / plain_ms / library_ms: device time per call, with the inputs in
     # HBM (rotated copies); call_ms: the kernel's time per call with its
     # wrapper's host work.  ``library`` is (function, its inputs).
+    # where the card's table has a row for a shape's bucket, the kernel's
+    # time at that row too (``row_ms``): the time the tuned paths launch
+    def with_row(entry, tk, kernel, inputs, **dims):
+        from repro_torch.kernels import autotune, tune_table
+        row = tune_table.load_default(tk, kind,
+                                      autotune.shape_bucket(tk, **dims))
+        if row != autotune.DEFAULT:
+            entry.update(row=row.to_dict(), row_ms=device_ms(rotating(
+                lambda *t: kernel(*t, row), *inputs)))
+        return entry
+
     def timed(shape_name, inputs, kernel, plain, bound, library=None,
               **dims):
         b_ms, by = bound
@@ -2414,7 +2668,8 @@ def main() -> int:
                 r: device_ms(rotating(
                     lambda *t, r=r: lloyd.route_step(*t, r), xw, wl, cl))
                 for r in ("simt", "tc")}
-        return entry
+        return with_row(entry, "lloyd", lloyd.lloyd_step, (xw, wl, cl),
+                        b=bb, m=mm, k=kk, d=dd)
 
     # the cuda backend's centroid pass on the assignment kernel's ids;
     # bytes: x, ids and w read once, sums and counts written once
@@ -2439,11 +2694,17 @@ def main() -> int:
                      (flat, wx)),
             b=bb, m=mm, k=kk, d=dd)
 
+    # the derived plan (``ms``), and the card's row where one applies
+    # (``row_ms``, what the search's lookup launches)
     def scan_entry(shape_name, luts, codes):
+        from repro_torch.kernels.autotune import DEFAULT
         b, l, m = codes.shape
-        return timed(shape_name, (luts, codes), scan.adc_scan_cuda,
-                     ref.adc_scan_ref, scan_bound_ms(luts, codes), b=b, l=l,
-                     m=m, c=luts.shape[2], plan=scan_plan(luts, codes))
+        return with_row(timed(
+            shape_name, (luts, codes),
+            lambda *t: scan.adc_scan_cuda(*t, DEFAULT), ref.adc_scan_ref,
+            scan_bound_ms(luts, codes), b=b, l=l, m=m, c=luts.shape[2],
+            plan=scan_plan(luts, codes)), "scan", scan.adc_scan_cuda,
+            (luts, codes), b=b, l=l, msub=m, c=luts.shape[2])
 
     c_local = centroid_entry("local", *local)
     c_merge = centroid_entry("merge", *merge)
@@ -2579,7 +2840,8 @@ def main() -> int:
             entry["fp32_bound_ms"] = entry["bound_ms"]
             entry["bound_ms"], entry["bound_by"] = lloyd_bound_ms(
                 xa, kk, n_bytes, "tc")
-        return entry
+        return with_row(entry, "assign", assign.assign_argmin, (xa, ca),
+                        b=bb, m=mm, k=kk, d=dd)
 
     a_shapes = [assign_entry(shape, calls, shape in assign_shared)
                 for shape, calls in sorted(assign_calls.items())]

@@ -44,7 +44,8 @@ from typing import Optional
 
 import torch
 
-from repro_torch.core.backend import LloydBackend, get_backend
+from repro_torch.core.backend import (CudaTunedBackend, LloydBackend,
+                                      get_backend)
 from repro_torch.core.device import resolve_device
 from repro_torch.core.kmeans import get_init, pairwise_sqdist
 from repro_torch.core.metrics import map_row_blocks, min_sqdist
@@ -113,7 +114,9 @@ def plan(spec: ClusterSpec, data_shape: Optional[tuple] = None, *,
     for a non-resident source alone, else ``"single"``.  ``data_shape``
     lets the planner reject schedules whose final pool is below ``k``,
     shard_map rows that do not divide over the mesh, and chunked_dist runs
-    with fewer chunks than shards."""
+    with fewer chunks than shards; for a ``single`` fit on ``cuda_tuned``
+    it also pre-warms the tuner's cache at every Lloyd shape the fit
+    launches (:meth:`ClusterSpec.lloyd_shapes`)."""
     get_partitioner(spec.partition.scheme)
     get_init(spec.local.init)
     get_init(spec.merge.init)
@@ -183,6 +186,15 @@ def plan(spec: ClusterSpec, data_shape: Optional[tuple] = None, *,
                 f"plan: the reduce tree leaves only {sched[-1]} "
                 f"representatives for a k={spec.merge.k} merge — drop a "
                 f"level or lower its compression (pool schedule: {sched})")
+    if (isinstance(backend, CudaTunedBackend) and mode == "single" and n
+            and len(data_shape) >= 2):
+        # the tuned backend reads each launch's parameters from the tuner's
+        # cache: pull the fit's Lloyd shapes through its layers into the
+        # in-process LRU here, once, so no launch of the fit resolves them
+        from repro_torch.kernels import autotune
+        for b, m, k in spec.lloyd_shapes(n):
+            autotune.prewarm("lloyd", b=b, m=m, d=int(data_shape[1]), k=k,
+                             device=dev)
     return ExecutionPlan(spec=spec, mode=mode, backend=backend, device=dev,
                          mesh=mesh, data_shape=data_shape,
                          schedule=spec.level_schedule(), logger=run_logger)

@@ -10,7 +10,8 @@ Public API (the names of :mod:`repro.core` that this slice ports):
   register_partitioner / get_partitioner — subclustering registry (equal |
                                            unequal, paper Algorithms 1/2)
   get_backend, register_backend          — LloydBackend registry (torch |
-                                           cuda | cuda_fused | auto)
+                                           cuda | cuda_fused | cuda_tuned |
+                                           auto)
   fit_from_spec                          — spec-driven single-device pipeline
   fit_chunked, ChunkStats                — out-of-core executor over a
                                            DataSource (mode="chunked")
@@ -26,9 +27,9 @@ Public API (the names of :mod:`repro.core` that this slice ports):
 The estimator facade (`SampledKMeans`) lives one level up in
 :mod:`repro_torch.api`.
 """
-from .backend import (CudaBackend, CudaFusedBackend, LloydBackend,
-                      LloydStats, available_backends, get_backend,
-                      register_backend)
+from .backend import (CudaBackend, CudaFusedBackend, CudaTunedBackend,
+                      LloydBackend, LloydStats, available_backends,
+                      get_backend, register_backend)
 from .distributed import (ChunkDistStats, DistributedClusteringResult,
                           fit_chunked_dist, make_distributed_sampled_kmeans,
                           merge_pool_distributed)
@@ -64,6 +65,7 @@ __all__ = [
     "merge_pool", "ChunkStats", "fit_chunked", "scale_pass", "minmax_pass",
     "sse_pass", "sse", "min_sqdist", "map_row_blocks", "relative_error",
     "clustering_accuracy", "LloydBackend", "CudaBackend", "CudaFusedBackend",
+    "CudaTunedBackend",
     "LloydStats", "DistributedClusteringResult",
     "make_distributed_sampled_kmeans", "ChunkDistStats", "fit_chunked_dist",
     "merge_pool_distributed",

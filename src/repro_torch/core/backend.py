@@ -22,7 +22,12 @@ Built-in backends:
                   ``csrc/assign.cu`` serves ``assign``/``assign_points``
   ``cuda_fused``  ``step`` is the fused ``csrc/lloyd.cu`` (one pass); the
                   rest as ``cuda``
-  ``auto``        ``REPRO_KMEANS_BACKEND`` if set, else ``cuda_fused`` for
+  ``cuda_tuned``  ``cuda_fused`` with each launch's parameters looked up in
+                  the tuner's cache (``kernels/autotune.py``: the LRU, the
+                  ``REPRO_TORCH_TUNE_CACHE`` file, the committed table, the
+                  derived plan); with the derived plan it is ``cuda_fused``
+                  bit for bit
+  ``auto``        ``REPRO_KMEANS_BACKEND`` if set, else ``cuda_tuned`` for
                   CUDA tensors and ``torch`` for CPU tensors
 
 Given CPU tensors, the kernel wrappers of ``cuda``/``cuda_fused`` run the
@@ -121,14 +126,22 @@ class CudaBackend(LloydBackend):
     (``kernels/centroid.py``), so it reads the points twice.  The
     assignment kernel also serves ``assign`` and the query path; it never
     forms the (m, k) distance matrix, so ``assign_points`` launches once
-    for all rows of a CUDA tensor whatever ``block`` says."""
+    for all rows of a CUDA tensor whatever ``block`` says.  Each launch
+    runs the derived plan of ``kernels/tiles.py`` (``_config`` gives
+    ``None``)."""
 
     name = "cuda"
+
+    def _config(self, kernel: str, x: torch.Tensor, k: int):
+        """The launch config of ``kernel`` on the (B, M, d) ``x`` against
+        ``k`` centers: ``None``, the derived plan."""
+        return None
 
     def assign(self, prep: Prepared, centers: torch.Tensor
                ) -> tuple[torch.Tensor, torch.Tensor]:
         from repro_torch.kernels.assign import assign_argmin
-        return assign_argmin(prep.x, centers)
+        return assign_argmin(prep.x, centers, self._config(
+            "assign", prep.x, centers.shape[1]))
 
     def step(self, prep: Prepared, centers: torch.Tensor) -> LloydStats:
         from repro_torch.kernels.centroid import centroid_update
@@ -154,7 +167,32 @@ class CudaFusedBackend(CudaBackend):
 
     def step(self, prep: Prepared, centers: torch.Tensor) -> LloydStats:
         from repro_torch.kernels.lloyd import lloyd_step
-        return LloydStats(*lloyd_step(prep.x, prep.w, centers))
+        return LloydStats(*lloyd_step(prep.x, prep.w, centers, self._config(
+            "lloyd", prep.x, centers.shape[1])))
+
+
+class CudaTunedBackend(CudaFusedBackend):
+    """The fused backend with each launch's parameters looked up in the
+    tuner's cache (:mod:`repro_torch.kernels.autotune`) instead of the
+    derived plan: ``step`` looks up ``lloyd`` and ``assign`` looks up
+    ``assign``.  A lookup is a host-side dict read keyed on the call's own
+    (B, M, d), K, dtype and card; the tensor-core routes ignore the config.
+    At the derived plan (an empty cache, the table's ``"*"`` rows) it is
+    ``cuda_fused`` bit for bit; a row's ``lloyd`` blocks may move the last
+    bits of the sums.
+
+    The reference's tuned backend carries a K hint because its point
+    padding depends on a tile keyed on K; here every lookup keys on its
+    own launch and nothing is padded by a config, so the backend holds no
+    state (``api.plan`` pre-warms the fit's shapes instead)."""
+
+    name = "cuda_tuned"
+
+    def _config(self, kernel: str, x: torch.Tensor, k: int):
+        from repro_torch.kernels import autotune
+        b, m, d = x.shape
+        return autotune.lookup(kernel, b=b, m=m, d=d, k=k, dtype=x.dtype,
+                               device=x.device)
 
 
 BackendSpec = Union[str, LloydBackend, None]
@@ -163,6 +201,7 @@ _REGISTRY: dict[str, Callable[[], LloydBackend]] = {
     "torch": LloydBackend,
     "cuda": CudaBackend,
     "cuda_fused": CudaFusedBackend,
+    "cuda_tuned": CudaTunedBackend,
 }
 
 
@@ -176,7 +215,7 @@ def get_backend(spec: BackendSpec = None, *,
                 device: "torch.device | str | None" = None) -> LloydBackend:
     """Resolve a backend: instance passthrough, name lookup, or ``None`` /
     ``"auto"`` -> ``REPRO_KMEANS_BACKEND`` env override, then the device
-    the data lives on: ``torch`` for the CPU, ``cuda_fused`` otherwise
+    the data lives on: ``torch`` for the CPU, ``cuda_tuned`` otherwise
     (``device=None`` means the entry points' default, CUDA)."""
     if isinstance(spec, LloydBackend):
         return spec
@@ -185,7 +224,7 @@ def get_backend(spec: BackendSpec = None, *,
         name = os.environ.get(ENV_VAR) or "auto"
     if name == "auto":
         on_cpu = device is not None and torch.device(device).type == "cpu"
-        name = "torch" if on_cpu else "cuda_fused"
+        name = "torch" if on_cpu else "cuda_tuned"
     try:
         return _REGISTRY[name]()
     except KeyError:

@@ -10,7 +10,7 @@ launch per Lloyd iteration serves the whole batch.
   * points carry *weights* (0 = padded/masked point), so capacity-padded
     partitions cluster correctly;
   * the Lloyd machinery is a :class:`~repro_torch.core.backend.LloydBackend`
-    (``torch``, ``cuda_fused`` or ``auto``);
+    (``torch``, ``cuda``, ``cuda_fused``, ``cuda_tuned`` or ``auto``);
   * empty clusters keep their previous center (standard Lloyd fix-up);
   * ``StopSpec.minibatch > 0`` switches the loop to mini-batch Lloyd
     (weight-proportional row draws per lane, a cumulative-count learning

@@ -248,12 +248,11 @@ class ExecutionSpec:
 
     ``backend`` names a :class:`repro_torch.core.backend.LloydBackend`
     (``"auto"`` consults ``REPRO_KMEANS_BACKEND``, then picks
-    ``cuda_fused`` for CUDA tensors and ``torch`` for CPU tensors).
-    ``mode`` picks the engine; the port runs ``"single"`` (and ``"auto"``,
-    which resolves to it for a resident array).  ``"shard_map"``,
-    ``"stream"``, ``"chunked"`` and ``"chunked_dist"`` are valid names that
-    the port's planner rejects until their slices land (ROADMAP.md §1).
-    ``mesh_axis`` and ``merge_path`` belong to those modes.  ``donate`` is
+    ``cuda_tuned`` for CUDA tensors and ``torch`` for CPU tensors).
+    ``mode`` picks the engine: ``"single"``, ``"shard_map"``,
+    ``"stream"``, ``"chunked"`` or ``"chunked_dist"``; ``"auto"`` lets the
+    planner choose from the mesh and the source (``api.plan``).
+    ``mesh_axis`` and ``merge_path`` belong to the mesh modes.  ``donate`` is
     accepted and has no effect in the port.  ``telemetry`` names a
     :func:`repro_torch.telemetry.get_run_logger` entry (``"off"``,
     ``"memory"``, ``"jsonl[:path]"``, or user-registered), resolved at plan
@@ -471,15 +470,41 @@ class ClusterSpec:
         ``n_points`` is the per-device shard and each level shrinks every
         device's pool independently).  ``pool_schedule(n)[-1]`` is what the
         merge stage sees."""
-        sizes, n = [], n_points
+        return tuple(b * k for b, _, k, _ in self._level_shapes(n_points))
+
+    def _level_shapes(self, n_points: int) -> list:
+        """Per level of the reduce tree: ``(n_sub, capacity, k_local,
+        level)`` for an ``n_points`` input, each level's pool feeding the
+        next."""
+        out, n = [], n_points
         for lv in self.level_schedule():
             cap = -(-n // lv.n_sub)  # ceil — Algorithm 1's slot count
             if lv.scheme == "unequal":
                 # Algorithm 2 bounds partitions at ceil(M/P)*capacity_factor
                 cap = min(int(cap * lv.capacity_factor), n)
-            n = lv.n_sub * max(1, cap // lv.compression)
-            sizes.append(n)
-        return tuple(sizes)
+            k = max(1, cap // lv.compression)
+            out.append((lv.n_sub, cap, k, lv))
+            n = lv.n_sub * k
+        return out
+
+    def lloyd_shapes(self, n_points: int) -> tuple:
+        """The distinct ``(B, M, K)`` of the Lloyd steps a single-device
+        fit of ``n_points`` rows launches: each level's local stage (its
+        partitions as B, their capacity as M), then the merge (its restarts
+        as B over the final pool), and the (B, rows) block of a stage that
+        runs mini-batch Lloyd.  ``api.plan`` pre-warms the tuner's cache
+        with them."""
+        stages = [(b, m, k, lv.effective_stop)
+                  for b, m, k, lv in self._level_shapes(n_points)]
+        pool = stages[-1][0] * stages[-1][2]
+        stages.append((max(1, self.merge.restarts), pool, self.merge.k,
+                       self.merge.effective_stop))
+        shapes = []
+        for b, m, k, stop in stages:
+            shapes.append((b, m, k))
+            if stop.minibatch > 0:
+                shapes.append((b, min(stop.minibatch, m), k))
+        return tuple(dict.fromkeys(shapes))
 
     def chunked_pool_schedule(self, n_points: int) -> tuple:
         """Pool accounting for the out-of-core executor: every chunk of

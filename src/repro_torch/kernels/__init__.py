@@ -27,7 +27,17 @@
   csrc/warp.cuh                  — ballot grouping and warp sums
   ref.py                         — the plain PyTorch versions (CPU path,
                                    tests, on-card parity)
-  tiles.py                       — the launch contract (TileError, tiles)
+  tiles.py                       — the launch contract (TileError, tiles,
+                                   the clamps of a tuned launch)
+  autotune.py                    — the launch-parameter tuner: lookup
+                                   (LRU, REPRO_TORCH_TUNE_CACHE file,
+                                   table, derived plan), tune, the sweep
+                                   CLI; tunes the SIMT Lloyd and assign
+                                   routes' center tile and blocks (and
+                                   assign's points per thread) and the
+                                   scan's blocks; sweeps the centroid
+                                   warp path's blocks on request
+  tune_table.py                  — the committed per-card, per-bucket rows
   build.py                       — nvcc build at first use, ctypes loading
 
 Importing this package builds nothing and touches no device: a kernel is
@@ -43,4 +53,15 @@ from .scan import adc_scan_cuda
 from .tiles import TileError
 
 __all__ = ["assign_argmin", "centroid_update", "lloyd_step", "adc_scan_cuda",
-           "cluster_attn_partial", "cluster_attn_decode", "TileError"]
+           "cluster_attn_partial", "cluster_attn_decode", "TileError",
+           "TileConfig", "lookup", "prewarm", "tune"]
+_TUNER = ("TileConfig", "lookup", "prewarm", "tune")
+
+
+def __getattr__(name):
+    # the tuner's names load on first use, so that
+    # ``python -m repro_torch.kernels.autotune`` runs the module only once
+    if name in _TUNER:
+        from . import autotune
+        return getattr(autotune, name)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

@@ -13,6 +13,12 @@ shape:
     (``csrc/tc_argmin.cuh``, three TF32 passes), after a pre-pass for |c|^2
     and an f32 copy of the centers.
 
+``config`` (a ``kernels.autotune.TileConfig``, or ``None`` for the
+formulas of ``tiles.assign_plan``) sets the SIMT route's center tile,
+points per thread and blocks per batch entry; the tensor-core route
+ignores it.  None of them moves a value: each point's argmin is one
+thread's scan of the centers in increasing order.
+
 ``launches`` counts the calls that launched the kernel.
 """
 from __future__ import annotations
@@ -23,7 +29,7 @@ import torch
 
 from . import build
 from .ref import assign_argmin_ref
-from .tiles import (assign_blocks, assign_points, assign_route, center_tile,
+from .tiles import (AssignPlan, assign_plan, assign_route, center_tile,
                     check_inputs, register_dim, tc_dims)
 
 launches = 0      # CUDA launches of this kernel since import (or reset)
@@ -65,38 +71,50 @@ def _raise(err: int, shape: tuple) -> None:
             f"(B, M, K, d) = {shape}")
 
 
-def occupancy(k: int, d: int, wide: bool) -> int:
+def occupancy(k: int, d: int, wide: bool, tile: int = 0) -> int:
     """Blocks of the SIMT kernel one SM of the current device holds at once
-    at ``(k, d)``, with the wide register tile or without, as the runtime
-    reports them (cached)."""
-    key = (torch.cuda.current_device(), k, d, wide)
+    at ``(k, d)`` and center tile ``tile`` (0: ``center_tile``), with the
+    wide register tile or without, as the runtime reports them (cached)."""
+    tile = tile or center_tile(k, d)
+    key = (torch.cuda.current_device(), k, d, bool(wide), tile)
     if key not in _OCCUPANCY:
         per_sm = ctypes.c_int()
         err = _lib().repro_assign_occupancy(
-            d, register_dim(d), center_tile(k, d), wide,
-            ctypes.byref(per_sm))
+            d, register_dim(d), tile, wide, ctypes.byref(per_sm))
         _raise(err, (None, None, k, d))
         _OCCUPANCY[key] = per_sm.value
     return _OCCUPANCY[key]
 
 
-def assign_argmin(x: torch.Tensor, c: torch.Tensor
+def plan(b: int, m: int, k: int, d: int, device: torch.device,
+         config=None) -> AssignPlan:
+    """The SIMT launch at ``config`` (``None``: the formulas) for a (B, M,
+    K, d) call on a CUDA ``device``: the runtime's occupancy at the tile."""
+    sm_count = torch.cuda.get_device_properties(device).multi_processor_count
+    with torch.cuda.device(device):
+        return assign_plan(b, m, k, d, sm_count,
+                           lambda t, wide: occupancy(k, d, wide, t),
+                           *((config.center_tile, config.points,
+                              config.blocks) if config is not None else ()))
+
+
+def assign_argmin(x: torch.Tensor, c: torch.Tensor, config=None
                   ) -> tuple[torch.Tensor, torch.Tensor]:
     """Nearest center of every point of a batch: (B, M, d) points,
     (B, K, d) centers -> ``(idx (B, M) int32, dist (B, M) f32)``.  Ties go
-    to the lowest center index."""
+    to the lowest center index.  ``config``: see the module docstring."""
     b, m, k, d = check_inputs("assign_argmin", x, c)
     if x.device.type == "cpu":
         return assign_argmin_ref(x, c)
     if x.device.type != "cuda":
         raise ValueError(f"assign_argmin: unsupported device {x.device}")
-    out = route_argmin(x, c, assign_route(k, d))
+    out = route_argmin(x, c, assign_route(k, d), config)
     global launches
     launches += 1
     return out
 
 
-def route_argmin(x: torch.Tensor, c: torch.Tensor, route: str
+def route_argmin(x: torch.Tensor, c: torch.Tensor, route: str, config=None
                  ) -> tuple[torch.Tensor, torch.Tensor]:
     """:func:`assign_argmin` on CUDA inputs it accepts, on the given route
     (``"simt"``, or ``"tc"`` where ``tiles.tc_smem_bytes(d)`` fits a block)
@@ -119,15 +137,11 @@ def route_argmin(x: torch.Tensor, c: torch.Tensor, route: str
                 cpad.data_ptr(), c2.data_ptr(), idx.data_ptr(),
                 dist.data_ptr(), stream)
         else:
-            sm_count = torch.cuda.get_device_properties(
-                dev).multi_processor_count
-            points = assign_points(b, m, d, sm_count)
-            wide = points > 1
-            g = assign_blocks(b, m, points, occupancy(k, d, wide), sm_count)
+            bk, points, g = plan(b, m, k, d, dev, config)
             err = _lib().repro_assign_argmin(
                 x.data_ptr(), x.stride(0), x.dtype == bf16,
                 c.data_ptr(), c.stride(0), c.dtype == bf16,
-                b, m, k, d, register_dim(d), center_tile(k, d), wide, g,
+                b, m, k, d, register_dim(d), bk, points > 1, g,
                 idx.data_ptr(), dist.data_ptr(), stream)
     _raise(err, (b, m, k, d))
     return idx, dist

@@ -8,6 +8,12 @@ CPU tensors :func:`centroid_update` runs the plain version
 launches the kernel or raises: warp-private accumulators (one launch), or
 the counting sort and the segmented sum (two), as ``tiles.centroid_sorts``
 decides by shape.  ``launches`` counts the calls that launched it.
+
+``config`` (a ``kernels.autotune.TileConfig``, or ``None`` for
+``tiles.centroid_blocks``' formula) sets the warp path's blocks per lane;
+the sort path ignores it.  The blocks regroup the per-block partial sums,
+so the last bits of ``sums`` may move with them (integer-weight counts do
+not).
 """
 from __future__ import annotations
 
@@ -54,25 +60,27 @@ def _lib() -> ctypes.CDLL:
 
 
 def centroid_update(x: torch.Tensor, idx: torch.Tensor, w: torch.Tensor,
-                    k: int) -> tuple[torch.Tensor, torch.Tensor]:
+                    k: int, config=None
+                    ) -> tuple[torch.Tensor, torch.Tensor]:
     """Raw weighted per-cluster statistics of a batch: (B, M, d) points,
     (B, M) int32 cluster ids, (B, M) weights -> ``(sums (B, k, d),
     counts (B, k))``, both f32 (the caller divides).  A row adds nothing
     when its weight is 0 or its id lies outside [0, k).  Deterministic: a
-    repeated call is bit-identical."""
+    repeated call is bit-identical.  ``config``: see the module
+    docstring."""
     check_update_inputs("centroid_update", x, idx, w, k)
     if x.device.type == "cpu":
         return centroid_update_ref(x, idx, w, k)
     if x.device.type != "cuda":
         raise ValueError(f"centroid_update: unsupported device {x.device}")
-    out = launch(x, idx, w, k)
+    out = launch(x, idx, w, k, config)
     global launches
     launches += 1
     return out
 
 
-def launch(x: torch.Tensor, idx: torch.Tensor, w: torch.Tensor, k: int
-           ) -> tuple[torch.Tensor, torch.Tensor]:
+def launch(x: torch.Tensor, idx: torch.Tensor, w: torch.Tensor, k: int,
+           config=None) -> tuple[torch.Tensor, torch.Tensor]:
     """Launch the kernel on CUDA tensors that ``check_update_inputs``
     accepts, without counting the launch: :func:`centroid_update` counts
     its own, and the Lloyd kernel's tensor-core route counts those it makes
@@ -105,7 +113,8 @@ def launch(x: torch.Tensor, idx: torch.Tensor, w: torch.Tensor, k: int
         else:
             sm_count = torch.cuda.get_device_properties(
                 dev).multi_processor_count
-            g = centroid_blocks(b, m, k, d, sm_count)
+            g = centroid_blocks(b, m, k, d, sm_count,
+                                config.blocks if config is not None else 0)
             part = torch.empty((b, g, -(-k * (d + 1) // 4) * 4), **f32)
             err = lib.repro_centroid_warps(
                 *inputs, g, centroid_warps(k, d), part.data_ptr(),

@@ -8,6 +8,12 @@ query meets a candidate through per-subspace lookup tables:
 plain version (:func:`repro_torch.kernels.ref.adc_scan_ref`), for CUDA
 tensors it launches the kernel or raises; ``launches`` counts kernel
 launches.
+
+``config`` (a ``kernels.autotune.TileConfig``) sets the blocks per batch
+entry; without one the call looks its shape up in the tuner's cache
+(``autotune.lookup("scan", ...)``, whose default is ``tiles.scan_plan``'s
+formula).  The blocks move no value: each thread sums one row's table
+entries in subspace order.
 """
 from __future__ import annotations
 
@@ -68,29 +74,37 @@ def occupancy(m: int, c: int, bf16: bool, vec: int) -> int:
     return _OCCUPANCY[key]
 
 
-def plan(luts: torch.Tensor, codes: torch.Tensor) -> ScanPlan:
-    """The launch :func:`adc_scan_cuda` makes for these CUDA inputs."""
+def plan(luts: torch.Tensor, codes: torch.Tensor, config=None) -> ScanPlan:
+    """The launch :func:`adc_scan_cuda` makes for these CUDA inputs at
+    ``config`` (``None``: the formula)."""
     b, l, m, c = check_scan_inputs("adc_scan", luts, codes)
     with torch.cuda.device(luts.device):
-        return _plan(luts, codes, b, l, m, c)
+        return _plan(luts, codes, b, l, m, c, config)
 
 
-def _plan(luts, codes, b, l, m, c) -> ScanPlan:
+def _plan(luts, codes, b, l, m, c, config) -> ScanPlan:
     per_sm = occupancy(m, c, luts.dtype == torch.bfloat16,
                        code_vector_bytes(m, codes.data_ptr(), codes.stride(0)))
     sm_count = torch.cuda.get_device_properties(
         luts.device).multi_processor_count
-    return scan_plan(b, l, per_sm, sm_count)
+    return scan_plan(b, l, per_sm, sm_count,
+                     config.blocks if config is not None else 0)
 
 
-def adc_scan_cuda(luts: torch.Tensor, codes: torch.Tensor) -> torch.Tensor:
+def adc_scan_cuda(luts: torch.Tensor, codes: torch.Tensor, config=None
+                  ) -> torch.Tensor:
     """ADC scan of a batch: (B, m, C) f32/bf16 tables and (B, L, m) uint8
     (or int32, cast to uint8) codes in ``[0, C)`` -> (B, L) f32 distances,
     each the f32 sum of one table entry per subspace in increasing
-    subspace order.  The caller masks invalid candidate slots."""
+    subspace order.  The caller masks invalid candidate slots.
+    ``config``: see the module docstring."""
     if isinstance(codes, torch.Tensor) and codes.dtype == torch.int32:
         codes = codes.to(torch.uint8)
     b, l, m, c = check_scan_inputs("adc_scan", luts, codes)
+    if config is None:
+        from . import autotune
+        config = autotune.lookup("scan", b=b, l=l, msub=m, c=c,
+                                 dtype=luts.dtype, device=luts.device)
     if luts.device.type == "cpu":
         return adc_scan_ref(luts, codes)
     if luts.device.type != "cuda":
@@ -103,7 +117,7 @@ def adc_scan_cuda(luts: torch.Tensor, codes: torch.Tensor) -> torch.Tensor:
             luts.data_ptr(), luts.stride(0), luts.dtype == torch.bfloat16,
             codes.data_ptr(), codes.stride(0), b, l, m, c,
             code_vector_bytes(m, codes.data_ptr(), codes.stride(0)),
-            _plan(luts, codes, b, l, m, c).blocks,
+            _plan(luts, codes, b, l, m, c, config).blocks,
             scan_vector_table(luts.data_ptr(), luts.stride(0) * es,
                               m * c * es),
             out.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)

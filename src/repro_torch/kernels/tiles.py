@@ -49,6 +49,16 @@ wrappers make before a launch.
     into ``attn_splits(...)`` blocks per (batch, kv head), and streams each
     split through shared memory ``attn_stage_rows(...)`` rows at a time.
 
+Launch parameters a tuner may set (``kernels/autotune.py``): the SIMT
+routes' center tile, blocks per batch entry and (assignment) points per
+thread, the centroid warp path's and the ADC scan's blocks.  Each plan
+function takes the requested value as an override, 0 meaning its formula,
+and clamps it to what the kernel can run (``clamp_center_tile``, the
+``blocks=`` of ``lloyd_blocks`` / ``assign_blocks`` / ``centroid_blocks`` /
+``scan_plan``, the ``points=`` of ``assign_points``): without an override
+each returns the formula's plan.  ``lloyd_plan`` and ``assign_plan`` put a
+SIMT launch together from them.
+
 A shape outside the contract raises :class:`TileError` (a ``ValueError``)
 before anything is launched.
 """
@@ -128,6 +138,19 @@ def center_tile(k: int, d: int) -> int:
     return bk
 
 
+def clamp_center_tile(k: int, d: int, tile: int = 0, reserved: int = 0
+                      ) -> int:
+    """The center tile a SIMT kernel runs for a requested ``tile``: 0 gives
+    :func:`center_tile`; else at most ``k`` centers, and no more than fit a
+    block's ``MAX_SMEM_BYTES`` beside ``reserved`` bytes of its other
+    shared memory (at least one)."""
+    derived = center_tile(k, d)
+    if not tile:
+        return derived
+    fit = (MAX_SMEM_BYTES - reserved) // (4 * center_stride(d))
+    return max(1, min(tile, k, fit))
+
+
 def acc_in_smem(k: int, d: int) -> bool:
     """Whether the Lloyd kernel keeps a block's (K, d) sums and (K,) counts
     in shared memory (else in its slice of the global scratch)."""
@@ -149,17 +172,20 @@ def centroid_warps(k: int, d: int) -> int:
                       CENTROID_SMEM_BYTES // (4 * k * (d + 1))))
 
 
-def centroid_blocks(b: int, m: int, k: int, d: int, sm_count: int) -> int:
+def centroid_blocks(b: int, m: int, k: int, d: int, sm_count: int,
+                    blocks: int = 0) -> int:
     """Blocks per lane of the centroid update's warp path: as many as fit
     the card at once (by shared memory and registers), no more than the lane
     has tiles for, and few enough that the last block's merge reads at most
-    ``CENTROID_MERGE_BYTES`` of partials."""
+    ``CENTROID_MERGE_BYTES`` of partials; a requested ``blocks`` is clamped
+    to that."""
     warps = centroid_warps(k, d)
     acc = 4 * k * (d + 1)
     per_sm = max(1, min(CENTROID_SM_THREADS // (32 * warps),
                         MAX_SMEM_BYTES // (warps * acc)))
-    return max(1, min(-(-m // (32 * warps)), per_sm * sm_count // b,
+    most = max(1, min(-(-m // (32 * warps)), per_sm * sm_count // b,
                       CENTROID_MERGE_BYTES // acc))
+    return min(blocks, most) if blocks else most
 
 
 def sort_clusters_fit(k: int) -> bool:
@@ -225,37 +251,50 @@ def assign_route(k: int, d: int) -> str:
             else "simt")
 
 
-def assign_points(b: int, m: int, d: int, sm_count: int) -> int:
+def assign_points(b: int, m: int, d: int, sm_count: int,
+                  points: int = 0) -> int:
     """Points per thread of the SIMT assignment: ``ASSIGN_POINTS`` (the
     block-min scan) up to ``register_dim`` ``ASSIGN_TILE_MAX_DIM`` where the
     batch holds ``ASSIGN_ITEMS_PER_SCHEDULER`` items of 32
     ``ASSIGN_POINTS`` points for every warp scheduler of the card; else one
     (the one-pass scan), so a small batch still spreads over the card and
-    a wide point keeps its registers."""
+    a wide point keeps its registers.  A requested ``points`` above one
+    gives ``ASSIGN_POINTS`` where the register width takes them, else
+    one."""
     dp = register_dim(d)
+    wide_ok = 0 < dp <= ASSIGN_TILE_MAX_DIM
+    if points:
+        return ASSIGN_POINTS if points > 1 and wide_ok else 1
     items = (ASSIGN_ITEMS_PER_SCHEDULER * SM_SCHEDULERS * sm_count * 32
              * ASSIGN_POINTS)
-    return (ASSIGN_POINTS
-            if 0 < dp <= ASSIGN_TILE_MAX_DIM and b * m >= items else 1)
+    return ASSIGN_POINTS if wide_ok and b * m >= items else 1
 
 
 def assign_blocks(b: int, m: int, points: int, per_sm: int,
-                  sm_count: int) -> int:
+                  sm_count: int, blocks: int = 0) -> int:
     """Blocks per batch entry of the SIMT assignment: a warp's work item is
     32 ``points`` points, item i goes to block i % G, and G is the most
     that hold all ``b`` entries' blocks on the card at once (``per_sm``
     blocks on each of ``sm_count`` SMs), but no more than the entry has
-    items."""
-    return max(1, min(-(-m // (32 * points)), per_sm * sm_count // b))
+    items; a requested ``blocks`` is clamped to that."""
+    most = max(1, min(-(-m // (32 * points)), per_sm * sm_count // b))
+    return min(blocks, most) if blocks else most
 
 
-def lloyd_simt_smem_bytes(k: int, d: int) -> int:
+def lloyd_simt_reserved_bytes(k: int, d: int) -> int:
+    """Shared memory of one SIMT Lloyd block beside its staged centers: the
+    tile's ids, weights and owner masks, eight warp sums, and the
+    accumulator when it fits."""
+    return (4 * ((2 + WARPS) * THREADS + WARPS)
+            + (4 * k * (d + 1) if acc_in_smem(k, d) else 0))
+
+
+def lloyd_simt_smem_bytes(k: int, d: int, tile: int = 0) -> int:
     """Shared memory of one SIMT Lloyd block (``simt_smem`` in
-    ``csrc/lloyd.cu``): the staged centers, the tile's ids, weights and
-    owner masks, eight warp sums, and the accumulator when it fits."""
-    smem = (4 * center_tile(k, d) * center_stride(d)
-            + 4 * ((2 + WARPS) * THREADS + WARPS))
-    return smem + (4 * k * (d + 1) if acc_in_smem(k, d) else 0)
+    ``csrc/lloyd.cu``) at center tile ``tile`` (0: :func:`center_tile`):
+    the staged centers and :func:`lloyd_simt_reserved_bytes`."""
+    return (4 * (tile or center_tile(k, d)) * center_stride(d)
+            + lloyd_simt_reserved_bytes(k, d))
 
 
 def blocks_per_sm(smem: int, threads: int = THREADS) -> int:
@@ -268,17 +307,58 @@ def blocks_per_sm(smem: int, threads: int = THREADS) -> int:
 
 
 def lloyd_blocks(b: int, m: int, k: int, d: int, sm_count: int,
-                 per_sm: int) -> int:
+                 per_sm: int, blocks: int = 0) -> int:
     """Blocks per batch entry of the SIMT Lloyd kernel.  At most as many as
     hold all ``b`` entries' blocks on the card at once (``per_sm`` blocks
     on each of ``sm_count`` SMs: no partial second wave) and as keep the
     (B, G, K, d+1) partials within ``SCRATCH_BYTES``; within that, the
     fewest blocks that take the most tiles any block must, so every block
-    walks the same number of tiles (but the last)."""
+    walks the same number of tiles (but the last).  A requested ``blocks``
+    is clamped to that most."""
     tiles = -(-m // THREADS)
     most = max(1, min(tiles, per_sm * sm_count // b,
                       SCRATCH_BYTES // (4 * b * k * (d + 1))))
+    if blocks:
+        return min(blocks, most)
     return -(-tiles // -(-tiles // most))
+
+
+class LloydPlan(NamedTuple):
+    """A SIMT Lloyd launch: ``center_tile`` centers staged at a time,
+    ``blocks`` per batch entry."""
+    center_tile: int
+    blocks: int
+
+
+def lloyd_plan(b: int, m: int, k: int, d: int, sm_count: int, occupancy,
+               tile: int = 0, blocks: int = 0) -> LloydPlan:
+    """The SIMT Lloyd launch at a requested center ``tile`` and ``blocks``
+    (0: the formulas), where ``occupancy(tile)`` gives the blocks one SM
+    holds at that tile."""
+    bk = clamp_center_tile(k, d, tile, lloyd_simt_reserved_bytes(k, d))
+    return LloydPlan(bk, lloyd_blocks(b, m, k, d, sm_count, occupancy(bk),
+                                      blocks))
+
+
+class AssignPlan(NamedTuple):
+    """A SIMT assignment launch: ``center_tile`` centers staged at a time,
+    ``points`` per thread, ``blocks`` per batch entry."""
+    center_tile: int
+    points: int
+    blocks: int
+
+
+def assign_plan(b: int, m: int, k: int, d: int, sm_count: int, occupancy,
+                tile: int = 0, points: int = 0, blocks: int = 0
+                ) -> AssignPlan:
+    """The SIMT assignment launch at a requested center ``tile``,
+    ``points`` and ``blocks`` (0: the formulas), where
+    ``occupancy(tile, wide)`` gives the blocks one SM holds at that tile
+    with the wide register tile (4 points) or without."""
+    bk = clamp_center_tile(k, d, tile)
+    p = assign_points(b, m, d, sm_count, points)
+    return AssignPlan(bk, p, assign_blocks(b, m, p, occupancy(bk, p > 1),
+                                           sm_count, blocks))
 
 
 def scan_smem_bytes(m: int, c: int, dtype: torch.dtype = torch.float32
@@ -304,12 +384,16 @@ class ScanPlan(NamedTuple):
     waves: int
 
 
-def scan_plan(b: int, l: int, per_sm: int, sm_count: int) -> ScanPlan:
+def scan_plan(b: int, l: int, per_sm: int, sm_count: int,
+              blocks: int = 0) -> ScanPlan:
     """The ADC scan's launch for ``b`` entries of ``l`` rows when ``per_sm``
     blocks fit one SM: as many blocks per entry as fit the card at once for
-    all entries (one wave), no more than an entry has tiles."""
+    all entries (one wave), no more than an entry has tiles; a requested
+    ``blocks`` is clamped to that."""
     slots = per_sm * sm_count
     g = max(1, min(-(-l // THREADS), slots // b))
+    if blocks:
+        g = min(blocks, g)
     return ScanPlan(g, -(-(b * g) // slots))
 
 

@@ -152,8 +152,8 @@ def test_estimator_defaults_to_cuda(monkeypatch):
 def test_backend_registry(monkeypatch):
     assert {"torch", "cuda_fused", "auto"} <= set(available_backends())
     assert get_backend("auto", device="cpu").name == "torch"
-    assert get_backend("auto", device="cuda").name == "cuda_fused"
-    assert get_backend(None).name == "cuda_fused"   # entry points' default
+    assert get_backend("auto", device="cuda").name == "cuda_tuned"
+    assert get_backend(None).name == "cuda_tuned"   # entry points' default
     inst = CudaFusedBackend()
     assert get_backend(inst) is inst and inst == CudaFusedBackend()
     assert hash(inst) == hash(CudaFusedBackend())

@@ -23,6 +23,7 @@ import repro_torch.stream.engine, repro_torch.data.synthetic
 import repro_torch.serve.engine, repro_torch.launch.serve
 import repro_torch.launch.mesh, repro_torch.core.distributed
 import repro_torch.stream.distributed
+import repro_torch.kernels.autotune, repro_torch.kernels.tune_table
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith(("jax.", "jaxlib"))
              or m == "repro" or m.startswith("repro."))
@@ -60,7 +61,9 @@ def test_no_source_file_imports_jax_or_the_reference():
             "repro_torch/launch/serve.py", "repro_torch/launch/mesh.py",
             "repro_torch/core/distributed.py",
             "repro_torch/stream/distributed.py",
-            "repro_torch/configs/llama3_8b.py"} <= names
+            "repro_torch/configs/llama3_8b.py",
+            "repro_torch/kernels/autotune.py",
+            "repro_torch/kernels/tune_table.py"} <= names
     offenders = [str(f.relative_to(ROOT)) for f in files
                  if _FORBIDDEN.search(f.read_text())]
     assert offenders == []

@@ -161,7 +161,7 @@ def test_cuda_backend_is_registered_and_unfused():
     be = get_backend("cuda")
     assert type(be) is CudaBackend and be.name == "cuda"
     assert isinstance(get_backend("cuda_fused"), CudaBackend)
-    assert get_backend("auto", device="cuda").name == "cuda_fused"
+    assert get_backend("auto", device="cuda").name == "cuda_tuned"
     rng = np.random.default_rng(0)
     x = torch.from_numpy(rng.normal(size=(3, 200, 5)).astype(np.float32))
     w = torch.from_numpy((rng.uniform(size=(3, 200)) > 0.2).astype(np.float32))
