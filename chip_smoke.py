@@ -40,7 +40,15 @@ after:
     512-token requests with a window refresh every 256 tokens; the
     attention quality of ``compress_kv_cache`` + the cluster-attention
     kernel on ``benchmarks/bench_cluster_attn.py``'s keys; and one request
-    through the launcher (``python -m repro_torch.launch.serve``).
+    through the launcher (``python -m repro_torch.launch.serve``);
+  * the other attention decoders: gemma3-12b at full width and depth
+    served the same way (its 40 sliding-window layers on 1024-slot rings,
+    its 8 global layers on the clustered cache), its forward over 4096
+    tokens, and its forward's logits against its decode's through a ring
+    wrap; dbrx-132b at full width with 4 of its 40 layers (one request,
+    and a forward with its capacity drops counted); internvl2-2b's forward
+    and loss over 256 patches; and the kernels at the shapes only these
+    models launch.
 
     python3 chip_smoke.py          # needs one CUDA device (sm_90a) and nvcc
     python3 chip_smoke.py --stream-sweep 6   # only the stream's seed sweep
@@ -454,14 +462,19 @@ def attn_kernels_per_call(inputs, scale) -> list:
     from repro_torch.kernels import cluster_attn
     cluster_attn.cluster_attn_partial(*inputs, scale)
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        cluster_attn.cluster_attn_partial(*inputs, scale)
-        torch.cuda.synchronize()
     names = []
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
-            names.append("cluster_attn_kernel" if "cluster_attn_kernel"
-                         in e.name else e.name)
+    # the profiler has come back with no device record at all for this
+    # short window on some machines; only such an empty trace is taken
+    # again
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            cluster_attn.cluster_attn_partial(*inputs, scale)
+            torch.cuda.synchronize()
+        names = ["cluster_attn_kernel" if "cluster_attn_kernel" in e.name
+                 else e.name for e in prof.events()
+                 if e.device_type == DeviceType.CUDA]
+        if names:
+            break
     return names
 
 
@@ -1781,8 +1794,9 @@ LLOYD_PER_REFRESH = 5  # 4 iterations, then the final pass (max_iters=4)
 # recall@10 at nprobe = 2 on the H100 before the assignment kernel's
 # tensor-core route routed the builds' chunks (PERF.md §6)
 INDEX_RECALL_BEFORE = {"index_200k": 0.983203125, "index_5m": 0.9796875}
-# live centroids summed over the 256 lanes after the two refreshes of a
-# request with the FP32 Lloyd kernel before its tensor-core route (PERF.md)
+# live centroids summed over the 256 lanes after the first and second
+# refreshes of a 512-token request with the FP32 Lloyd kernel before its
+# tensor-core route (PERF.md)
 LIVE_TOTALS_BEFORE = (495, 736)
 
 # The JAX package's relative error of the same clustered attention against
@@ -1804,17 +1818,26 @@ def attn_bound_ms(q, kc, vc, counts) -> tuple[float, str]:
     return bound_ms(b * h * nc * (4 * dh + 4), in_bytes + out_bytes)
 
 
-def layer0_query(model, token: torch.Tensor, pos: int) -> torch.Tensor:
-    """The (B, H, dh) query that layer 0 forms for ``token`` at ``pos``."""
+def layer_query(model, blk, token: torch.Tensor, pos: int) -> torch.Tensor:
+    """The (B, H, dh) query that attention layer ``blk`` forms for the
+    embedded ``token`` at ``pos`` (for layer 0 the query of the served
+    step; for a deeper layer a query of its projections on the embedding)."""
     from repro_torch.models.attention import _qkv
     from repro_torch.models.layers import rms_norm, rope_tables
-    cfg, blk = model.cfg, model.blocks[0]
+    cfg = model.cfg
     x = model.embed[token.long()]
     xn = rms_norm(x, blk.ln1, cfg.norm_eps)
     cos, sin = rope_tables(torch.tensor([pos], device=token.device), cfg.dh,
                            cfg.rope_theta)
     q, _, _ = _qkv(blk.attn, xn, blk.dims, cos, sin)
     return q.reshape(q.shape[0], cfg.n_heads, cfg.dh)
+
+
+def clustered_part(caches: dict) -> dict:
+    """The stacked clustered cache of a model's caches: ``blocks``, or
+    gemma's global layers ``super.global``."""
+    return caches["blocks"] if "blocks" in caches else \
+        caches["super"]["global"]
 
 
 def decode_profile(model, shape, steps: int = 4) -> dict:
@@ -1854,30 +1877,43 @@ def decode_profile(model, shape, steps: int = 4) -> dict:
                              for k, n, ms in top])
 
 
-def serve_long_500k():
-    """Two identical requests through ``ServeEngine`` at full width with
-    the ``long_500k`` clustered cache: per request the prefill and decode
-    times, each refresh's time, live centroids and mass, the peak device
-    memory and the kernels' launches."""
-    from repro_torch.configs import SHAPES, get_config
+def timed_s(fn):
+    """Host seconds of ``fn()`` after a synchronise, ended by one; ->
+    (seconds, result)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0, out
+
+
+def serve_requests(cfg, shape, model, prompt_len: int, gen: int,
+                   n_requests: int, attn_layers: int):
+    """``n_requests`` identical requests of ``prompt_len`` prompt tokens and
+    ``gen`` generated ones through ``ServeEngine`` with the ``shape``'s
+    clustered cache and a refresh every ``RECOMPRESS_EVERY`` tokens: per
+    request the prefill and decode times, each refresh's time, live
+    centroids and mass (and its Lloyd launches' device ms), the peak
+    device memory and the kernels' launches.  Checks each request's
+    launches (the cluster attention once per clustered layer
+    (``attn_layers``) and step, the refresh's Lloyd passes on the route
+    the shape takes), that each refresh's mass equals the tokens folded
+    and leaves gemma's local rings alone, and that the answers agree.
+    -> (requests, answers, the clustered cache after the last refresh,
+    the prompt)."""
     from repro_torch.core.device import derive_seed
-    from repro_torch.models import build_model
+    from repro_torch.kernels import tiles
     from repro_torch.serve import ServeConfig, ServeEngine
     from repro_torch.telemetry import RecordingLogger
 
-    cfg, shape = get_config("llama3-8b"), SHAPES["long_500k"]
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    model = build_model(cfg).init_params(SERVE_SEED)
-    torch.cuda.synchronize()
-    init_s = time.perf_counter() - t0
-    check(model.embed.dtype == torch.bfloat16, "weights are not bf16")
     log = RecordingLogger()
     eng = ServeEngine(cfg, shape, model,
-                      ServeConfig(max_tokens=GEN_TOKENS,
+                      ServeConfig(max_tokens=gen,
                                   recompress_every=RECOMPRESS_EVERY),
                       logger=log)
     check(eng.kind == "clustered", f"cache kind {eng.kind}")
+    route = tiles.lloyd_route(shape.seq_len // shape.cluster_compression,
+                              cfg.dh)
     refreshes, last = [], {}
     maybe_recompress = eng._maybe_recompress
 
@@ -1885,25 +1921,29 @@ def serve_long_500k():
         first = len(rec.events)
         out = maybe_recompress(caches, pos)
         if out is not caches:         # a refresh ran
-            cnt = out["blocks"]["counts"]
+            cnt = clustered_part(out)["counts"]
             live = (cnt > 0).sum(-1)
             lane_mass = cnt.sum(-1)
+            local_kept = ("super" not in out or all(
+                out["super"]["local"][n] is caches["super"]["local"][n]
+                for n in caches["super"]["local"]))
             refreshes.append(dict(
                 pos=pos, live_min=int(live.min()), live_max=int(live.max()),
                 live_total=int(live.sum()), mass=float(lane_mass.sum()),
                 mass_per_lane_ok=bool((lane_mass == pos).all()),
+                local_rings_untouched=local_kept,
                 lloyd_calls=(first, len(rec.events))))
-            last.update(out["blocks"])
+            last.update(clustered_part(out))
         return out
 
     eng._maybe_recompress = recording
-    gen = torch.Generator(device="cuda")
-    gen.manual_seed(derive_seed(SERVE_SEED, 1))
-    prompt = torch.randint(0, cfg.vocab, (1, PROMPT_LEN), generator=gen,
+    gen_ = torch.Generator(device="cuda")
+    gen_.manual_seed(derive_seed(SERVE_SEED, 1))
+    prompt = torch.randint(0, cfg.vocab, (1, prompt_len), generator=gen_,
                            device="cuda")
-    steps = PROMPT_LEN + GEN_TOKENS
+    steps = prompt_len + gen
     requests, answers = [], []
-    for _ in range(2):
+    for _ in range(n_requests):
         log.events.clear()
         refreshes.clear()
         torch.cuda.synchronize()
@@ -1923,31 +1963,51 @@ def serve_long_500k():
         decode_s = sum(e["dur"] for e in log.named("decode_rate"))
         requests.append(dict(
             total_s=total_s, prefill_s=total_s - decode_s,
-            prefill_tokens_per_s=PROMPT_LEN / (total_s - decode_s),
-            decode_s=decode_s, decode_tokens_per_s=GEN_TOKENS / decode_s,
+            prefill_tokens_per_s=prompt_len / (total_s - decode_s),
+            decode_s=decode_s, decode_tokens_per_s=gen / decode_s,
             refresh_s=[e["dur"] for e in log.named("recompress")],
-            refreshes=list(refreshes),
+            refreshes=list(refreshes), lloyd_shapes=[
+                dict(shape=list(k), calls=n) for k, n in rec.shapes.items()],
             peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9,
             launches=launches))
-        check(launches["cluster_attn"] == cfg.n_layers * steps,
+        check(launches["cluster_attn"] == attn_layers * steps,
               f"cluster_attn launched {launches['cluster_attn']} times, "
-              f"not {cfg.n_layers} layers x {steps} steps")
+              f"not {attn_layers} layers x {steps} steps")
         n_refresh = steps // RECOMPRESS_EVERY
+        inner = launches["lloyd_step"] if route == "tc" else 0
         check(launches["lloyd_step"] == n_refresh * LLOYD_PER_REFRESH
-              and launches["lloyd_centroid_update"] == launches["lloyd_step"]
+              and launches["lloyd_centroid_update"] == inner
               and launches["centroid_update"] > 0,
-              f"the refresh skipped a kernel: {launches}")
+              f"the refresh skipped a kernel ({route} route): {launches}")
         check(len(refreshes) == n_refresh
-              and all(r["mass_per_lane_ok"] for r in refreshes),
-              f"refresh mass differs from the tokens folded: {refreshes}")
-    check(np.array_equal(answers[0], answers[1]),
-          "two identical requests gave different answers")
-    check(answers[0].shape == (1, GEN_TOKENS)
+              and all(r["mass_per_lane_ok"] and r["local_rings_untouched"]
+                      for r in refreshes),
+              f"refresh mass differs from the tokens folded, or a refresh "
+              f"touched a local ring: {refreshes}")
+    check(all(np.array_equal(answers[0], a) for a in answers[1:]),
+          "identical requests gave different answers")
+    check(answers[0].shape == (1, gen)
           and int(answers[0].min()) >= 0
           and int(answers[0].max()) < cfg.padded_vocab, "bad tokens")
+    return requests, answers, last, prompt
+
+
+def serve_long_500k():
+    """Two identical requests through ``ServeEngine`` at full width with
+    the ``long_500k`` clustered cache: per request the prefill and decode
+    times, each refresh's time, live centroids and mass, the peak device
+    memory and the kernels' launches."""
+    from repro_torch.configs import SHAPES, get_config
+    from repro_torch.models import build_model
+
+    cfg, shape = get_config("llama3-8b"), SHAPES["long_500k"]
+    init_s, model = timed_s(lambda: build_model(cfg).init_params(SERVE_SEED))
+    check(model.embed.dtype == torch.bfloat16, "weights are not bf16")
+    requests, answers, last, prompt = serve_requests(
+        cfg, shape, model, PROMPT_LEN, GEN_TOKENS, 2, cfg.n_layers)
     profile = decode_profile(model, shape)
     # the served layer-0 cache after the last refresh, with a decode query
-    q = layer0_query(model, prompt[:, -1:], PROMPT_LEN)
+    q = layer_query(model, model.blocks[0], prompt[:, -1:], PROMPT_LEN)
     parity = attn_parity("attn_served_layer0", q, last["kc"][0],
                          last["vc"][0], last["counts"][0], cfg.dh ** -0.5)
     emit("serve_long_500k", arch=cfg.name, shape=shape.name,
@@ -2025,6 +2085,261 @@ def launcher_request():
     emit("launcher", argv="--arch llama3-8b --prompt-len 64 --gen 16 "
          "--batch 2", seconds=seconds, launches=read_launches(),
          tokens=out.tolist())
+
+
+# gemma3-12b (arXiv:2503.19786) at full width and depth, dbrx-132b at full
+# width and 4 of its 40 layers (40 take 264 GB in bf16), internvl2-2b
+# at full width and depth; weights from SERVE_SEED
+GEMMA_PROMPT_LEN = 256        # tokens per request (prefill by decode steps)
+GEMMA_FORWARD_LEN = 4096      # the timed forward's tokens (B = 1)
+GEMMA_PARITY_LEN = 64         # forward against decode, every position
+GEMMA_PARITY_WINDOW = 48      # < GEMMA_PARITY_LEN: the local rings wrap
+# forward against decode in bf16 at full depth: each position's largest
+# logit difference over its largest logit (the two round their bf16
+# products in different GEMMs, and 48 layers carry the rounding)
+# (about 13 units of bf16's 2^-8: the sound run reads at most 0.029 on the
+# H100, the planted fault below 0.068-0.22 at every position from its
+# wrap on)
+GEMMA_FWD_DEC_REL = 0.05
+# positions whose greedy token agrees (a guard against gross faults only:
+# the planted fault still reads 0.953 against the sound run's 0.969)
+GEMMA_FWD_DEC_TOP1 = 0.9
+# the planted fault the check must catch: local layers that decode over a
+# 47-key window against a forward over 48
+GEMMA_FAULT_WINDOW = GEMMA_PARITY_WINDOW - 1
+MOE_LAYERS = 4
+MOE_FORWARD_LEN = 2048
+VLM_TEXT_LEN = 1024           # text tokens after the 256 patches
+
+
+@contextlib.contextmanager
+def moe_drops():
+    """Within ``with``: each MoE dispatch's entries and dropped entries
+    (rank past the capacity), as (entries, dropped tensor) pairs."""
+    from repro_torch.models import moe
+    orig = moe._sorted_slots
+    rows = []
+
+    def recording(expert, e, c):
+        order, slot = orig(expert, e, c)
+        rows.append((expert.numel(), (slot == e * c).sum()))
+        return order, slot
+
+    moe._sorted_slots = recording
+    try:
+        yield rows
+    finally:
+        moe._sorted_slots = orig
+
+
+def serve_gemma_long_500k():
+    """gemma3-12b at full width and depth (8 superblocks of 5 sliding-window
+    layers + 1 global layer), bf16 from ``SERVE_SEED``, with the
+    ``long_500k`` cache: the global layers' 8192 centroids + 1024-slot
+    window, the local layers' 1024-slot rings.  Two identical requests of
+    256 + 32 tokens, a refresh every 256 (the Lloyd kernel's SIMT route
+    at d = 256 over 64 lanes)."""
+    from repro_torch.configs import SHAPES, get_config
+    from repro_torch.kernels import lloyd, tiles
+    from repro_torch.models import build_model
+
+    cfg, shape = get_config("gemma3-12b"), SHAPES["long_500k"]
+    init_s, model = timed_s(lambda: build_model(cfg).init_params(SERVE_SEED))
+    check(model.embed.dtype == torch.bfloat16, "weights are not bf16")
+    n_super = len(model.layers())
+    check(n_super == 8 and len(model.attn_blocks()) == 48,
+          f"gemma3-12b built {n_super} superblocks")
+    nc = shape.seq_len // shape.cluster_compression
+    lanes = n_super * cfg.n_kv_heads
+    route = tiles.lloyd_route(nc, cfg.dh)
+    per_sm, _ = lloyd.simt_occupancy(nc, cfg.dh)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    blocks = tiles.lloyd_blocks(lanes, nc + shape.cluster_window, nc, cfg.dh,
+                                sms, per_sm)
+    check(route == "simt" and blocks == 1,
+          f"the d = 256 refresh takes route {route} with {blocks} blocks a "
+          f"lane, not the SIMT route with one")
+    requests, answers, last, prompt = serve_requests(
+        cfg, shape, model, GEMMA_PROMPT_LEN, GEN_TOKENS, 2, n_super)
+    profile = decode_profile(model, shape)
+    q = layer_query(model, model.layers()[0].glob, prompt[:, -1:],
+                    GEMMA_PROMPT_LEN)
+    parity = attn_parity("attn_served_gemma_global0", q, last["kc"][0],
+                         last["vc"][0], last["counts"][0], cfg.dh ** -0.5)
+    emit("serve_gemma_long_500k", arch=cfg.name, shape=shape.name,
+         n_params=sum(p.numel() for p in model.parameters()),
+         layers=dict(superblocks=n_super, local=cfg.local_per_global,
+                     window=cfg.window),
+         n_centroids=nc, cluster_window=shape.cluster_window,
+         prompt_len=GEMMA_PROMPT_LEN, gen_tokens=GEN_TOKENS,
+         recompress_every=RECOMPRESS_EVERY,
+         refresh_lloyd=dict(route=route, lanes=lanes, blocks_per_lane=blocks,
+                            m=nc + shape.cluster_window, k=nc, d=cfg.dh),
+         init_s=init_s, requests=requests, answer=answers[0][0].tolist(),
+         identical_answers=True, decode_profile=profile,
+         served_cache_parity=parity)
+    return requests, parity
+
+
+def gemma_forward():
+    """The chunked forward of gemma3-12b at full width and depth:
+    ``forward(last_only=True)`` over 4096 tokens (B = 1), timed; then, on a
+    copy of the config with a 48-token window (the local rings wrap within
+    64 tokens; the weights are the same draws), the forward's logits at
+    every position of a 64-token prompt against token-by-token
+    ``decode_step`` with the full cache, and the same check on a planted
+    ring fault (local layers decoding over a 47-key window), which must
+    fail it."""
+    from repro_torch.configs import ShapeConfig, get_config
+    from repro_torch.core.device import derive_seed
+    from repro_torch.models import build_model
+
+    cfg = get_config("gemma3-12b")
+    model = build_model(cfg).init_params(SERVE_SEED)
+    g = torch.Generator(device="cuda").manual_seed(derive_seed(SERVE_SEED, 2))
+    toks = torch.randint(0, cfg.vocab, (1, GEMMA_FORWARD_LEN), generator=g,
+                         device="cuda")
+    model.forward({"tokens": toks[:, :512]}, last_only=True)   # warm-up
+    torch.cuda.reset_peak_memory_stats()
+    fwd_s, (last, aux) = timed_s(
+        lambda: model.forward({"tokens": toks}, last_only=True))
+    check(last.shape == (1, 1, cfg.padded_vocab)
+          and bool(torch.isfinite(last).all()) and float(aux) == 0.0,
+          "bad forward logits")
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    del model
+    torch.cuda.empty_cache()
+
+    cfg48 = dataclasses.replace(cfg, window=GEMMA_PARITY_WINDOW)
+    model = build_model(cfg48).init_params(SERVE_SEED)
+    p = toks[:, :GEMMA_PARITY_LEN]
+    fwd, _ = model.forward({"tokens": p})
+
+    def against_forward(wrap: int) -> dict:
+        """Token-by-token decode with the full cache against ``fwd``: each
+        position's largest logit difference over its largest logit, and
+        the share of positions whose greedy token agrees."""
+        caches = model.init_caches(1, ShapeConfig(
+            "gemma_parity", GEMMA_PARITY_LEN, 1, "decode"), "full")
+        dec = torch.cat([model.decode_step(p[:, t:t + 1], caches, t)[0]
+                         for t in range(GEMMA_PARITY_LEN)], 1)
+        slot_pos = caches["super"]["local"]["slot_pos"]
+        check(int(slot_pos.min()) == GEMMA_PARITY_LEN - wrap
+              and int(slot_pos.max()) == GEMMA_PARITY_LEN - 1,
+              "the local rings did not wrap")
+        rel = ((dec - fwd).abs().amax(-1) / fwd.abs().amax(-1))[0].cpu()
+        top1 = float((dec.argmax(-1) == fwd.argmax(-1)).float().mean())
+        return dict(max_rel_before_wrap=float(rel[:wrap].max()),
+                    max_rel_after_wrap=float(rel[wrap:].max()),
+                    rel_by_position=[round(float(r), 6) for r in rel],
+                    top1_agreement=top1)
+
+    def passes(r: dict) -> bool:
+        return (max(r["max_rel_before_wrap"], r["max_rel_after_wrap"])
+                <= GEMMA_FWD_DEC_REL
+                and r["top1_agreement"] >= GEMMA_FWD_DEC_TOP1)
+
+    row = against_forward(GEMMA_PARITY_WINDOW)
+    check(passes(row), f"gemma forward against decode: {row}")
+    # the same check on a planted ring fault: the decode's local layers keep
+    # one key fewer than the forward's, so from the wrap on each local
+    # layer loses its oldest key; the check must fail on it
+    for sb in model.layers():
+        for blk in sb.local:
+            blk.window = GEMMA_FAULT_WINDOW
+    fault = against_forward(GEMMA_FAULT_WINDOW)
+    check(not passes(fault),
+          f"gemma forward against decode misses a lost ring key: {fault}")
+    row["planted_fault"] = dict(window=GEMMA_FAULT_WINDOW, **fault)
+    del model
+    torch.cuda.empty_cache()
+    emit("gemma_forward", arch=cfg.name, tokens=GEMMA_FORWARD_LEN,
+         forward_s=fwd_s, tokens_per_s=GEMMA_FORWARD_LEN / fwd_s,
+         peak_memory_gb=peak_gb, parity_window=GEMMA_PARITY_WINDOW,
+         parity_len=GEMMA_PARITY_LEN, forward_vs_decode=row)
+    return row
+
+
+def serve_moe_long_500k():
+    """dbrx-132b at full width with 4 of its 40 layers (16 experts, top 4),
+    bf16 from ``SERVE_SEED``: one ``long_500k`` request of 256 + 32 tokens
+    with a refresh every 256 (the cluster attention at 6 query heads a kv
+    head; the refresh on the tensor-core route, 32 lanes), no decode
+    entry dropped; then ``forward`` over 2048 tokens with the capacity
+    drops counted."""
+    from repro_torch.configs import SHAPES, get_config
+    from repro_torch.core.device import derive_seed
+    from repro_torch.kernels import tiles
+    from repro_torch.models import build_model
+
+    cfg = dataclasses.replace(get_config("dbrx-132b"), n_layers=MOE_LAYERS)
+    shape = SHAPES["long_500k"]
+    init_s, model = timed_s(lambda: build_model(cfg).init_params(SERVE_SEED))
+    nc = shape.seq_len // shape.cluster_compression
+    check(tiles.lloyd_route(nc, cfg.dh) == "tc", "dbrx refresh route")
+    with moe_drops() as decode_rows:
+        requests, answers, last, _ = serve_requests(
+            cfg, shape, model, GEMMA_PROMPT_LEN, GEN_TOKENS, 1, cfg.n_layers)
+    decode_dropped = sum(int(n) for _, n in decode_rows)
+    check(decode_dropped == 0, f"decode dropped {decode_dropped} entries")
+    g = torch.Generator(device="cuda").manual_seed(derive_seed(SERVE_SEED, 3))
+    toks = torch.randint(0, cfg.vocab, (1, MOE_FORWARD_LEN), generator=g,
+                         device="cuda")
+    model.forward({"tokens": toks[:, :256]}, last_only=True)    # warm-up
+    with moe_drops() as rows:
+        fwd_s, (logits, aux) = timed_s(
+            lambda: model.forward({"tokens": toks}, last_only=True))
+    check(len(rows) == cfg.n_layers and bool(torch.isfinite(logits).all())
+          and np.isfinite(float(aux)) and float(aux) > 0,
+          "bad MoE forward")
+    drops = [dict(entries=n, dropped=int(d)) for n, d in rows]
+    emit("serve_moe_long_500k", arch=cfg.name, n_layers=cfg.n_layers,
+         n_params=sum(p.numel() for p in model.parameters()),
+         experts=cfg.n_experts, top_k=cfg.experts_per_token,
+         init_s=init_s, requests=requests, answer=answers[0][0].tolist(),
+         decode_dropped=decode_dropped, forward_tokens=MOE_FORWARD_LEN,
+         forward_s=fwd_s, forward_tokens_per_s=MOE_FORWARD_LEN / fwd_s,
+         aux=float(aux), forward_drops=drops,
+         dropped_share=sum(r["dropped"] for r in drops)
+         / sum(r["entries"] for r in drops))
+    return requests
+
+
+def vlm_forward():
+    """internvl2-2b at full width and depth, bf16 from ``SERVE_SEED``:
+    ``forward`` and ``loss`` over 256 patch embeddings and 1024 text
+    tokens (B = 2); the loss reads the text positions only."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.device import derive_seed
+    from repro_torch.models import build_model
+    from repro_torch.models.layers import cross_entropy
+
+    cfg = get_config("internvl2-2b")
+    model = build_model(cfg).init_params(SERVE_SEED)
+    g = torch.Generator(device="cuda").manual_seed(derive_seed(SERVE_SEED, 4))
+    batch = {
+        "tokens": torch.randint(0, cfg.vocab, (2, VLM_TEXT_LEN), generator=g,
+                                device="cuda"),
+        "labels": torch.randint(0, cfg.vocab, (2, VLM_TEXT_LEN), generator=g,
+                                device="cuda"),
+        "patches": torch.randn((2, cfg.n_patches, cfg.d_model), generator=g,
+                               device="cuda").bfloat16()}
+    model.forward(batch)                                         # warm-up
+    fwd_s, (logits, aux) = timed_s(lambda: model.forward(batch))
+    loss_s, loss = timed_s(lambda: model.loss(batch))
+    text = cross_entropy(logits[:, cfg.n_patches:], batch["labels"])
+    s_all = cfg.n_patches + VLM_TEXT_LEN
+    check(logits.shape == (2, s_all, cfg.padded_vocab)
+          and bool(torch.isfinite(logits).all()) and float(aux) == 0.0,
+          "bad VLM logits")
+    check(abs(float(loss) - float(text)) <= 1e-4 * abs(float(text)),
+          f"the loss {float(loss)} is not the text positions' "
+          f"{float(text)}")
+    emit("vlm_forward", arch=cfg.name,
+         n_params=sum(p.numel() for p in model.parameters()),
+         patches=cfg.n_patches, text_tokens=VLM_TEXT_LEN, batch=2,
+         forward_s=fwd_s, tokens_per_s=2 * s_all / fwd_s, loss_s=loss_s,
+         loss=float(loss), log_vocab=float(np.log(cfg.vocab)))
 
 
 def main() -> int:
@@ -2606,6 +2921,40 @@ def main() -> int:
     launcher_request()
     torch.cuda.empty_cache()
 
+    # -- 11a. the other attention decoders: gemma3-12b serving and forward,
+    # dbrx-132b (4 layers) serving and forward, internvl2-2b forward/loss,
+    # then the kernels at the shapes only these paths launch
+    t_models = time.perf_counter()
+    gemma_requests, gemma_parity = serve_gemma_long_500k()
+    cases.append(gemma_parity)
+    gemma_launches = gemma_requests[-1]["launches"]
+    torch.cuda.empty_cache()
+    gemma_forward()
+    moe_launches = serve_moe_long_500k()[-1]["launches"]
+    torch.cuda.empty_cache()
+    vlm_forward()
+    torch.cuda.empty_cache()
+    # the cluster attention at gemma's dh = 256 (g = 2) and dbrx's g = 6;
+    # the gemma refresh's Lloyd pass (SIMT route, d = 256) and value update
+    # on 4 of its 64 lanes (the plain version's (B, M, K) distances at 64
+    # lanes take 19 GB)
+    gemma_attn = attn_case(1, 16, 8, 8192, 256, dtype=torch.bfloat16,
+                           seed=33)
+    dbrx_attn = attn_case(1, 48, 8, 8192, 128, dtype=torch.bfloat16,
+                          seed=34)
+    gemma_refresh = _case(4, 9216, 8192, 256, seed=35)
+    check(tiles.lloyd_route(8192, 256) == "simt", "gemma refresh route")
+    model_cases = [
+        attn_parity("attn_gemma_dh256_bf16", *gemma_attn, 256 ** -0.5),
+        attn_parity("attn_dbrx_g6_bf16", *dbrx_attn, 128 ** -0.5),
+        lloyd_parity("lloyd_gemma_refresh_4_lanes", *gemma_refresh,
+                     cancel=dot_rounding_bound(gemma_refresh[0],
+                                               gemma_refresh[2])),
+        centroid_parity("centroid_gemma_refresh_4_lanes", *gemma_refresh)]
+    cases += model_cases
+    emit("models_parity", cases=model_cases,
+         seconds=time.perf_counter() - t_models)
+
     # -- 12. kernel times at the paths' shapes ------------------------------
     # ms / plain_ms / library_ms: device time per call, with the inputs in
     # HBM (rotated copies); call_ms: the kernel's time per call with its
@@ -2622,11 +2971,12 @@ def main() -> int:
         return entry
 
     def timed(shape_name, inputs, kernel, plain, bound, library=None,
-              **dims):
+              iters=20, **dims):
         b_ms, by = bound
         return dict(
-            shape=shape_name, **dims, ms=device_ms(rotating(kernel, *inputs)),
-            call_ms=call_ms(rotating(kernel, *inputs)),
+            shape=shape_name, **dims,
+            ms=device_ms(rotating(kernel, *inputs), iters=iters),
+            call_ms=call_ms(rotating(kernel, *inputs), iters=iters),
             plain_ms=device_ms(rotating(plain, *inputs), iters=3),
             library_ms=(None if library is None
                         else device_ms(rotating(library[0], *library[1]))),
@@ -2654,7 +3004,7 @@ def main() -> int:
             entry["tc_bound_ms"] = tc_bound_ms(xw, kk)
         return entry
 
-    def lloyd_entry(shape_name, xw, wl, cl, routes=False):
+    def lloyd_entry(shape_name, xw, wl, cl, routes=False, iters=20):
         bb, mm, dd = xw.shape
         kk = cl.shape[1]
         n_bytes = lloyd_bytes(xw, wl, cl)
@@ -2662,7 +3012,8 @@ def main() -> int:
         entry = lloyd_bounds(
             timed(shape_name, (xw, wl, cl), lloyd.lloyd_step,
                   ref.lloyd_step_ref, lloyd_bound_ms(xw, kk, n_bytes, route),
-                  b=bb, m=mm, k=kk, d=dd, route=route), xw, cl, n_bytes)
+                  iters=iters, b=bb, m=mm, k=kk, d=dd, route=route), xw, cl,
+            n_bytes)
         if routes:   # both routes on the same inputs
             entry["route_ms"] = {
                 r: device_ms(rotating(
@@ -2783,26 +3134,79 @@ def main() -> int:
     c_refresh256 = centroid_ids_entry("refresh values, 256 lanes",
                                       *refresh256, 8192)
     del refresh256
-    aq, akc, avc, acnt = serve_attn
-    mask = torch.where(acnt > 0, acnt.clamp_min(1e-9).log(), ref.NEG)
-    mask = mask.repeat_interleave(4, 1)[:, :, None, :].to(torch.bfloat16)
+    # the gemma refresh (SIMT route, d = 256): 4 lanes against the plain
+    # version (3 timed calls: over a second each); all 64 lanes the served
+    # launches' own device times (CUDA events around each of the two
+    # requests' five, 10 s apiece); its value update; the dbrx refresh
+    # (tensor cores, 32 lanes of llama's shape) the kernel alone
+    l_gemma4 = lloyd_entry("gemma refresh, 4 of 64 lanes", *gemma_refresh,
+                           iters=3)
+    c_gemma4 = centroid_entry("gemma refresh values, 4 lanes",
+                              *gemma_refresh)
 
-    def sdpa(q_, k_, v_, mask_):
-        return torch.nn.functional.scaled_dot_product_attention(
-            q_[:, :, None], k_, v_, attn_mask=mask_, scale=scale,
-            enable_gqa=True)
+    def lloyd_kernel_only(name, lanes, inputs, served_ms=None):
+        xk, wk, ck = (t.repeat(lanes // t.shape[0], *[1] * (t.dim() - 1))
+                      for t in inputs)
+        bb, mm, dd = xk.shape
+        kk = ck.shape[1]
+        ms = (float(np.median(served_ms)) if served_ms else
+              device_ms(lambda: lloyd.lloyd_step(xk, wk, ck), iters=3))
+        entry = lloyd_bounds(dict(
+            shape=name, b=bb, m=mm, k=kk, d=dd,
+            route=tiles.lloyd_route(kk, dd), ms=ms,
+            plain_ms=None, library_ms=None), xk, ck, lloyd_bytes(xk, wk, ck))
+        if served_ms:
+            entry["served_launches_ms"] = served_ms
+        if entry["route"] == "simt":
+            per_sm, _ = lloyd.simt_occupancy(kk, dd)
+            entry["blocks_per_lane"] = tiles.lloyd_blocks(bb, mm, kk, dd,
+                                                          sms, per_sm)
+            # one block a lane: each SM that holds a block streams its
+            # lane's M x K x d work alone
+            entry["one_wave_floor_ms"] = pair_bound_ms(
+                1, mm, kk, dd, 0, 0)[0] * sms * bb / min(bb, sms)
+        return entry
 
-    sdpa_err = float((sdpa(aq, akc, avc, mask)[:, :, 0].float()
-                      - cluster_attn.cluster_attn_decode(aq, akc, avc, acnt,
-                                                         scale)
+    l_gemma = lloyd_kernel_only(
+        "gemma refresh, 64 lanes", 64, gemma_refresh,
+        served_ms=[ms for r in gemma_requests for f in r["refreshes"]
+                   for ms in f["lloyd_device_ms"]])
+    l_dbrx = lloyd_kernel_only("dbrx refresh, 32 lanes", 32, refresh)
+    del gemma_refresh
+    def sdpa_library(inputs, sc):
+        """SDPA over the same centroids with the log(count) bias as a float
+        mask (the library yardstick) -> (callable, its inputs)."""
+        q_, k_, v_, c_ = inputs
+        m_ = torch.where(c_ > 0, c_.clamp_min(1e-9).log(), ref.NEG)
+        m_ = m_.repeat_interleave(q_.shape[1] // k_.shape[1], 1)
+        m_ = m_[:, :, None, :].to(q_.dtype)
+
+        def lib(qq, kk, vv, mm):
+            return torch.nn.functional.scaled_dot_product_attention(
+                qq[:, :, None], kk, vv, attn_mask=mm, scale=sc,
+                enable_gqa=True)
+
+        return lib, (q_, k_, v_, m_)
+
+    def attn_entry(name, inputs, sc, **dims):
+        return timed(name, inputs,
+                     lambda *t: cluster_attn.cluster_attn_partial(*t, sc),
+                     lambda *t: ref.cluster_attn_decode_ref(*t, sc),
+                     attn_bound_ms(*inputs),
+                     library=sdpa_library(inputs, sc), **dims)
+
+    sdpa, sdpa_in = sdpa_library(serve_attn, scale)
+    sdpa_err = float((sdpa(*sdpa_in)[:, :, 0].float()
+                      - cluster_attn.cluster_attn_decode(*serve_attn, scale)
                       ).abs().amax())
     check(sdpa_err <= 2e-2, f"the SDPA yardstick disagrees: {sdpa_err}")
-    attn_500k = timed(
-        "long_500k (bf16)", serve_attn,
-        lambda *t: cluster_attn.cluster_attn_partial(*t, scale),
-        lambda *t: ref.cluster_attn_decode_ref(*t, scale),
-        attn_bound_ms(*serve_attn), library=(sdpa, (aq, akc, avc, mask)),
-        b=1, h=32, hkv=8, nc=8192, dh=128, sdpa_max_abs_diff=sdpa_err)
+    attn_500k = attn_entry("long_500k (bf16)", serve_attn, scale, b=1, h=32,
+                           hkv=8, nc=8192, dh=128, sdpa_max_abs_diff=sdpa_err)
+    attn_gemma = attn_entry("gemma3 long_500k, dh=256 (bf16)", gemma_attn,
+                            256 ** -0.5, b=1, h=16, hkv=8, nc=8192, dh=256)
+    attn_dbrx = attn_entry("dbrx long_500k, g=6 (bf16)", dbrx_attn,
+                           128 ** -0.5, b=1, h=48, hkv=8, nc=8192, dh=128)
+    del gemma_attn, dbrx_attn
     ragged = attn_case(4, 32, 8, 1000, 128, seed=16, dtype=torch.bfloat16)
     attn_ragged = timed(
         "ragged (bf16)", ragged,
@@ -2875,6 +3279,8 @@ def main() -> int:
                  "index_200k": index_launches["lloyd_step"],
                  "index_5m": launches5["lloyd_step"],
                  "serve_long_500k": serve_launches["lloyd_step"],
+                 "serve_gemma_long_500k": gemma_launches["lloyd_step"],
+                 "serve_moe_long_500k": moe_launches["lloyd_step"],
                  "oocore_5m": oo["launches"]["lloyd_step"],
                  "oocore_5m_flush": oo["flush_launches"]["lloyd_step"],
                  "stream_5m": st5["launches"]["lloyd_step"],
@@ -2885,7 +3291,8 @@ def main() -> int:
              bound_ms=l_local["bound_ms"], bound_by=l_local["bound_by"],
              library_ms=None,
              shapes=[l_local, l_merge, l_pq, l_refresh4, l_refresh,
-                     l_refresh_bf16, *l_index, *l_oocore, *l_mesh]),
+                     l_refresh_bf16, l_gemma4, l_gemma, l_dbrx, *l_index,
+                     *l_oocore, *l_mesh]),
         dict(name="assign_argmin", route="cuda",
              source="src/repro_torch/kernels/csrc/assign.cu",
              replaces="src/repro/kernels/assign.py:87",
@@ -2921,6 +3328,10 @@ def main() -> int:
                  # inside the Lloyd kernel's tensor-core route
                  "serve_long_500k_lloyd": serve_launches[
                      "lloyd_centroid_update"],
+                 "serve_gemma_long_500k": gemma_launches["centroid_update"],
+                 "serve_moe_long_500k": moe_launches["centroid_update"],
+                 "serve_moe_long_500k_lloyd": moe_launches[
+                     "lloyd_centroid_update"],
                  "index_200k_lloyd": index_launches["lloyd_centroid_update"],
                  "index_5m_lloyd": launches5["lloyd_centroid_update"],
                  "oocore_5m_cuda": oo["cuda_launches"]["centroid_update"],
@@ -2929,7 +3340,7 @@ def main() -> int:
                     mesh_launches("lloyd_centroid_update").items()}},
              library_ms=c_local["library_ms"],
              shapes=[c_local, c_merge, c_pq, c_refresh, c_refresh256,
-                     c_oocore, *c_mesh]),
+                     c_gemma4, c_oocore, *c_mesh]),
         dict(name="adc_scan", route="cuda",
              source="src/repro_torch/kernels/csrc/adc_scan.cu",
              replaces="src/repro/kernels/scan.py:105",
@@ -2945,13 +3356,18 @@ def main() -> int:
              source="src/repro_torch/kernels/csrc/cluster_attn.cu",
              replaces="src/repro/kernels/cluster_attn.py:85",
              launches=serve_launches["cluster_attn"],
+             launches_by_path={
+                 "serve_long_500k": serve_launches["cluster_attn"],
+                 "serve_gemma_long_500k": gemma_launches["cluster_attn"],
+                 "serve_moe_long_500k": moe_launches["cluster_attn"]},
              max_abs_err=max(errs[n]["max_abs_err"] for n in (
                  "attn_long_500k_bf16", "attn_ragged_bf16",
-                 "attn_served_layer0")),
+                 "attn_served_layer0", "attn_gemma_dh256_bf16",
+                 "attn_dbrx_g6_bf16", "attn_served_gemma_global0")),
              ms=attn_500k["ms"], plain_ms=attn_500k["plain_ms"],
              bound_ms=attn_500k["bound_ms"], bound_by=attn_500k["bound_by"],
              library_ms=attn_500k["library_ms"],
-             shapes=[attn_500k, attn_ragged]),
+             shapes=[attn_500k, attn_gemma, attn_dbrx, attn_ragged]),
     ]
     emit("done", seconds=time.perf_counter() - t_all)
     print(smi)

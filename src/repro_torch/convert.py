@@ -120,35 +120,54 @@ def stream_state_from_jax(state, seed: int, *,
                        step=t(state.step, torch.int32), key=int(seed))
 
 
-_BLOCK_KEYS = ("ln1", "ln2", "w1", "w3", "w2")
-_ATTN_KEYS = ("wq", "wk", "wv", "wo")
+def _leaves(tree, prefix=()):
+    """(path, array) for every array of a nested parameter dict."""
+    for name, sub in tree.items():
+        if isinstance(sub, Mapping):
+            yield from _leaves(sub, prefix + (name,))
+        else:
+            yield prefix + (name,), sub
 
 
 def lm_params_from_jax(cfg, params: Mapping[str, Any]
                        ) -> dict[str, torch.Tensor]:
-    """The state dict of the port's ``DecoderLM`` for ``cfg`` (a dense
-    architecture) from the JAX package's ``DecoderLM`` parameter tree given
-    as numpy arrays: ``embed`` (Vp, d), ``final_ln`` (d,), ``head`` (d, Vp)
-    unless the embeddings are tied, and ``g_blocks`` stacked over the
-    layers (``ln1``, ``attn`` {``wq``, ``wk``, ``wv``, ``wo``}, ``ln2``,
-    ``w1``, ``w3``, ``w2``).  CPU tensors in ``cfg.dtype``; load them with
+    """The state dict of the port's ``DecoderLM`` for ``cfg`` from the JAX
+    package's ``DecoderLM`` parameter tree given as numpy arrays:
+    ``embed`` (Vp, d), ``final_ln`` (d,), ``head`` (d, Vp) unless the
+    embeddings are tied, ``patch_proj`` (d, d) for a VLM, and one stacked
+    group: ``g_blocks``, each leaf (L, ...) (``ln1``, ``attn`` {``wq``,
+    ``wk``, ``wv``, ``wo``}, ``ln2``, and ``w1``/``w3``/``w2`` or ``moe``
+    {``router``, ``we1``, ``we3``, ``we2``[, ``w1``, ``w3``, ``w2``]}), or
+    gemma's ``g_super`` with a ``local`` stack (n_super, lpg, ...) and a
+    ``global`` stack (n_super, ...).  CPU tensors in ``cfg.dtype`` (the
+    router in f32, as the reference keeps it); load them with
     ``model.load_state_dict(...)``."""
     dtype = getattr(torch, cfg.dtype)
 
-    def t(a):
-        return torch.as_tensor(np.array(a, dtype=np.float32)).to(dtype)
+    def t(a, name=""):
+        out = torch.as_tensor(np.array(a, dtype=np.float32))
+        return out if name == "router" else out.to(dtype)
 
-    state = {"embed": t(params["embed"]), "final_ln": t(params["final_ln"])}
-    if not cfg.tie_embeddings:
-        state["head"] = t(params["head"])
-    blocks = params["g_blocks"]
-    for name in _BLOCK_KEYS + _ATTN_KEYS:
-        stacked = (blocks["attn"] if name in _ATTN_KEYS else blocks)[name]
-        if len(stacked) != cfg.n_layers:
-            raise ValueError(f"lm_params_from_jax: g_blocks {name} stacks "
-                             f"{len(stacked)} layers, {cfg.name} has "
-                             f"{cfg.n_layers}")
-        key = f"attn.{name}" if name in _ATTN_KEYS else name
-        for i in range(cfg.n_layers):
-            state[f"blocks.{i}.{key}"] = t(stacked[i])
+    state = {name: t(params[name]) for name in
+             ("embed", "final_ln", "head", "patch_proj") if name in params}
+    lpg = cfg.local_per_global
+    group = "super" if lpg else "blocks"
+    n_super = cfg.n_layers // (lpg + 1)
+    for path, arr in _leaves(params[f"g_{group}"]):
+        arr = np.asarray(arr)
+        # the stacking axes and the port's name for each stacked index:
+        # blocks.{i}, super.{i}.local.{j} or super.{i}.global
+        if not lpg:
+            want, name = (cfg.n_layers,), (lambda i: f"{i[0]}")
+        elif path[0] == "local":
+            want, name = (n_super, lpg), (lambda i: f"{i[0]}.local.{i[1]}")
+        else:
+            want, name = (n_super,), (lambda i: f"{i[0]}.global")
+        rest = ".".join(path[1:] if lpg else path)
+        if arr.shape[:len(want)] != want:
+            raise ValueError(f"lm_params_from_jax: g_{group} "
+                             f"{'.'.join(path)} stacks {arr.shape[:len(want)]}"
+                             f" layers, {cfg.name} has {want}")
+        for idx in np.ndindex(*want):
+            state[f"{group}.{name(idx)}.{rest}"] = t(arr[idx], path[-1])
     return state

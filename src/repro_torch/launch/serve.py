@@ -4,8 +4,10 @@ model with weights drawn from a seed.
   PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3-8b \
       --prompt-len 64 --gen 16 --batch 2
 
-Runs on the CUDA device.  The shape is a decode shape of ``prompt-len +
-gen`` tokens with the full KV cache.  ``--ckpt-dir`` is refused: the
+Runs on the CUDA device, for any architecture ``build_model`` builds
+(dense, gemma3's local/global, MoE, the VLM backbone on text prompts).
+The shape is a decode shape of ``prompt-len + gen`` tokens with the full
+KV cache.  ``--ckpt-dir`` is refused: the
 checkpoint module is not ported yet (ROADMAP §1).
 """
 from __future__ import annotations

@@ -1,20 +1,29 @@
-"""Models of the PyTorch port: the dense decoder-only LM and its decode
-attention over a full or a clustered KV cache.
+"""Models of the PyTorch port: the decoder-only LMs built from the
+attention block (dense, gemma's local/global pattern, MoE, the VLM
+backbone), their chunked forward and loss, and decode over a full, a
+sliding-window or a clustered KV cache.
 
-  layers.py     dot, rms_norm, swiglu, RoPE, initialisers
-  attention.py  full-cache and clustered-cache decode, compress_kv_cache
-  lm.py         AttnBlock, DecoderLM (init_params, init_caches,
-                decode_step, head_out)
+  layers.py     dot, rms_norm, swiglu, cross_entropy, RoPE, initialisers
+  attention.py  chunked attention (``models.attention.attention``: the
+                package's ``attention`` is the module); full-cache,
+                window and clustered decode; compress_kv_cache
+  moe.py        routed experts with sort/gather dispatch (moe_ffn,
+                moe_ffn_decode)
+  lm.py         AttnBlock, GemmaSuper, DecoderLM (init_params, forward,
+                loss, init_caches, decode_step, head_out)
   registry.py   build_model, cache_kind
 """
 from .attention import (AttnDims, attention_decode,
-                        attention_decode_clustered, compress_kv_cache,
-                        init_clustered_cache, init_kv_cache,
-                        window_valid_mask)
-from .lm import AttnBlock, DecoderLM
+                        attention_decode_clustered, attention_decode_window,
+                        compress_kv_cache, init_clustered_cache,
+                        init_kv_cache, init_window_cache, window_valid_mask)
+from .lm import AttnBlock, DecoderLM, GemmaSuper
+from .moe import moe_ffn, moe_ffn_decode
 from .registry import build_model, cache_kind
 
-__all__ = ["AttnDims", "AttnBlock", "DecoderLM", "attention_decode",
-           "attention_decode_clustered", "build_model", "cache_kind",
+__all__ = ["AttnDims", "AttnBlock", "DecoderLM", "GemmaSuper",
+           "attention_decode", "attention_decode_clustered",
+           "attention_decode_window", "build_model", "cache_kind",
            "compress_kv_cache", "init_clustered_cache", "init_kv_cache",
+           "init_window_cache", "moe_ffn", "moe_ffn_decode",
            "window_valid_mask"]

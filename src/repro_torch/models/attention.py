@@ -1,16 +1,15 @@
-"""GQA decode attention of the port (the counterpart of the decode half of
-:mod:`repro.models.attention`): a full KV cache, and the paper's clustered
-KV cache (k-means centroids of the old keys and values beside an exact
-recent window), with the offline compression that builds the centroids.
+"""GQA attention of the port (the counterpart of
+:mod:`repro.models.attention`): the chunked training/prefill ``attention``
+(causal, sliding-window or cross), and decode against a full KV cache, a
+sliding-window ring, or the paper's clustered KV cache (k-means centroids
+of the old keys and values beside an exact recent window), with the
+offline compression that builds the centroids.
 
-Caches keep the JAX package's layouts, (B, kv, slots, dh) per layer, and
-are updated **in place**: a decode step writes its token's key and value
-into the layer's slot instead of returning a new cache, which saves a copy
-of the cache per step.  The functions still return the cache, as the
-reference's do.
-
-Still to port (ROADMAP): the chunked training/prefill ``attention`` and the
-sliding-window decode.
+Caches keep the JAX package's layouts, (B, kv, slots, dh) per layer behind
+the stacking axes of their group, and are updated **in place**: a decode
+step writes its token's key and value into the layer's slot instead of
+returning a new cache, which saves a copy of the cache per step.  The
+functions still return the cache, as the reference's do.
 """
 from __future__ import annotations
 
@@ -29,6 +28,12 @@ class AttnDims(NamedTuple):
     dh: int
 
 
+def _lead(n_layers) -> tuple:
+    """A cache's stacking axes: ``n_layers`` as an int or a tuple (gemma's
+    (n_super, local_per_global))."""
+    return (n_layers,) if isinstance(n_layers, int) else tuple(n_layers)
+
+
 def _qkv(p: Mapping[str, torch.Tensor], x: torch.Tensor, dims: AttnDims,
          cos: torch.Tensor, sin: torch.Tensor, use_rope: bool = True):
     b, s = x.shape[:2]
@@ -43,13 +48,67 @@ def _qkv(p: Mapping[str, torch.Tensor], x: torch.Tensor, dims: AttnDims,
 
 
 # ---------------------------------------------------------------------------
+# Training / prefill: chunked full (or sliding-window) attention
+# ---------------------------------------------------------------------------
+
+def _largest_divisor(s: int, chunk: int) -> int:
+    """The largest divisor of ``s`` that is at most ``chunk``."""
+    c = min(chunk, s)
+    while s % c:
+        c -= 1
+    return c
+
+
+def attention(p, x: torch.Tensor, dims: AttnDims, ctx: dict, *,
+              window: int = 0, causal: bool = True, kv_override=None,
+              use_rope: bool = True) -> torch.Tensor:
+    """x: (B, S, d) -> (B, S, d).  ``kv_override=(k, v)``, each (B, Skv, kv,
+    dh), attends to those keys and values instead of x's (cross
+    attention); ``window > 0`` masks keys ``window`` or more positions
+    back.  The reference's arithmetic: logits in f32 from the activations'
+    type, masked entries at ``NEG``, softmax in f32, the probabilities cast
+    to the activations' type before the value product.  Queries go in
+    chunks of ``ctx["q_chunk"]`` (the largest divisor of S at most it), so
+    one (chunk, Skv) score block is alive at a time; GQA is a grouped
+    product, each kv head serving its ``h // kv`` query heads."""
+    b, s, _ = x.shape
+    h, kv, dh = dims
+    g = h // kv
+    scale = dh ** -0.5
+    cos, sin = ctx["rope"]
+    q, k, v = _qkv(p, x, dims, cos, sin, use_rope)
+    if kv_override is not None:
+        k, v = kv_override
+    skv = k.shape[1]
+    chunk = _largest_divisor(s, ctx.get("q_chunk", 2048))
+    kf = k.float()
+    vf = v.float()
+    js = torch.arange(skv, device=x.device)
+    out = torch.empty((b, s, h * dh), dtype=x.dtype, device=x.device)
+    for qs in range(0, s, chunk):
+        qc = q[:, qs:qs + chunk].reshape(b, chunk, kv, g, dh).float()
+        logits = torch.einsum("bqkgd,bskd->bkgqs", qc, kf) * scale
+        if causal:
+            iq = qs + torch.arange(chunk, device=x.device)
+            m = js[None, :] <= iq[:, None]
+            if window:
+                m &= (iq[:, None] - js[None, :]) < window
+            logits = torch.where(m, logits, NEG)
+        probs = torch.softmax(logits, dim=-1).to(x.dtype).float()
+        del logits
+        oc = torch.einsum("bkgqs,bskd->bqkgd", probs, vf)
+        out[:, qs:qs + chunk] = oc.reshape(b, chunk, h * dh).to(x.dtype)
+    return dot(out, p["wo"])
+
+
+# ---------------------------------------------------------------------------
 # Decode with a full KV cache
 # ---------------------------------------------------------------------------
 
-def init_kv_cache(n_layers: int, b: int, capacity: int, dims: AttnDims,
+def init_kv_cache(n_layers, b: int, capacity: int, dims: AttnDims,
                   dtype: torch.dtype, device) -> dict:
     kv, dh = dims.n_kv, dims.dh
-    shape = (n_layers, b, kv, capacity, dh)
+    shape = _lead(n_layers) + (b, kv, capacity, dh)
     return {"k": torch.zeros(shape, dtype=dtype, device=device),
             "v": torch.zeros(shape, dtype=dtype, device=device)}
 
@@ -86,34 +145,67 @@ def _cache_attend(q: torch.Tensor, kc: torch.Tensor, vc: torch.Tensor,
 
 
 # ---------------------------------------------------------------------------
-# Clustered-KV decode — the paper's technique as an attention operand
+# Sliding-window decode (ring buffer)
 # ---------------------------------------------------------------------------
 
 def window_valid_mask(slot_pos: torch.Tensor, pos, window: int
                       ) -> torch.Tensor:
     """Liveness of ring-buffer slots: written (>= 0), not from the future,
     and within the last ``window`` positions of ``pos`` (the position of
-    the most recently written token).  Shared by the clustered decode and
-    the clustered-cache refresh (:mod:`repro_torch.stream.kv`)."""
+    the most recently written token).  Shared by the window and clustered
+    decodes and the clustered-cache refresh
+    (:mod:`repro_torch.stream.kv`)."""
     return (slot_pos >= 0) & (slot_pos <= pos) & (pos - slot_pos < window)
 
 
-def init_clustered_cache(n_layers: int, b: int, n_centroids: int,
+def init_window_cache(n_layers, b: int, window: int, dims: AttnDims,
+                      dtype: torch.dtype, device) -> dict:
+    """A ring of ``window`` slots per layer: k/v (..., B, kv, W, dh) and
+    each slot's position ``slot_pos`` (..., W), -1 while unwritten."""
+    lead = _lead(n_layers)
+    z = init_kv_cache(lead, b, window, dims, dtype, device)
+    z["slot_pos"] = torch.full(lead + (window,), -1, dtype=torch.int32,
+                               device=device)
+    return z
+
+
+def attention_decode_window(p, cache_l: dict, x: torch.Tensor,
+                            dims: AttnDims, ctx: dict, window: int):
+    """One-token decode over a sliding window of ``window`` positions:
+    the token goes to slot ``pos % W`` of the layer's ring (W =
+    ``min(window, seq_len)`` slots, so ``pos % W == pos % window`` at
+    every position of the shape), and the query attends to the live slots
+    (:func:`window_valid_mask`)."""
+    b = x.shape[0]
+    h, _, dh = dims
+    pos = ctx["pos"]
+    cos, sin = ctx["rope"]
+    q, k_new, v_new = _qkv(p, x, dims, cos, sin)
+    slot = pos % cache_l["k"].shape[2]
+    cache_l["k"][:, :, slot] = k_new[:, 0]
+    cache_l["v"][:, :, slot] = v_new[:, 0]
+    cache_l["slot_pos"][slot] = pos
+    valid = window_valid_mask(cache_l["slot_pos"], pos, window)
+    out = _cache_attend(q, cache_l["k"], cache_l["v"], valid)
+    return dot(out.reshape(b, 1, h * dh), p["wo"]), cache_l
+
+
+# ---------------------------------------------------------------------------
+# Clustered-KV decode — the paper's technique as an attention operand
+# ---------------------------------------------------------------------------
+
+def init_clustered_cache(n_layers, b: int, n_centroids: int,
                          window: int, dims: AttnDims, dtype: torch.dtype,
                          device) -> dict:
-    kv, dh = dims.n_kv, dims.dh
-
-    def z(n):
-        return torch.zeros((n_layers, b, kv, n, dh), dtype=dtype,
-                           device=device)
-
+    lead = _lead(n_layers)
+    kv = dims.n_kv
+    cent = init_kv_cache(lead, b, n_centroids, dims, dtype, device)
+    ring = init_window_cache(lead, b, window, dims, dtype, device)
     return {
-        "kc": z(n_centroids), "vc": z(n_centroids),
-        "counts": torch.zeros((n_layers, b, kv, n_centroids),
+        "kc": cent["k"], "vc": cent["v"],
+        "counts": torch.zeros(lead + (b, kv, n_centroids),
                               dtype=torch.float32, device=device),
-        "wk": z(window), "wv": z(window),
-        "slot_pos": torch.full((n_layers, window), -1, dtype=torch.int32,
-                               device=device),
+        "wk": ring["k"], "wv": ring["v"], "slot_pos": ring["slot_pos"],
     }
 
 

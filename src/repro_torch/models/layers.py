@@ -32,6 +32,20 @@ def swiglu(x: torch.Tensor, w1: torch.Tensor, w3: torch.Tensor,
     return dot(F.silu(dot(x, w1).float()).to(x.dtype) * dot(x, w3), w2)
 
 
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                  mask: "torch.Tensor | None" = None) -> torch.Tensor:
+    """Mean token NLL in f32; ``labels`` integer ids (..., S), ``mask``
+    (..., S) weights the positions (the mean over its mass)."""
+    logits = logits.float()
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    nll = lse - gold
+    if mask is not None:
+        mask = mask.float()
+        return (nll * mask).sum() / mask.sum().clamp_min(1.0)
+    return nll.mean()
+
+
 # ---------------------------------------------------------------------------
 # RoPE
 # ---------------------------------------------------------------------------

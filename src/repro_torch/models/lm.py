@@ -1,19 +1,29 @@
-"""Decoder-only LM of the port: embeddings -> a stack of attention blocks
--> head (the counterpart of :mod:`repro.models.lm` for the dense, non-MoE
-branch of ``make_attn_block``).
+"""Decoder-only LM of the port: embeddings (and the VLM's patch prefix) ->
+block groups -> head (the counterpart of :mod:`repro.models.lm` for the
+families built from ``make_attn_block``: dense, gemma's local/global
+pattern, MoE and the VLM backbone).
 
-Parameters keep the JAX package's layouts and names: ``embed`` (Vp, d),
-``final_ln`` (d,), ``head`` (d, Vp), and per layer ``ln1``, ``attn.wq`` ...
-``attn.wo``, ``ln2``, ``w1``, ``w3``, ``w2``, each (d_in, d_out), so
-:func:`repro_torch.convert.lm_params_from_jax` carries a JAX-package
-parameter tree across by name.  Decode caches are the reference's stacked
-``(L, B, kv, ...)`` tensors under the group name ``"blocks"``; a decode
-step is a Python loop over the layers that updates them in place.
+A model is one *group* of layers, as in the reference: ``blocks``, one
+:class:`AttnBlock` per layer (dense, MoE, VLM), or ``super``, one
+:class:`GemmaSuper` per superblock (``local_per_global`` sliding-window
+layers, then one global layer).  Parameters keep the JAX package's names
+and layouts, each (d_in, d_out): ``embed`` (Vp, d), ``final_ln``, ``head``
+(d, Vp), ``patch_proj`` (d, d), and per layer ``ln1``, ``attn.wq`` ...
+``attn.wo``, ``ln2`` and either ``w1``, ``w3``, ``w2`` or ``moe.router``
+(f32), ``moe.we1`` ... (plus ``moe.w1`` ... for llama4's shared expert), so
+:func:`repro_torch.convert.lm_params_from_jax` carries a JAX-package tree
+across by name.
 
-Still to port (ROADMAP): gemma's local/global groups, MoE, xLSTM, Zamba,
-the VLM patches, and the chunked forward / loss.
+Decode caches are the reference's stacked tensors under the group's name:
+``{"blocks": (L, B, kv, ...)}``, or ``{"super": {"local": (n_super, lpg,
+B, kv, W, dh) rings, "global": (n_super, B, kv, ...)}}``; a decode step is
+a Python loop over the layers that updates them in place.  ``forward`` and
+``loss`` run the chunked attention under ``no_grad`` (training comes with
+the trainer).
 """
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 from torch import nn
@@ -21,10 +31,12 @@ from torch import nn
 from repro_torch.configs import ArchConfig, ShapeConfig
 from repro_torch.core.device import derive_seed, resolve_device, seed_of
 
-from .attention import (AttnDims, attention_decode,
-                        attention_decode_clustered, init_clustered_cache,
-                        init_kv_cache)
-from .layers import ninit_, rms_norm, rope_tables, swiglu
+from .attention import (AttnDims, attention, attention_decode,
+                        attention_decode_clustered, attention_decode_window,
+                        init_clustered_cache, init_kv_cache,
+                        init_window_cache)
+from .layers import cross_entropy, dot, ninit_, rms_norm, rope_tables, swiglu
+from .moe import moe_ffn, moe_ffn_decode
 
 CACHE_KINDS = ("full", "clustered")
 
@@ -34,15 +46,27 @@ def _param(shape, dtype, device) -> nn.Parameter:
                         requires_grad=False)
 
 
-class AttnBlock(nn.Module):
-    """Pre-norm GQA attention + SwiGLU FFN, one layer (the dense branch of
-    the JAX package's ``make_attn_block``)."""
+def _index(tree, i):
+    """A cache tree with every tensor indexed at ``i`` along its first
+    axis (views: in-place updates reach the stacked cache)."""
+    if isinstance(tree, dict):
+        return {k: _index(v, i) for k, v in tree.items()}
+    return tree[i]
 
-    def __init__(self, cfg: ArchConfig, dtype: torch.dtype, device):
+
+class AttnBlock(nn.Module):
+    """Pre-norm GQA attention, then a SwiGLU FFN or an MoE FFN, one layer
+    (the JAX package's ``make_attn_block``); ``window > 0`` makes it a
+    sliding-window layer."""
+
+    def __init__(self, cfg: ArchConfig, dtype: torch.dtype, device, *,
+                 window: int = 0, moe: bool = False):
         super().__init__()
         d, h, kv, dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.dh
+        self.cfg = cfg
         self.dims = AttnDims(h, kv, dh)
         self.eps = cfg.norm_eps
+        self.window = window
         self.ln1 = _param((d,), dtype, device)
         self.attn = nn.ParameterDict({
             "wq": _param((d, h * dh), dtype, device),
@@ -50,18 +74,52 @@ class AttnBlock(nn.Module):
             "wv": _param((d, kv * dh), dtype, device),
             "wo": _param((h * dh, d), dtype, device)})
         self.ln2 = _param((d,), dtype, device)
-        self.w1 = _param((d, cfg.d_ff), dtype, device)
-        self.w3 = _param((d, cfg.d_ff), dtype, device)
-        self.w2 = _param((cfg.d_ff, d), dtype, device)
+        if moe:
+            e, f = cfg.n_experts, cfg.d_ff
+            experts = {
+                "router": _param((d, e), torch.float32, device),
+                "we1": _param((e, d, f), dtype, device),
+                "we3": _param((e, d, f), dtype, device),
+                "we2": _param((e, f, d), dtype, device)}
+            if cfg.name.startswith("llama4"):         # the shared expert
+                experts.update(w1=_param((d, f), dtype, device),
+                               w3=_param((d, f), dtype, device),
+                               w2=_param((f, d), dtype, device))
+            self.moe = nn.ParameterDict(experts)
+        else:
+            self.moe = None
+            self.w1 = _param((d, cfg.d_ff), dtype, device)
+            self.w3 = _param((d, cfg.d_ff), dtype, device)
+            self.w2 = _param((cfg.d_ff, d), dtype, device)
 
     def projections(self) -> list[torch.Tensor]:
         """The weights drawn at ``d_in ** -0.5`` (the norms start at 0)."""
-        return [*self.attn.values(), self.w1, self.w3, self.w2]
+        ffn = (list(self.moe.values()) if self.moe is not None
+               else [self.w1, self.w3, self.w2])
+        return [*self.attn.values(), *ffn]
+
+    def forward(self, x: torch.Tensor, aux: torch.Tensor, ctx: dict
+                ) -> tuple[torch.Tensor, torch.Tensor]:
+        """The forward over a whole (B, S, d) sequence -> (x, aux plus
+        this layer's MoE load-balance loss); the reference's ``apply``
+        (``nn.Module.apply`` keeps its own meaning)."""
+        h = x + attention(self.attn, rms_norm(x, self.ln1, self.eps),
+                          self.dims, ctx, window=self.window)
+        hn = rms_norm(h, self.ln2, self.eps)
+        if self.moe is not None:
+            y, a = moe_ffn(self.moe, hn, n_experts=self.cfg.n_experts,
+                           top_k=self.cfg.experts_per_token,
+                           capacity_factor=self.cfg.expert_capacity_factor)
+            return h + y, aux + a
+        return h + swiglu(hn, self.w1, self.w3, self.w2), aux
 
     def decode(self, cache_l: dict, x: torch.Tensor, ctx: dict
                ) -> tuple[torch.Tensor, dict]:
         xn = rms_norm(x, self.ln1, self.eps)
-        if ctx["cache_kind"] == "clustered":
+        if self.window:
+            a, cache_l = attention_decode_window(self.attn, cache_l, xn,
+                                                 self.dims, ctx, self.window)
+        elif ctx["cache_kind"] == "clustered":
             a, cache_l = attention_decode_clustered(self.attn, cache_l, xn,
                                                     self.dims, ctx)
         else:
@@ -69,40 +127,132 @@ class AttnBlock(nn.Module):
                                           ctx)
         h = x + a
         hn = rms_norm(h, self.ln2, self.eps)
-        return h + swiglu(hn, self.w1, self.w3, self.w2), cache_l
+        if self.moe is not None:
+            y = moe_ffn_decode(self.moe, hn, n_experts=self.cfg.n_experts,
+                               top_k=self.cfg.experts_per_token)
+        else:
+            y = swiglu(hn, self.w1, self.w3, self.w2)
+        return h + y, cache_l
+
+    def init_cache(self, lead, b: int, shape: ShapeConfig, kind: str,
+                   dtype: torch.dtype, device) -> dict:
+        """Zeroed caches of ``lead`` such layers (an int or a tuple of
+        stacking axes): a ring of ``min(window, seq_len)`` slots for a
+        window layer, else the ``kind`` cache."""
+        if self.window:
+            return init_window_cache(lead, b, min(self.window, shape.seq_len),
+                                     self.dims, dtype, device)
+        if kind == "clustered":
+            nc = shape.seq_len // shape.cluster_compression
+            return init_clustered_cache(lead, b, nc, shape.cluster_window,
+                                        self.dims, dtype, device)
+        if kind == "full":
+            return init_kv_cache(lead, b, shape.seq_len, self.dims, dtype,
+                                 device)
+        raise ValueError(f"unknown cache kind {kind!r}; known: {CACHE_KINDS}")
+
+
+class GemmaSuper(nn.Module):
+    """gemma3's superblock: ``local_per_global`` sliding-window layers
+    (``local``), then one global layer (``global``)."""
+
+    def __init__(self, cfg: ArchConfig, dtype: torch.dtype, device):
+        super().__init__()
+        self.local = nn.ModuleList(
+            AttnBlock(cfg, dtype, device, window=cfg.window)
+            for _ in range(cfg.local_per_global))
+        self.add_module("global", AttnBlock(cfg, dtype, device))
+
+    @property
+    def glob(self) -> AttnBlock:
+        return self._modules["global"]
+
+    def layers(self) -> list[AttnBlock]:
+        return [*self.local, self.glob]
+
+    def forward(self, x, aux, ctx):
+        for blk in self.layers():
+            x, aux = blk(x, aux, ctx)
+        return x, aux
+
+    def decode(self, cache_s: dict, x, ctx):
+        for j, blk in enumerate(self.local):
+            x, _ = blk.decode(_index(cache_s["local"], j), x, ctx)
+        x, _ = self.glob.decode(cache_s["global"], x, ctx)
+        return x, cache_s
+
+    def init_cache(self, n_super, b, shape, kind, dtype, device) -> dict:
+        lpg = len(self.local)
+        return {"local": self.local[0].init_cache((n_super, lpg), b, shape,
+                                                  "window", dtype, device),
+                "global": self.glob.init_cache(n_super, b, shape, kind,
+                                               dtype, device)}
 
 
 class DecoderLM(nn.Module):
-    """Decoder-only LM built from :class:`AttnBlock` layers, on ``device``
-    (``None``: the CUDA device).  Weights are zero until
-    :meth:`init_params` draws them or a state dict is loaded."""
+    """Decoder-only LM on ``device`` (``None``: the CUDA device): the
+    ``blocks`` group of :class:`AttnBlock` layers, or gemma's ``super``
+    group of :class:`GemmaSuper` superblocks; with ``n_patches`` the VLM
+    backbone, whose input starts with projected patch embeddings.  Weights
+    are zero until :meth:`init_params` draws them or a state dict is
+    loaded."""
 
     def __init__(self, cfg: ArchConfig, device=None):
         super().__init__()
         dev = resolve_device(device)
         self.cfg = cfg
         self.dtype = getattr(torch, cfg.dtype)
-        self.embed = _param((cfg.padded_vocab, cfg.d_model), self.dtype, dev)
-        self.final_ln = _param((cfg.d_model,), self.dtype, dev)
+        d = cfg.d_model
+        self.embed = _param((cfg.padded_vocab, d), self.dtype, dev)
+        self.final_ln = _param((d,), self.dtype, dev)
         if not cfg.tie_embeddings:
-            self.head = _param((cfg.d_model, cfg.padded_vocab), self.dtype,
-                               dev)
-        self.blocks = nn.ModuleList(AttnBlock(cfg, self.dtype, dev)
-                                    for _ in range(cfg.n_layers))
+            self.head = _param((d, cfg.padded_vocab), self.dtype, dev)
+        if cfg.n_patches:
+            self.patch_proj = _param((d, d), self.dtype, dev)
+        if cfg.local_per_global:
+            n_super = cfg.n_layers // (cfg.local_per_global + 1)
+            if n_super < 1:
+                raise ValueError(
+                    f"{cfg.name}: group 'super' has {n_super} superblocks — "
+                    f"n_layers={cfg.n_layers} is smaller than the pattern "
+                    f"size")
+            self.group = "super"
+            layers = [GemmaSuper(cfg, self.dtype, dev)
+                      for _ in range(n_super)]
+        else:
+            self.group = "blocks"
+            layers = [AttnBlock(cfg, self.dtype, dev,
+                                moe=cfg.family == "moe")
+                      for _ in range(cfg.n_layers)]
+        self.add_module(self.group, nn.ModuleList(layers))
 
     @property
     def device(self) -> torch.device:
         return self.embed.device
 
+    def layers(self) -> nn.ModuleList:
+        """The group's layers (superblocks for gemma), in order."""
+        return self._modules[self.group]
+
+    def attn_blocks(self) -> list[AttnBlock]:
+        """Every attention layer, in order."""
+        return [blk for layer in self.layers()
+                for blk in (layer.layers() if isinstance(layer, GemmaSuper)
+                            else [layer])]
+
     # -- params ------------------------------------------------------------
     def init_params(self, seed: "int | torch.Generator" = 0) -> "DecoderLM":
         """Draw every weight at the JAX package's scales (embeddings 0.02,
-        projections ``d_in ** -0.5``, norms 0), each tensor from its own
-        generator seeded from ``seed``; returns ``self``."""
+        projections ``d_in ** -0.5``, the experts' too, with d_in the
+        next-to-last axis; norms 0), each tensor from its own generator
+        seeded from ``seed``; returns ``self``."""
         base = seed_of(seed)
         projections = [] if self.cfg.tie_embeddings else [self.head]
-        projections += [w for blk in self.blocks for w in blk.projections()]
-        scaled = [(self.embed, 0.02)] + [(w, w.shape[0] ** -0.5)
+        projections += [w for blk in self.attn_blocks()
+                        for w in blk.projections()]
+        if self.cfg.n_patches:
+            projections.append(self.patch_proj)
+        scaled = [(self.embed, 0.02)] + [(w, w.shape[-2] ** -0.5)
                                          for w in projections]
         for i, (w, scale) in enumerate(scaled):
             gen = torch.Generator(device=w.device)
@@ -110,26 +260,80 @@ class DecoderLM(nn.Module):
             ninit_(w, gen, scale)
         return self
 
+    # -- context -------------------------------------------------------------
+    def make_ctx(self, positions: torch.Tensor, *, q_chunk: int = 2048,
+                 cache_kind: str = "full", pos: Optional[int] = None
+                 ) -> dict:
+        """The per-call context: RoPE tables at ``positions``, the forward's
+        query chunk, and for a decode step the cache kind and the write
+        position ``pos``."""
+        cfg = self.cfg
+        ctx = {"rope": rope_tables(positions, cfg.dh, cfg.rope_theta),
+               "q_chunk": q_chunk, "cache_kind": cache_kind}
+        if pos is not None:
+            ctx["pos"] = int(pos)
+        return ctx
+
+    # -- forward -----------------------------------------------------------
+    def embed_in(self, batch: dict) -> torch.Tensor:
+        """The token embeddings (B, S, d), after the projected
+        ``batch["patches"]`` (B, n_patches, d) for a VLM."""
+        x = self.embed[batch["tokens"].long()].to(self.dtype)
+        if self.cfg.n_patches:
+            patches = dot(batch["patches"].to(self.dtype), self.patch_proj)
+            x = torch.cat([patches, x], dim=1)
+        return x
+
+    def run_groups(self, x: torch.Tensor, ctx: dict
+                   ) -> tuple[torch.Tensor, torch.Tensor]:
+        """Every layer over (B, S, d) -> (x, the MoE load-balance loss summed
+        over the layers, f32)."""
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        for layer in self.layers():
+            x, aux = layer(x, aux, ctx)
+        return x, aux
+
+    @torch.no_grad()
+    def forward(self, batch: dict, ctx: Optional[dict] = None, *,
+                last_only: bool = False
+                ) -> tuple[torch.Tensor, torch.Tensor]:
+        """``batch``: ``tokens`` (B, S) and, for a VLM, ``patches``; ``ctx``
+        from :meth:`make_ctx` (default: positions 0 .. S + n_patches - 1,
+        ``q_chunk`` 2048).  -> (f32 logits (B, S', Vp), aux), with S' = 1
+        at ``last_only`` (serving's next-token logits: the full logits are
+        never formed)."""
+        if ctx is None:
+            s = batch["tokens"].shape[1] + self.cfg.n_patches
+            ctx = self.make_ctx(torch.arange(s, device=self.device))
+        x, aux = self.run_groups(self.embed_in(batch), ctx)
+        if last_only:
+            x = x[:, -1:]
+        return self.head_out(x), aux
+
+    @torch.no_grad()
+    def loss(self, batch: dict, ctx: Optional[dict] = None, *,
+             aux_weight: float = 0.01) -> torch.Tensor:
+        """Mean next-token NLL against ``batch["labels"]`` (B, S) over the
+        text positions (the patches' are left out), plus ``aux_weight``
+        times the MoE load-balance loss."""
+        logits, aux = self.forward(batch, ctx)
+        if self.cfg.n_patches:
+            logits = logits[:, self.cfg.n_patches:]
+        return cross_entropy(logits, batch["labels"]) + aux_weight * aux
+
     # -- decode ------------------------------------------------------------
     def init_caches(self, b: int, shape: ShapeConfig, kind: str) -> dict:
         """Zeroed decode caches for batch ``b`` at ``shape``: ``"full"``
         (capacity ``shape.seq_len``) or ``"clustered"``
         (``seq_len // cluster_compression`` centroids beside a
-        ``cluster_window`` ring)."""
-        cfg = self.cfg
-        dims = AttnDims(cfg.n_heads, cfg.n_kv_heads, cfg.dh)
-        if kind == "clustered":
-            nc = shape.seq_len // shape.cluster_compression
-            cache = init_clustered_cache(cfg.n_layers, b, nc,
-                                         shape.cluster_window, dims,
-                                         self.dtype, self.device)
-        elif kind == "full":
-            cache = init_kv_cache(cfg.n_layers, b, shape.seq_len, dims,
-                                  self.dtype, self.device)
-        else:
+        ``cluster_window`` ring); gemma's local layers always hold a ring of
+        ``min(window, seq_len)`` slots."""
+        if kind not in CACHE_KINDS:
             raise ValueError(f"unknown cache kind {kind!r}; known: "
                              f"{CACHE_KINDS}")
-        return {"blocks": cache}
+        layers = self.layers()
+        return {self.group: layers[0].init_cache(
+            len(layers), b, shape, kind, self.dtype, self.device)}
 
     def head_out(self, x: torch.Tensor) -> torch.Tensor:
         """Final norm and the vocabulary projection, f32 logits computed
@@ -152,15 +356,12 @@ class DecoderLM(nn.Module):
                     cache_kind: str = "full") -> tuple[torch.Tensor, dict]:
         """tokens: (B, 1) integer ids; ``pos`` the write position.  ->
         (logits (B, 1, Vp) f32, the caches, updated in place)."""
-        cfg = self.cfg
         # a device-side fill: a copy from host memory would wait for the
         # queued steps, so the host could not run ahead of the card
         positions = torch.full((1,), pos, device=self.device)
-        ctx = {"pos": int(pos), "cache_kind": cache_kind,
-               "rope": rope_tables(positions, cfg.dh, cfg.rope_theta)}
+        ctx = self.make_ctx(positions, cache_kind=cache_kind, pos=pos)
         x = self.embed[tokens.long()]
-        stack = caches["blocks"]
-        for i, blk in enumerate(self.blocks):
-            cache_l = {name: t[i] for name, t in stack.items()}
-            x, _ = blk.decode(cache_l, x, ctx)
+        stack = caches[self.group]
+        for i, layer in enumerate(self.layers()):
+            x, _ = layer.decode(_index(stack, i), x, ctx)
         return self.head_out(x), caches

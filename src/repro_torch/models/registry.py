@@ -6,17 +6,20 @@ from repro_torch.configs import ArchConfig, ShapeConfig
 
 from .lm import DecoderLM
 
+PORTED_FAMILIES = ("dense", "moe", "vlm")
+
 
 def build_model(cfg: ArchConfig, device=None) -> DecoderLM:
     """The model of ``cfg`` on ``device`` (``None``: the CUDA device), its
-    weights zero until ``init_params`` or ``load_state_dict``.  Only the
-    dense family without a local/global pattern is ported; any other
-    raises ``NotImplementedError``."""
-    if cfg.family != "dense" or cfg.local_per_global:
-        what = "local_per_global" if cfg.local_per_global else cfg.family
+    weights zero until ``init_params`` or ``load_state_dict``: the
+    families built from the attention block (dense, with or without
+    gemma's local/global pattern, MoE and the VLM backbone).  The
+    recurrent (``ssm``, ``hybrid``) and encoder-decoder (``audio``)
+    families raise ``NotImplementedError``."""
+    if cfg.family not in PORTED_FAMILIES:
         raise NotImplementedError(
-            f"repro_torch: {cfg.name} needs the {what!r} blocks, which are "
-            f"not ported yet; see ROADMAP.md §1")
+            f"repro_torch: {cfg.name} needs the {cfg.family!r} blocks, which "
+            f"are not ported yet; see ROADMAP.md §1")
     return DecoderLM(cfg, device=device)
 
 

@@ -11,10 +11,13 @@ once, run by the Lloyd kernel.  The window is then marked empty and
 refills; the cache stays O(S_0/c + W) while the centroids track the whole
 history.
 
-The engine serves a :class:`~repro_torch.models.DecoderLM` that holds its
-weights (``build_model(cfg)`` then ``init_params(seed)`` or
-``load_state_dict``), on the device the model lives on.  Decode caches are
-updated in place.
+The engine serves any model :func:`~repro_torch.models.build_model`
+returns (a :class:`~repro_torch.models.DecoderLM` holding its weights:
+``build_model(cfg)`` then ``init_params(seed)`` or ``load_state_dict``), on
+the device the model lives on.  Decode caches are updated in place; a
+refresh folds only the clustered caches (gemma's global layers, not its
+local rings).  The prompt is fed token by token, as the reference's engine
+feeds it.
 """
 from __future__ import annotations
 
@@ -134,7 +137,9 @@ class ServeEngine:
 
     def _refresh_tree(self, c, last: int):
         """Refresh every clustered sub-cache of a cache dict (a dict that
-        holds ``kc`` is one stacked clustered cache)."""
+        holds ``kc`` is one stacked clustered cache): the flat layout
+        ``{"blocks": {kc, ...}}`` and gemma's ``{"super": {"local": ...,
+        "global": {kc, ...}}}``, whose window rings pass unchanged."""
         if isinstance(c, dict):
             if "kc" in c:
                 return refresh_layer_cache(c, last, stop=self.refresh_stop,

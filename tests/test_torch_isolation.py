@@ -18,6 +18,7 @@ import repro_torch.index.pq, repro_torch.index.spec
 import repro_torch.kernels.scan, repro_torch.kernels.centroid
 import repro_torch.kernels.cluster_attn, repro_torch.models
 import repro_torch.models.lm, repro_torch.models.attention
+import repro_torch.models.moe, repro_torch.models.registry
 import repro_torch.stream, repro_torch.stream.kv, repro_torch.serve
 import repro_torch.stream.engine, repro_torch.data.synthetic
 import repro_torch.serve.engine, repro_torch.launch.serve
@@ -56,6 +57,7 @@ def test_no_source_file_imports_jax_or_the_reference():
             "repro_torch/kernels/cluster_attn.py",
             "repro_torch/models/attention.py", "repro_torch/models/lm.py",
             "repro_torch/models/layers.py", "repro_torch/models/registry.py",
+            "repro_torch/models/moe.py",
             "repro_torch/stream/kv.py", "repro_torch/stream/engine.py",
             "repro_torch/serve/engine.py",
             "repro_torch/launch/serve.py", "repro_torch/launch/mesh.py",

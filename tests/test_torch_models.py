@@ -70,6 +70,23 @@ def test_param_draws_follow_the_reference_scales():
     again = build_model(cfg, device="cpu").init_params(0)
     assert all(torch.equal(a, b) for a, b in
                zip(model.state_dict().values(), again.state_dict().values()))
+    # the router (f32) and the experts at d^-0.5, we2 at d_ff^-0.5 (as the
+    # reference's init_moe), the shared expert like a dense FFN, and the
+    # VLM's patch projection at d^-0.5
+    import dataclasses
+    llama4 = dataclasses.replace(
+        get_config("llama4-maverick-400b-a17b").reduced(), d_ff=256)
+    moe = build_model(llama4, device="cpu").init_params(0).blocks[0].moe
+    d, f = llama4.d_model, llama4.d_ff
+    assert moe["router"].dtype == torch.float32
+    for name, scale in (("router", d), ("we1", d), ("we3", d), ("we2", f),
+                        ("w1", d), ("w2", f)):
+        assert abs(float(moe[name].std()) - scale ** -0.5) < 0.1 * \
+            scale ** -0.5, name
+    vlm = get_config("internvl2-2b").reduced()
+    proj = build_model(vlm, device="cpu").init_params(0).patch_proj
+    assert abs(float(proj.std()) - vlm.d_model ** -0.5) < 0.1 * \
+        vlm.d_model ** -0.5
 
 
 # ---------------------------------------------------------------------------
