@@ -134,40 +134,59 @@ def lm_params_from_jax(cfg, params: Mapping[str, Any]
     """The state dict of the port's ``DecoderLM`` for ``cfg`` from the JAX
     package's ``DecoderLM`` parameter tree given as numpy arrays:
     ``embed`` (Vp, d), ``final_ln`` (d,), ``head`` (d, Vp) unless the
-    embeddings are tied, ``patch_proj`` (d, d) for a VLM, and one stacked
-    group: ``g_blocks``, each leaf (L, ...) (``ln1``, ``attn`` {``wq``,
-    ``wk``, ``wv``, ``wo``}, ``ln2``, and ``w1``/``w3``/``w2`` or ``moe``
-    {``router``, ``we1``, ``we3``, ``we2``[, ``w1``, ``w3``, ``w2``]}), or
-    gemma's ``g_super`` with a ``local`` stack (n_super, lpg, ...) and a
-    ``global`` stack (n_super, ...).  CPU tensors in ``cfg.dtype`` (the
-    router in f32, as the reference keeps it); load them with
-    ``model.load_state_dict(...)``."""
-    dtype = getattr(torch, cfg.dtype)
+    embeddings are tied, ``patch_proj`` (d, d) for a VLM, zamba2's
+    ``shared`` attention block, and one stacked group: ``g_blocks``, each
+    leaf (L, ...) (``ln1``, ``attn`` {``wq``, ``wk``, ``wv``, ``wo``},
+    ``ln2``, and ``w1``/``w3``/``w2`` or ``moe`` {``router``, ``we1``,
+    ``we3``, ``we2``[, ``w1``, ``w3``, ``w2``]}), or ``g_super`` whose
+    per-superblock stacks are (n_super, per, ...) (gemma's ``local``,
+    xlstm's ``mlstm``, zamba2's ``mamba``) or (n_super, ...) (gemma's
+    ``global``, xlstm's ``slstm``).  CPU tensors, each in its target
+    parameter's dtype (``cfg.dtype``, or f32 where the reference keeps
+    f32: the router, ``wi``, ``wf``, ``conv``, ``A_log``, ``D``,
+    ``dt_bias``); load them with ``model.load_state_dict(...)``."""
+    from repro_torch.models.lm import DecoderLM, _superblocks
 
-    def t(a, name=""):
+    target = dict(DecoderLM(cfg, device="meta").named_parameters())
+
+    def t(name, a):
+        if name not in target:
+            raise KeyError(f"lm_params_from_jax: {cfg.name} has no "
+                           f"parameter {name!r}")
         out = torch.as_tensor(np.array(a, dtype=np.float32))
-        return out if name == "router" else out.to(dtype)
+        if tuple(out.shape) != tuple(target[name].shape):
+            raise ValueError(f"lm_params_from_jax: {name} is "
+                             f"{tuple(out.shape)}, {cfg.name} has "
+                             f"{tuple(target[name].shape)}")
+        return out.to(target[name].dtype)
 
-    state = {name: t(params[name]) for name in
+    state = {name: t(name, params[name]) for name in
              ("embed", "final_ln", "head", "patch_proj") if name in params}
-    lpg = cfg.local_per_global
-    group = "super" if lpg else "blocks"
-    n_super = cfg.n_layers // (lpg + 1)
+    for path, arr in _leaves(params.get("shared", {})):
+        state["shared." + ".".join(path)] = t("shared." + ".".join(path),
+                                             arr)
+    group = "super" if "g_super" in params else "blocks"
+    n_super = _superblocks(cfg) if group == "super" else 0
+    per = {"local": cfg.local_per_global, "mlstm": cfg.mlstm_per_slstm,
+           "mamba": cfg.mamba_per_attn}
     for path, arr in _leaves(params[f"g_{group}"]):
         arr = np.asarray(arr)
         # the stacking axes and the port's name for each stacked index:
-        # blocks.{i}, super.{i}.local.{j} or super.{i}.global
-        if not lpg:
+        # blocks.{i}, super.{i}.{local,mlstm,mamba}.{j} or
+        # super.{i}.{global,slstm}
+        if group == "blocks":
             want, name = (cfg.n_layers,), (lambda i: f"{i[0]}")
-        elif path[0] == "local":
-            want, name = (n_super, lpg), (lambda i: f"{i[0]}.local.{i[1]}")
+        elif path[0] in per:
+            want = (n_super, per[path[0]])
+            name = (lambda i, p=path[0]: f"{i[0]}.{p}.{i[1]}")
         else:
-            want, name = (n_super,), (lambda i: f"{i[0]}.global")
-        rest = ".".join(path[1:] if lpg else path)
+            want, name = (n_super,), (lambda i, p=path[0]: f"{i[0]}.{p}")
+        rest = ".".join(path if group == "blocks" else path[1:])
         if arr.shape[:len(want)] != want:
             raise ValueError(f"lm_params_from_jax: g_{group} "
                              f"{'.'.join(path)} stacks {arr.shape[:len(want)]}"
                              f" layers, {cfg.name} has {want}")
         for idx in np.ndindex(*want):
-            state[f"{group}.{name(idx)}.{rest}"] = t(arr[idx], path[-1])
+            key = f"{group}.{name(idx)}.{rest}"
+            state[key] = t(key, arr[idx])
     return state

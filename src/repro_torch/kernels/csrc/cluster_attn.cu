@@ -26,8 +26,12 @@
 //     that has arrived (deeper rings measured slower); the thread refills a
 //     stage once every warp is done with it (a block barrier);
 //   * `lpr` lanes share one centroid row, each reading 16 bytes of the key
-//     row and of the value row from shared memory; the dot product is
-//     reduced over those lanes by shuffles, and every group of lanes carries
+//     row and of the value row from shared memory (lpr is the row's pieces
+//     of 16 bytes rounded up to a power of two; a lane past the row's last
+//     piece, as at dh = 80 in bf16, 10 pieces on 16 lanes, loads nothing,
+//     adds 0 to the dot product and writes no part of acc); the dot
+//     product is reduced over those lanes by shuffles, and every group of
+//     lanes carries
 //     its own online-softmax state in registers, folding in two rows per
 //     step with one rescale; the block merges its groups' states in a fixed
 //     order (by shuffles within each warp, then warp by warp in shared
@@ -163,6 +167,7 @@ cluster_attn_kernel(const void* __restrict__ q, int64_t q_bs, int64_t q_hs,
   const int rows_per_warp = 32 / lpr;
   const int r = lane / lpr;       // this lane's row within the warp's step
   const int e = lane % lpr;       // its 16 bytes of the row: [e V, e V + V)
+  const bool has_piece = e * V < dh;  // false past the row's last piece
   const int n_groups = kAttnWarps * rows_per_warp;
 
   // shared memory: kStages mbarriers, the split's biases, then the ring
@@ -206,8 +211,10 @@ cluster_attn_kernel(const void* __restrict__ q, int64_t q_bs, int64_t q_hs,
   for (int gi = 0; gi < G; ++gi)
 #pragma unroll
     for (int j = 0; j < V; ++j)
-      qr[gi][j] = load_f32(q, b * q_bs + (h * G + gi) * q_hs + e * V + j,
-                           q_bf16);
+      qr[gi][j] = has_piece ? load_f32(q, b * q_bs + (h * G + gi) * q_hs +
+                                               e * V + j,
+                                       q_bf16)
+                            : 0.f;
   float m[G], l[G], acc[G][V];
 #pragma unroll
   for (int gi = 0; gi < G; ++gi) {
@@ -235,7 +242,7 @@ cluster_attn_kernel(const void* __restrict__ q, int64_t q_bs, int64_t q_hs,
       for (int u = 0; u < 2; ++u) {
         const int n = base + u * n_groups + r;
         valid[u] = n < rows;
-        if (valid[u]) {
+        if (valid[u] && has_piece) {
           Row16<T>::load(ks + n * dh, kr[u]);
           Row16<T>::load(vs + n * dh, vr[u]);
         } else {
@@ -305,7 +312,7 @@ cluster_attn_kernel(const void* __restrict__ q, int64_t q_bs, int64_t q_hs,
   float* s_acc = reinterpret_cast<float*>(ring);  // (kAttnWarps, G, dh)
   float* s_m = s_acc + kAttnWarps * G * dh;       // (kAttnWarps, G)
   float* s_l = s_m + kAttnWarps * G;              // (kAttnWarps, G)
-  if (r == 0) {
+  if (r == 0 && has_piece) {
 #pragma unroll
     for (int gi = 0; gi < G; ++gi) {
 #pragma unroll
@@ -486,7 +493,8 @@ int dispatch_group(int G, const void* q, int64_t q_bs, int64_t q_hs,
 }  // namespace repro
 
 // Strides are in elements.  G (query heads per kv head, 1..8), lpr (lanes
-// per row: dh * element size / 16, a power of two up to 32), S (splits),
+// per row: the row's dh * element size / 16 pieces rounded up to a power of
+// two, at most 32), S (splits),
 // chunk (centroids per split) and stage_rows (rows per ring stage) come from
 // repro_torch/kernels/tiles.py.  Returns the launch's cudaGetLastError().
 extern "C" int repro_cluster_attn(

@@ -406,10 +406,20 @@ def code_vector_bytes(m: int, ptr: int, batch_stride: int) -> int:
     return 1
 
 
-def attn_lanes_per_row(dh: int, dtype: torch.dtype) -> int:
-    """Lanes that share one centroid row of the cluster attention, each
-    loading 16 bytes of it: ``dh * element size / 16``."""
+def attn_pieces(dh: int, dtype: torch.dtype) -> int:
+    """16-byte pieces in one centroid row of ``dh`` values (the layout rule
+    makes the row a whole number of them)."""
     return dh * (torch.finfo(dtype).bits // 8) // 16
+
+
+def attn_lanes_per_row(dh: int, dtype: torch.dtype) -> int:
+    """Lanes that share one centroid row of the cluster attention: the
+    row's :func:`attn_pieces` rounded up to a power of two (the shuffle
+    reductions run over a power-of-two group of lanes).  Lane ``e`` loads
+    piece ``e``; a lane past the row's pieces (dh = 80 in bf16: 10 pieces
+    on 16 lanes) loads nothing and adds 0."""
+    pieces = attn_pieces(dh, dtype)
+    return 1 << max(0, pieces - 1).bit_length()
 
 
 def attn_splits(b: int, hkv: int, nc: int, sm_count: int) -> tuple[int, int]:
@@ -555,7 +565,8 @@ def check_attn_inputs(kernel: str, q, kc, vc, counts
     both bf16, rows contiguous and every row 16-byte aligned; ``counts``
     (B, Hkv, Nc) f32 with contiguous rows; one device; ``H % Hkv == 0``
     with at most ``ATTN_MAX_GROUP`` query heads per kv head; a row of
-    ``dh`` values a power-of-two number (at most 32) of 16-byte pieces.
+    ``dh`` values a whole number of 16-byte pieces, at most 32 (each lane
+    of a row's group loads one piece).
     Returns ``(B, H, Hkv, Nc, dh)``."""
     _check_tensors(kernel, [("q", q), ("kc", kc), ("vc", vc)], FLOATS,
                    q.device)
@@ -582,10 +593,9 @@ def check_attn_inputs(kernel: str, q, kc, vc, counts
         raise TileError(f"{kernel}: {h // hkv} query heads per kv head, "
                         f"above the kernel's {ATTN_MAX_GROUP}",
                         extent=h // hkv, block=ATTN_MAX_GROUP)
-    lpr = attn_lanes_per_row(dh, kc.dtype)
-    if (dh * kc.element_size() % 16 or lpr & (lpr - 1) or lpr > 32):
+    if dh * kc.element_size() % 16 or attn_pieces(dh, kc.dtype) > 32:
         raise TileError(f"{kernel}: a row of dh={dh} {kc.dtype} values must "
-                        f"be 1, 2, 4, ... or 32 pieces of 16 bytes",
+                        f"be a whole number of 16-byte pieces, at most 32",
                         extent=dh, block=16 // kc.element_size())
     _check_batch(kernel, b)
     if q.stride(2) != 1:

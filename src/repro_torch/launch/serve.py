@@ -5,7 +5,8 @@ model with weights drawn from a seed.
       --prompt-len 64 --gen 16 --batch 2
 
 Runs on the CUDA device, for any architecture ``build_model`` builds
-(dense, gemma3's local/global, MoE, the VLM backbone on text prompts).
+(dense, gemma3's local/global, MoE, the VLM backbone on text prompts,
+xlstm and zamba2).
 The shape is a decode shape of ``prompt-len + gen`` tokens with the full
 KV cache.  ``--ckpt-dir`` is refused: the
 checkpoint module is not ported yet (ROADMAP §1).

@@ -1,7 +1,9 @@
 """Models of the PyTorch port: the decoder-only LMs built from the
 attention block (dense, gemma's local/global pattern, MoE, the VLM
-backbone), their chunked forward and loss, and decode over a full, a
-sliding-window or a clustered KV cache.
+backbone) and the recurrent ones (xlstm's mLSTM/sLSTM, zamba2's Mamba2
+with a shared attention block), their chunked forward and loss, and
+decode over a full, a sliding-window or a clustered KV cache or a
+recurrent state.
 
   layers.py     dot, rms_norm, swiglu, cross_entropy, RoPE, initialisers
   attention.py  chunked attention (``models.attention.attention``: the
@@ -9,21 +11,27 @@ sliding-window or a clustered KV cache.
                 window and clustered decode; compress_kv_cache
   moe.py        routed experts with sort/gather dispatch (moe_ffn,
                 moe_ffn_decode)
-  lm.py         AttnBlock, GemmaSuper, DecoderLM (init_params, forward,
-                loss, init_caches, decode_step, head_out)
+  ssm.py        chunked_lin_attn, lin_attn_step; MLSTMBlock, SLSTMBlock,
+                Mamba2Block (causal_conv, conv_history)
+  lm.py         AttnBlock, GemmaSuper, XLSTMSuper, ZambaSuper, DecoderLM
+                (init_params, forward, loss, init_caches, decode_step,
+                head_out)
   registry.py   build_model, cache_kind
 """
 from .attention import (AttnDims, attention_decode,
                         attention_decode_clustered, attention_decode_window,
                         compress_kv_cache, init_clustered_cache,
                         init_kv_cache, init_window_cache, window_valid_mask)
-from .lm import AttnBlock, DecoderLM, GemmaSuper
+from .lm import AttnBlock, DecoderLM, GemmaSuper, XLSTMSuper, ZambaSuper
 from .moe import moe_ffn, moe_ffn_decode
 from .registry import build_model, cache_kind
+from .ssm import (Mamba2Block, MLSTMBlock, SLSTMBlock, chunked_lin_attn,
+                  lin_attn_step)
 
 __all__ = ["AttnDims", "AttnBlock", "DecoderLM", "GemmaSuper",
-           "attention_decode", "attention_decode_clustered",
+           "Mamba2Block", "MLSTMBlock", "SLSTMBlock", "XLSTMSuper",
+           "ZambaSuper", "attention_decode", "attention_decode_clustered",
            "attention_decode_window", "build_model", "cache_kind",
-           "compress_kv_cache", "init_clustered_cache", "init_kv_cache",
-           "init_window_cache", "moe_ffn", "moe_ffn_decode",
-           "window_valid_mask"]
+           "chunked_lin_attn", "compress_kv_cache", "init_clustered_cache",
+           "init_kv_cache", "init_window_cache", "lin_attn_step", "moe_ffn",
+           "moe_ffn_decode", "window_valid_mask"]

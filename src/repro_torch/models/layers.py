@@ -11,6 +11,13 @@ from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+from torch import nn
+
+
+def param(shape, dtype: torch.dtype, device) -> nn.Parameter:
+    """A zeroed parameter (inference only: no gradient)."""
+    return nn.Parameter(torch.zeros(shape, dtype=dtype, device=device),
+                        requires_grad=False)
 
 
 def dot(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:

@@ -1,28 +1,35 @@
 """Decoder-only LM of the port: embeddings (and the VLM's patch prefix) ->
-block groups -> head (the counterpart of :mod:`repro.models.lm` for the
-families built from ``make_attn_block``: dense, gemma's local/global
-pattern, MoE and the VLM backbone).
+block groups -> head (the counterpart of :mod:`repro.models.lm`).
 
 A model is one *group* of layers, as in the reference: ``blocks``, one
 :class:`AttnBlock` per layer (dense, MoE, VLM), or ``super``, one
-:class:`GemmaSuper` per superblock (``local_per_global`` sliding-window
-layers, then one global layer).  Parameters keep the JAX package's names
-and layouts, each (d_in, d_out): ``embed`` (Vp, d), ``final_ln``, ``head``
-(d, Vp), ``patch_proj`` (d, d), and per layer ``ln1``, ``attn.wq`` ...
+superblock per step of the pattern: :class:`GemmaSuper`
+(``local_per_global`` sliding-window layers, then one global layer),
+:class:`XLSTMSuper` (``mlstm_per_slstm`` mLSTM blocks, then one sLSTM) or
+:class:`ZambaSuper` (``mamba_per_attn`` Mamba2 blocks, then the attention
+block ``shared``, registered once on the model and called by every
+superblock).  Parameters keep the JAX package's names and layouts, each
+(d_in, d_out): ``embed`` (Vp, d), ``final_ln``, ``head`` (d, Vp),
+``patch_proj`` (d, d), and per attention layer ``ln1``, ``attn.wq`` ...
 ``attn.wo``, ``ln2`` and either ``w1``, ``w3``, ``w2`` or ``moe.router``
-(f32), ``moe.we1`` ... (plus ``moe.w1`` ... for llama4's shared expert), so
+(f32), ``moe.we1`` ... (plus ``moe.w1`` ... for llama4's shared expert);
+the recurrent blocks' are :mod:`repro_torch.models.ssm`'s.  So
 :func:`repro_torch.convert.lm_params_from_jax` carries a JAX-package tree
 across by name.
 
 Decode caches are the reference's stacked tensors under the group's name:
-``{"blocks": (L, B, kv, ...)}``, or ``{"super": {"local": (n_super, lpg,
-B, kv, W, dh) rings, "global": (n_super, B, kv, ...)}}``; a decode step is
-a Python loop over the layers that updates them in place.  ``forward`` and
-``loss`` run the chunked attention under ``no_grad`` (training comes with
-the trainer).
+``{"blocks": (L, B, kv, ...)}``; gemma's ``{"super": {"local": (n_super,
+lpg, B, kv, W, dh) rings, "global": (n_super, B, kv, ...)}}``; xlstm's
+``{"super": {"mlstm": {"state": (n_super, mps, B, H, dh, dh + 1)},
+"slstm": {c, n, h: (n_super, B, d)}}}``; zamba2's ``{"super": {"mamba":
+{"state": (n_super, mpa, B, nh, d_state, 64), "conv": (n_super, mpa, B,
+3, C)}, "attn": (n_super, B, kv, ...)}}``.  A decode step is a Python
+loop over the layers that updates them in place.  ``forward`` and
+``loss`` run under ``no_grad`` (training comes with the trainer).
 """
 from __future__ import annotations
 
+import functools
 from typing import Optional
 
 import torch
@@ -35,15 +42,12 @@ from .attention import (AttnDims, attention, attention_decode,
                         attention_decode_clustered, attention_decode_window,
                         init_clustered_cache, init_kv_cache,
                         init_window_cache)
-from .layers import cross_entropy, dot, ninit_, rms_norm, rope_tables, swiglu
+from .layers import (cross_entropy, dot, ninit_, param, rms_norm, rope_tables,
+                     swiglu)
 from .moe import moe_ffn, moe_ffn_decode
+from .ssm import Mamba2Block, MLSTMBlock, SLSTMBlock
 
 CACHE_KINDS = ("full", "clustered")
-
-
-def _param(shape, dtype, device) -> nn.Parameter:
-    return nn.Parameter(torch.zeros(shape, dtype=dtype, device=device),
-                        requires_grad=False)
 
 
 def _index(tree, i):
@@ -67,30 +71,30 @@ class AttnBlock(nn.Module):
         self.dims = AttnDims(h, kv, dh)
         self.eps = cfg.norm_eps
         self.window = window
-        self.ln1 = _param((d,), dtype, device)
+        self.ln1 = param((d,), dtype, device)
         self.attn = nn.ParameterDict({
-            "wq": _param((d, h * dh), dtype, device),
-            "wk": _param((d, kv * dh), dtype, device),
-            "wv": _param((d, kv * dh), dtype, device),
-            "wo": _param((h * dh, d), dtype, device)})
-        self.ln2 = _param((d,), dtype, device)
+            "wq": param((d, h * dh), dtype, device),
+            "wk": param((d, kv * dh), dtype, device),
+            "wv": param((d, kv * dh), dtype, device),
+            "wo": param((h * dh, d), dtype, device)})
+        self.ln2 = param((d,), dtype, device)
         if moe:
             e, f = cfg.n_experts, cfg.d_ff
             experts = {
-                "router": _param((d, e), torch.float32, device),
-                "we1": _param((e, d, f), dtype, device),
-                "we3": _param((e, d, f), dtype, device),
-                "we2": _param((e, f, d), dtype, device)}
+                "router": param((d, e), torch.float32, device),
+                "we1": param((e, d, f), dtype, device),
+                "we3": param((e, d, f), dtype, device),
+                "we2": param((e, f, d), dtype, device)}
             if cfg.name.startswith("llama4"):         # the shared expert
-                experts.update(w1=_param((d, f), dtype, device),
-                               w3=_param((d, f), dtype, device),
-                               w2=_param((f, d), dtype, device))
+                experts.update(w1=param((d, f), dtype, device),
+                               w3=param((d, f), dtype, device),
+                               w2=param((f, d), dtype, device))
             self.moe = nn.ParameterDict(experts)
         else:
             self.moe = None
-            self.w1 = _param((d, cfg.d_ff), dtype, device)
-            self.w3 = _param((d, cfg.d_ff), dtype, device)
-            self.w2 = _param((cfg.d_ff, d), dtype, device)
+            self.w1 = param((d, cfg.d_ff), dtype, device)
+            self.w3 = param((d, cfg.d_ff), dtype, device)
+            self.w2 = param((cfg.d_ff, d), dtype, device)
 
     def projections(self) -> list[torch.Tensor]:
         """The weights drawn at ``d_in ** -0.5`` (the norms start at 0)."""
@@ -170,6 +174,9 @@ class GemmaSuper(nn.Module):
     def layers(self) -> list[AttnBlock]:
         return [*self.local, self.glob]
 
+    def projections(self) -> list[torch.Tensor]:
+        return [w for blk in self.layers() for w in blk.projections()]
+
     def forward(self, x, aux, ctx):
         for blk in self.layers():
             x, aux = blk(x, aux, ctx)
@@ -189,13 +196,98 @@ class GemmaSuper(nn.Module):
                                                dtype, device)}
 
 
+class XLSTMSuper(nn.Module):
+    """xlstm's superblock: ``mlstm_per_slstm`` mLSTM blocks (``mlstm``),
+    then one sLSTM block (``slstm``)."""
+
+    def __init__(self, cfg: ArchConfig, dtype: torch.dtype, device):
+        super().__init__()
+        d, h, eps = cfg.d_model, cfg.n_heads, cfg.norm_eps
+        self.mlstm = nn.ModuleList(MLSTMBlock(d, h, eps, dtype, device)
+                                   for _ in range(cfg.mlstm_per_slstm))
+        self.slstm = SLSTMBlock(d, h, eps, dtype, device)
+
+    def projections(self) -> list[torch.Tensor]:
+        return [w for blk in [*self.mlstm, self.slstm]
+                for w in blk.projections()]
+
+    def forward(self, x, aux, ctx):
+        for blk in self.mlstm:
+            x = blk(x, ctx)
+        return self.slstm(x, ctx), aux
+
+    def decode(self, cache_s: dict, x, ctx):
+        for j, blk in enumerate(self.mlstm):
+            x, _ = blk.decode(_index(cache_s["mlstm"], j), x, ctx)
+        x, _ = self.slstm.decode(cache_s["slstm"], x, ctx)
+        return x, cache_s
+
+    def init_cache(self, n_super, b, shape, kind, dtype, device) -> dict:
+        """O(1) state whatever the shape and kind."""
+        return {"mlstm": self.mlstm[0].init_cache(
+                    (n_super, len(self.mlstm)), b, device),
+                "slstm": self.slstm.init_cache(n_super, b, device)}
+
+
+class ZambaSuper(nn.Module):
+    """zamba2's superblock: ``mamba_per_attn`` Mamba2 blocks (``mamba``),
+    then the model's one attention block, whose weights every superblock
+    shares.  The superblock holds that block without registering it (it
+    is the model's ``shared``), so its parameters appear once."""
+
+    def __init__(self, cfg: ArchConfig, shared: AttnBlock,
+                 dtype: torch.dtype, device):
+        super().__init__()
+        self.mamba = nn.ModuleList(
+            Mamba2Block(cfg.d_model, cfg.ssm_state, cfg.norm_eps, dtype,
+                        device) for _ in range(cfg.mamba_per_attn))
+        self.__dict__["shared"] = shared
+
+    def projections(self) -> list[torch.Tensor]:
+        return [w for blk in self.mamba for w in blk.projections()]
+
+    def forward(self, x, aux, ctx):
+        for blk in self.mamba:
+            x = blk(x, ctx)
+        return self.shared(x, aux, ctx)
+
+    def decode(self, cache_s: dict, x, ctx):
+        for j, blk in enumerate(self.mamba):
+            x, _ = blk.decode(_index(cache_s["mamba"], j), x, ctx)
+        x, _ = self.shared.decode(cache_s["attn"], x, ctx)
+        return x, cache_s
+
+    def init_cache(self, n_super, b, shape, kind, dtype, device) -> dict:
+        return {"mamba": self.mamba[0].init_cache(
+                    (n_super, len(self.mamba)), b, device),
+                "attn": self.shared.init_cache(n_super, b, shape, kind,
+                                               dtype, device)}
+
+
+def _superblocks(cfg: ArchConfig) -> int:
+    """Superblocks of a patterned config (the layers of one step:
+    ``local_per_global + 1``, ``mlstm_per_slstm + 1`` or
+    ``mamba_per_attn``); raises where ``n_layers`` is below one step, as
+    the reference does."""
+    per = (cfg.local_per_global + 1 if cfg.local_per_global
+           else cfg.mlstm_per_slstm + 1 if cfg.family == "ssm"
+           else cfg.mamba_per_attn)
+    n_super = cfg.n_layers // per
+    if n_super < 1:
+        raise ValueError(
+            f"{cfg.name}: group 'super' has {n_super} superblocks — "
+            f"n_layers={cfg.n_layers} is smaller than the pattern size")
+    return n_super
+
+
 class DecoderLM(nn.Module):
     """Decoder-only LM on ``device`` (``None``: the CUDA device): the
-    ``blocks`` group of :class:`AttnBlock` layers, or gemma's ``super``
-    group of :class:`GemmaSuper` superblocks; with ``n_patches`` the VLM
-    backbone, whose input starts with projected patch embeddings.  Weights
-    are zero until :meth:`init_params` draws them or a state dict is
-    loaded."""
+    ``blocks`` group of :class:`AttnBlock` layers, or the ``super`` group
+    of gemma's, xlstm's or zamba2's superblocks (zamba2's with the
+    ``shared`` attention block); with ``n_patches`` the VLM backbone,
+    whose input starts with projected patch embeddings.  Weights are zero
+    (Mamba2's ``D`` one) until :meth:`init_params` draws them or a state
+    dict is loaded."""
 
     def __init__(self, cfg: ArchConfig, device=None):
         super().__init__()
@@ -203,22 +295,25 @@ class DecoderLM(nn.Module):
         self.cfg = cfg
         self.dtype = getattr(torch, cfg.dtype)
         d = cfg.d_model
-        self.embed = _param((cfg.padded_vocab, d), self.dtype, dev)
-        self.final_ln = _param((d,), self.dtype, dev)
+        self.embed = param((cfg.padded_vocab, d), self.dtype, dev)
+        self.final_ln = param((d,), self.dtype, dev)
         if not cfg.tie_embeddings:
-            self.head = _param((d, cfg.padded_vocab), self.dtype, dev)
+            self.head = param((d, cfg.padded_vocab), self.dtype, dev)
         if cfg.n_patches:
-            self.patch_proj = _param((d, d), self.dtype, dev)
+            self.patch_proj = param((d, d), self.dtype, dev)
         if cfg.local_per_global:
-            n_super = cfg.n_layers // (cfg.local_per_global + 1)
-            if n_super < 1:
-                raise ValueError(
-                    f"{cfg.name}: group 'super' has {n_super} superblocks — "
-                    f"n_layers={cfg.n_layers} is smaller than the pattern "
-                    f"size")
+            superblock = functools.partial(GemmaSuper, cfg)
+        elif cfg.family == "ssm":
+            superblock = functools.partial(XLSTMSuper, cfg)
+        elif cfg.family == "hybrid":
+            self.shared = AttnBlock(cfg, self.dtype, dev)
+            superblock = functools.partial(ZambaSuper, cfg, self.shared)
+        else:
+            superblock = None
+        if superblock is not None:
             self.group = "super"
-            layers = [GemmaSuper(cfg, self.dtype, dev)
-                      for _ in range(n_super)]
+            layers = [superblock(self.dtype, dev)
+                      for _ in range(_superblocks(cfg))]
         else:
             self.group = "blocks"
             layers = [AttnBlock(cfg, self.dtype, dev,
@@ -235,21 +330,30 @@ class DecoderLM(nn.Module):
         return self._modules[self.group]
 
     def attn_blocks(self) -> list[AttnBlock]:
-        """Every attention layer, in order."""
+        """Every attention layer, in order (zamba2's one shared block
+        once)."""
+        if self.cfg.family == "hybrid":
+            return [self.shared]
         return [blk for layer in self.layers()
                 for blk in (layer.layers() if isinstance(layer, GemmaSuper)
-                            else [layer])]
+                            else [layer] if isinstance(layer, AttnBlock)
+                            else [])]
 
     # -- params ------------------------------------------------------------
     def init_params(self, seed: "int | torch.Generator" = 0) -> "DecoderLM":
         """Draw every weight at the JAX package's scales (embeddings 0.02,
-        projections ``d_in ** -0.5``, the experts' too, with d_in the
-        next-to-last axis; norms 0), each tensor from its own generator
-        seeded from ``seed``; returns ``self``."""
+        projections ``d_in ** -0.5``, the experts', the recurrent blocks'
+        and the conv's too, with d_in the next-to-last axis; norms 0;
+        Mamba2's ``A_log`` 0, ``D`` 1, ``dt_bias`` 0, never drawn), each
+        tensor from its own generator seeded from ``seed``, in the order
+        head, zamba2's shared block, the layers, the patch projection;
+        returns ``self``."""
         base = seed_of(seed)
         projections = [] if self.cfg.tie_embeddings else [self.head]
-        projections += [w for blk in self.attn_blocks()
-                        for w in blk.projections()]
+        if self.cfg.family == "hybrid":
+            projections += self.shared.projections()
+        projections += [w for layer in self.layers()
+                        for w in layer.projections()]
         if self.cfg.n_patches:
             projections.append(self.patch_proj)
         scaled = [(self.embed, 0.02)] + [(w, w.shape[-2] ** -0.5)
@@ -265,11 +369,13 @@ class DecoderLM(nn.Module):
                  cache_kind: str = "full", pos: Optional[int] = None
                  ) -> dict:
         """The per-call context: RoPE tables at ``positions``, the forward's
-        query chunk, and for a decode step the cache kind and the write
-        position ``pos``."""
+        query chunk, the recurrent blocks' chunk (``ssm_chunk`` 256, as
+        the reference's), and for a decode step the cache kind and the
+        write position ``pos``."""
         cfg = self.cfg
         ctx = {"rope": rope_tables(positions, cfg.dh, cfg.rope_theta),
-               "q_chunk": q_chunk, "cache_kind": cache_kind}
+               "q_chunk": q_chunk, "ssm_chunk": 256,
+               "cache_kind": cache_kind}
         if pos is not None:
             ctx["pos"] = int(pos)
         return ctx
@@ -327,7 +433,9 @@ class DecoderLM(nn.Module):
         (capacity ``shape.seq_len``) or ``"clustered"``
         (``seq_len // cluster_compression`` centroids beside a
         ``cluster_window`` ring); gemma's local layers always hold a ring of
-        ``min(window, seq_len)`` slots."""
+        ``min(window, seq_len)`` slots, and the recurrent blocks an O(1)
+        f32 state whatever the shape (zamba2's shared attention takes the
+        ``kind`` cache)."""
         if kind not in CACHE_KINDS:
             raise ValueError(f"unknown cache kind {kind!r}; known: "
                              f"{CACHE_KINDS}")

@@ -1,0 +1,342 @@
+"""Recurrent blocks of the port: mLSTM and sLSTM (xLSTM) and Mamba2 (SSD),
+the counterpart of :mod:`repro.models.ssm`.
+
+The shared engine is :func:`chunked_lin_attn`, a chunkwise-parallel linear
+recurrence ``S_t = a_t S_{t-1} + k_t (x) v_t``, ``y_t = S_t q_t`` with a
+per-step log-decay, in f32.  Within a chunk it is a masked product; the
+chunks' summaries are combined by an exclusive scan over the chunks
+(``S_in[c] = A[c-1] S_in[c-1] + B[c-1]``; the reference's
+``lax.associative_scan`` computes the same states).  The decay gates are
+sigmoidal, so every exponent is clipped to [-60, 0], as in the reference.
+
+Each block is an ``nn.Module`` with ``forward`` (a whole (B, S, d)
+sequence), ``decode`` (one token against its cache, updated **in place**)
+and ``init_cache``.  Parameters keep the reference's names and layouts
+(``wi``, ``wf``, ``conv``, ``A_log``, ``D`` and ``dt_bias`` in f32, the
+rest in the model's type).  No CUDA kernel is on this path: the reference
+has no Pallas kernel here, and plain tensor ops serve.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from .attention import _lead
+from .layers import dot, param, rms_norm
+
+CLIP = 60.0          # every exponent of a decay lies in [-CLIP, 0]
+CONV_W = 4           # Mamba2's causal depthwise conv width
+MAMBA_HEAD = 64      # Mamba2's head dim
+
+
+def _decay(x: torch.Tensor) -> torch.Tensor:
+    return torch.exp(x.clamp(-CLIP, 0.0))
+
+
+def chunked_lin_attn(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     logf: torch.Tensor, *, chunk: int) -> torch.Tensor:
+    """q, k: (B, S, H, dk); v: (B, S, H, dv); logf: (B, S, H), <= 0; all
+    f32.  -> y (B, S, H, dv) with ``y_t = q_t . sum_{s<=t} (prod_{u in
+    (s, t]} f_u) k_s (x) v_s``.  The caller folds the input gate into v
+    (or k)."""
+    b, s, h, dk = q.shape
+    dv = v.shape[-1]
+    chunk = min(chunk, s)
+    assert s % chunk == 0, (s, chunk)
+    nc = s // chunk
+    qc = q.reshape(b, nc, chunk, h, dk)
+    kc = k.reshape(b, nc, chunk, h, dk)
+    vc = v.reshape(b, nc, chunk, h, dv)
+    cum = logf.reshape(b, nc, chunk, h).cumsum(2)      # inclusive
+    tot = cum[:, :, -1]                                # (B, nc, H)
+
+    # within a chunk: the weight of step s at step t (s <= t) is
+    # exp(cum_t - cum_s)
+    att = torch.einsum("bcthd,bcshd->bchts", qc, kc)
+    cum_t = cum.permute(0, 1, 3, 2)                    # (B, nc, H, ch)
+    w = _decay(cum_t[..., :, None] - cum_t[..., None, :])
+    mask = torch.ones((chunk, chunk), dtype=torch.bool,
+                      device=q.device).tril()
+    w = torch.where(mask, w, 0.0)
+    intra = torch.einsum("bchts,bcshd->bcthd", att * w, vc)
+
+    # each chunk's summary, then the state entering each chunk
+    to_end = _decay(tot[:, :, None] - cum)             # (B, nc, ch, H)
+    summary = torch.einsum("bcshd,bcshe->bchde", kc * to_end[..., None], vc)
+    a = _decay(tot)                                    # (B, nc, H)
+    s_in = torch.zeros_like(summary)
+    for c in range(1, nc):
+        s_in[:, c] = a[:, c - 1, :, None, None] * s_in[:, c - 1] \
+            + summary[:, c - 1]
+    cross = torch.einsum("bcthd,bchde->bcthe", qc * _decay(cum)[..., None],
+                         s_in)
+    return (intra + cross).reshape(b, s, h, dv)
+
+
+def lin_attn_step(state: torch.Tensor, q: torch.Tensor, k: torch.Tensor,
+                  v: torch.Tensor, f: torch.Tensor):
+    """One decode step of the same recurrence, ``state`` (B, H, dk, dv)
+    updated in place: q, k (B, H, dk); v (B, H, dv); f (B, H) in (0, 1)
+    (no clip, as in the reference).  -> (state, y (B, H, dv))."""
+    state.mul_(f[..., None, None]).add_(k[..., :, None] * v[..., None, :])
+    return state, torch.einsum("bhd,bhde->bhe", q, state)
+
+
+# ---------------------------------------------------------------------------
+# mLSTM (xLSTM's matrix cell)
+# ---------------------------------------------------------------------------
+
+class MLSTMBlock(nn.Module):
+    """Pre-norm mLSTM block: two up-projections to ``di = 2 d``, the matrix
+    cell over ``n_heads`` heads of ``di / n_heads`` (input gate folded into
+    v beside a ones column for the normaliser), the SiLU gate, and the
+    down-projection."""
+
+    def __init__(self, d: int, n_heads: int, eps: float, dtype, device):
+        super().__init__()
+        di = 2 * d
+        self.n_heads, self.eps = n_heads, eps
+        self.ln = param((d,), dtype, device)
+        self.up1 = param((d, di), dtype, device)
+        self.up2 = param((d, di), dtype, device)
+        self.wq = param((di, di), dtype, device)
+        self.wk = param((di, di), dtype, device)
+        self.wv = param((di, di), dtype, device)
+        self.wi = param((di, n_heads), torch.float32, device)
+        self.wf = param((di, n_heads), torch.float32, device)
+        self.down = param((di, d), dtype, device)
+
+    def projections(self) -> list[torch.Tensor]:
+        return [self.up1, self.up2, self.wq, self.wk, self.wv, self.wi,
+                self.wf, self.down]
+
+    def _cell_inputs(self, x: torch.Tensor):
+        """-> gate (B, S, di) f32, q, k (B, S, H, dh), v_aug (B, S, H,
+        dh + 1) all f32, logf (B, S, H)."""
+        b, s, _ = x.shape
+        h = self.n_heads
+        xn = rms_norm(x, self.ln, self.eps)
+        u = dot(xn, self.up1)
+        gate = F.silu(dot(xn, self.up2).float())
+        dh = u.shape[-1] // h
+        q = dot(u, self.wq).reshape(b, s, h, dh)
+        k = dot(u, self.wk).reshape(b, s, h, dh) * (dh ** -0.5)
+        v = dot(u, self.wv).reshape(b, s, h, dh)
+        uf = u.float()
+        i = torch.sigmoid(uf @ self.wi)
+        logf = F.logsigmoid(uf @ self.wf)
+        iv = i[..., None].to(v.dtype)
+        v_aug = torch.cat([v * iv, iv], dim=-1)
+        return gate, q.float(), k.float(), v_aug.float(), logf
+
+    def _out(self, x, num, den, gate):
+        b, s, _ = x.shape
+        hid = num / den.abs().clamp_min(1.0)[..., None]
+        hid = (hid.reshape(b, s, -1) * gate).to(x.dtype)
+        return x + dot(hid, self.down)
+
+    def forward(self, x: torch.Tensor, ctx: dict) -> torch.Tensor:
+        gate, q, k, v_aug, logf = self._cell_inputs(x)
+        y = chunked_lin_attn(q, k, v_aug, logf,
+                             chunk=ctx.get("ssm_chunk", 256))
+        return self._out(x, y[..., :-1], y[..., -1], gate)
+
+    def decode(self, cache_l: dict, x: torch.Tensor, ctx: dict):
+        gate, q, k, v_aug, logf = self._cell_inputs(x)
+        _, y = lin_attn_step(cache_l["state"], q[:, 0], k[:, 0], v_aug[:, 0],
+                             torch.exp(logf[:, 0]))
+        y = y[:, None]
+        return self._out(x, y[..., :-1], y[..., -1], gate), cache_l
+
+    def init_cache(self, lead, b: int, device) -> dict:
+        di = self.up1.shape[1]
+        dh = di // self.n_heads
+        return {"state": torch.zeros(_lead(lead) + (b, self.n_heads, dh,
+                                                    dh + 1),
+                                     dtype=torch.float32, device=device)}
+
+
+# ---------------------------------------------------------------------------
+# sLSTM (scalar cell, block-diagonal recurrence; strictly sequential)
+# ---------------------------------------------------------------------------
+
+class SLSTMBlock(nn.Module):
+    """Pre-norm sLSTM block: input projections ``wz, wi, wf, wo`` (d, d),
+    block-diagonal recurrent products ``rz ... ro`` (H, dh, dh) in f32,
+    exponential-free gates (tanh / sigmoid), a stabilised normaliser, and
+    the down-projection.  The forward is a Python loop over the sequence,
+    as the reference's ``lax.scan`` is strictly sequential; the input
+    projections of every step are one product before it."""
+
+    def __init__(self, d: int, n_heads: int, eps: float, dtype, device):
+        super().__init__()
+        dh = d // n_heads
+        self.n_heads, self.eps = n_heads, eps
+        self.ln = param((d,), dtype, device)
+        for n in ("wz", "wi", "wf", "wo"):
+            setattr(self, n, param((d, d), dtype, device))
+        for n in ("rz", "ri", "rf", "ro"):
+            setattr(self, n, param((n_heads, dh, dh), dtype, device))
+        self.down = param((d, d), dtype, device)
+
+    def projections(self) -> list[torch.Tensor]:
+        return [self.wz, self.wi, self.wf, self.wo, self.rz, self.ri,
+                self.rf, self.ro, self.down]
+
+    def _weights(self):
+        """(W (d, 4d), R (H, dh, 4 dh)) in f32: the four gates' input and
+        recurrent weights side by side, in the order z, i, f, o."""
+        w = torch.cat([self.wz, self.wi, self.wf, self.wo], 1).float()
+        r = torch.cat([self.rz, self.ri, self.rf, self.ro], 2).float()
+        return w, r
+
+    def _step(self, xg: torch.Tensor, r: torch.Tensor, c, n, h):
+        """xg: (B, 4d) the step's input pre-activations; (c, n, h) (B, d).
+        -> the new (c, n, h)."""
+        b, d = h.shape
+        nh = self.n_heads
+        rec = torch.einsum("bhd,hde->bhe", h.reshape(b, nh, d // nh), r)
+        rec = rec.reshape(b, nh, 4, d // nh).transpose(1, 2).reshape(b, 4, d)
+        pre = xg.reshape(b, 4, d) + rec
+        z = torch.tanh(pre[:, 0])
+        i, f, o = torch.sigmoid(pre[:, 1:]).unbind(1)
+        c = f * c + i * z
+        n = f * n + i
+        return c, n, o * c / n.clamp_min(1.0)
+
+    def forward(self, x: torch.Tensor, ctx: dict) -> torch.Tensor:
+        b, s, d = x.shape
+        w, r = self._weights()
+        xg = rms_norm(x, self.ln, self.eps).float() @ w       # (B, S, 4d)
+        c = n = h = torch.zeros((b, d), dtype=torch.float32, device=x.device)
+        hs = torch.empty((b, s, d), dtype=torch.float32, device=x.device)
+        for t in range(s):
+            c, n, h = self._step(xg[:, t], r, c, n, h)
+            hs[:, t] = h
+        return x + dot(hs.to(x.dtype), self.down)
+
+    def decode(self, cache_l: dict, x: torch.Tensor, ctx: dict):
+        w, r = self._weights()
+        xg = rms_norm(x, self.ln, self.eps).float()[:, 0] @ w
+        c, n, h = self._step(xg, r, cache_l["c"], cache_l["n"], cache_l["h"])
+        for name, t in (("c", c), ("n", n), ("h", h)):
+            cache_l[name].copy_(t)
+        return x + dot(h[:, None].to(x.dtype), self.down), cache_l
+
+    def init_cache(self, lead, b: int, device) -> dict:
+        d = self.down.shape[0]
+        return {n: torch.zeros(_lead(lead) + (b, d), dtype=torch.float32,
+                               device=device) for n in ("c", "n", "h")}
+
+
+# ---------------------------------------------------------------------------
+# Mamba2 (SSD)
+# ---------------------------------------------------------------------------
+
+def causal_conv(u: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """Depthwise causal conv of width ``CONV_W`` in u's type (the weight
+    cast to it, the taps summed in order), then SiLU in f32.  u: (B, S, C);
+    w: (C, CONV_W)."""
+    s = u.shape[1]
+    pads = F.pad(u, (0, 0, CONV_W - 1, 0))
+    wu = w.to(u.dtype)
+    out = pads[:, 0:s] * wu[:, 0]
+    for i in range(1, CONV_W):
+        out = out + pads[:, i:i + s] * wu[:, i]
+    return F.silu(out.float()).to(u.dtype)
+
+
+def conv_history(conv: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
+    """One decode step's conv window: the cached history ``conv`` (B,
+    CONV_W - 1, C) f32 then the step's input ``u`` (B, C) -> (B, CONV_W,
+    C) f32; ``conv`` shifts by one slot in place (the oldest input
+    leaves)."""
+    hist = torch.cat([conv, u[:, None].float()], dim=1)
+    conv.copy_(hist[:, 1:])
+    return hist
+
+
+class Mamba2Block(nn.Module):
+    """Pre-norm Mamba2 block: one input projection to (z, x, B, C, dt), a
+    causal depthwise conv over (x, B, C), the SSD recurrence over ``di /
+    64`` heads of 64 with a ``d_state`` state (B as the key and C as the
+    query of every head), the skip ``D``, the SiLU(z) gate and the output
+    projection.  ``A_log`` = 0, ``D`` = 1 and ``dt_bias`` = 0 as
+    initialised (never drawn)."""
+
+    def __init__(self, d: int, d_state: int, eps: float, dtype, device):
+        super().__init__()
+        di = 2 * d
+        nh = di // MAMBA_HEAD
+        self.d_state, self.eps = d_state, eps
+        conv_ch = di + 2 * d_state
+        f32 = torch.float32
+        self.ln = param((d,), dtype, device)
+        self.in_proj = param((d, 2 * di + 2 * d_state + nh), dtype, device)
+        self.conv = param((conv_ch, CONV_W), f32, device)
+        self.A_log = param((nh,), f32, device)
+        self.D = nn.Parameter(torch.ones((nh,), dtype=f32, device=device),
+                              requires_grad=False)
+        self.dt_bias = param((nh,), f32, device)
+        self.out_proj = param((di, d), dtype, device)
+
+    def projections(self) -> list[torch.Tensor]:
+        return [self.in_proj, self.conv, self.out_proj]
+
+    def _split(self, x: torch.Tensor):
+        xn = rms_norm(x, self.ln, self.eps)
+        di, ds = self.out_proj.shape[0], self.d_state
+        return dot(xn, self.in_proj).split([di, di, ds, ds,
+                                            di // MAMBA_HEAD], dim=-1)
+
+    def _gate_out(self, x, y, z):
+        y = (y * F.silu(z.float())).to(x.dtype)
+        return x + dot(y, self.out_proj)
+
+    def forward(self, x: torch.Tensor, ctx: dict) -> torch.Tensor:
+        b, s, _ = x.shape
+        z, xin, bc, cc, dt_raw = self._split(x)
+        di, ds = xin.shape[-1], self.d_state
+        nh = di // MAMBA_HEAD
+        conv = causal_conv(torch.cat([xin, bc, cc], dim=-1), self.conv)
+        xin, bc, cc = conv.split([di, ds, ds], dim=-1)
+        dt = F.softplus(dt_raw.float() + self.dt_bias)            # (B,S,nh)
+        logf = dt * -torch.exp(self.A_log)
+        xh = xin.reshape(b, s, nh, MAMBA_HEAD).float()
+        k = bc[:, :, None, :].expand(b, s, nh, ds).float()
+        q = cc[:, :, None, :].expand(b, s, nh, ds).float()
+        y = chunked_lin_attn(q, k, xh * dt[..., None], logf,
+                             chunk=ctx.get("ssm_chunk", 256))
+        y = y + xh * self.D[:, None]
+        return self._gate_out(x, y.reshape(b, s, di), z)
+
+    def decode(self, cache_l: dict, x: torch.Tensor, ctx: dict):
+        """One token; the conv history stays f32 (as the reference's), so
+        in bf16 its conv rounds differently from the forward's."""
+        b = x.shape[0]
+        z, xin, bc, cc, dt_raw = self._split(x)
+        di, ds = xin.shape[-1], self.d_state
+        nh = di // MAMBA_HEAD
+        hist = conv_history(cache_l["conv"],
+                            torch.cat([xin, bc, cc], dim=-1)[:, 0])
+        conv = F.silu((hist * self.conv.T[None]).sum(1))          # (B, C)
+        xin, bc, cc = conv.split([di, ds, ds], dim=-1)
+        dt = F.softplus(dt_raw.float()[:, 0] + self.dt_bias)      # (B, nh)
+        f = torch.exp(dt * -torch.exp(self.A_log))
+        xh = xin.reshape(b, nh, MAMBA_HEAD)
+        k = bc[:, None, :].expand(b, nh, ds)
+        q = cc[:, None, :].expand(b, nh, ds)
+        _, y = lin_attn_step(cache_l["state"], q, k, xh * dt[..., None], f)
+        y = y + xh * self.D[:, None]
+        return self._gate_out(x, y.reshape(b, 1, di), z), cache_l
+
+    def init_cache(self, lead, b: int, device) -> dict:
+        di = self.out_proj.shape[0]
+        lead = _lead(lead)
+        f32 = dict(dtype=torch.float32, device=device)
+        return {"state": torch.zeros(lead + (b, di // MAMBA_HEAD,
+                                             self.d_state, MAMBA_HEAD),
+                                     **f32),
+                "conv": torch.zeros(lead + (b, CONV_W - 1,
+                                            di + 2 * self.d_state), **f32)}

@@ -16,7 +16,7 @@ returns (a :class:`~repro_torch.models.DecoderLM` holding its weights:
 ``build_model(cfg)`` then ``init_params(seed)`` or ``load_state_dict``), on
 the device the model lives on.  Decode caches are updated in place; a
 refresh folds only the clustered caches (gemma's global layers, not its
-local rings).  The prompt is fed token by token, as the reference's engine
+local rings; zamba2's shared attention, not its Mamba2 states).  The prompt is fed token by token, as the reference's engine
 feeds it.
 """
 from __future__ import annotations
@@ -138,8 +138,9 @@ class ServeEngine:
     def _refresh_tree(self, c, last: int):
         """Refresh every clustered sub-cache of a cache dict (a dict that
         holds ``kc`` is one stacked clustered cache): the flat layout
-        ``{"blocks": {kc, ...}}`` and gemma's ``{"super": {"local": ...,
-        "global": {kc, ...}}}``, whose window rings pass unchanged."""
+        ``{"blocks": {kc, ...}}``, gemma's ``{"super": {"local": ...,
+        "global": {kc, ...}}}`` and zamba2's ``{"super": {"mamba": ...,
+        "attn": {kc, ...}}}``, whose rings and states pass unchanged."""
         if isinstance(c, dict):
             if "kc" in c:
                 return refresh_layer_cache(c, last, stop=self.refresh_stop,

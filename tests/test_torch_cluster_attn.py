@@ -135,6 +135,55 @@ def test_bf16_inputs(b, h, hkv, nc, dh, bn):
                                atol=5e-2)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,h,hkv,nc,dh,bn", [(1, 4, 4, 128, 80, 64),
+                                              (2, 8, 2, 192, 80, 64)])
+def test_dh80_matches_pallas(b, h, hkv, nc, dh, bn, dtype):
+    """zamba2's head dim (80: 10 pieces of 16 bytes in bf16, 20 in f32),
+    one and four query heads per kv head: the plain version's state
+    against the Pallas kernel's own ``pallas_call`` in interpret mode on
+    the same (bf16-rounded) inputs.  3e-4 (the reference tests'), as both
+    compute in f32 from the same values."""
+    q, kc, vc, cnt = _inputs(11, b, h, hkv, nc, dh)
+    tq, tk, tv = (torch.from_numpy(a).to(dtype) for a in (q, kc, vc))
+    jq, jk, jv = (jnp.asarray(t.float().numpy()) for t in (tq, tk, tv))
+    want = _pallas_state(jq, jk, jv, jnp.asarray(cnt), dh ** -0.5, bn)
+    got = cluster_attn.cluster_attn_partial(tq, tk, tv,
+                                            torch.from_numpy(cnt),
+                                            dh ** -0.5)
+    for g_, w_ in zip(got, want):
+        np.testing.assert_allclose(g_.numpy(), np.asarray(w_), rtol=3e-4,
+                                   atol=3e-4)
+
+
+@pytest.mark.parametrize("dh,dtype,lanes", [
+    (80, torch.bfloat16, 16), (80, torch.float32, 32),
+    (40, torch.bfloat16, 8), (40, torch.float32, 16),
+    (128, torch.bfloat16, 16), (256, torch.bfloat16, 32)])
+def test_attn_inputs_accept_whole_pieces(dh, dtype, lanes):
+    """Any row of whole 16-byte pieces (at most 32) is taken: the lanes of
+    a row are its pieces rounded up to a power of two, the powers of two
+    keep one lane a piece."""
+    q, kc, vc, cnt = _t(*_inputs(12, 1, 8, 2, 40, dh))
+    q, kc, vc = (t.to(dtype) for t in (q, kc, vc))
+    assert tiles.check_attn_inputs("cluster_attn", q, kc, vc, cnt) == (
+        1, 8, 2, 40, dh)
+    assert tiles.attn_lanes_per_row(dh, dtype) == lanes
+    assert tiles.attn_pieces(dh, dtype) == dh * kc.element_size() // 16
+
+
+@pytest.mark.parametrize("dh,dtype", [(12, torch.bfloat16),
+                                      (10, torch.float32),
+                                      (84, torch.bfloat16)])
+def test_attn_inputs_refuse_partial_pieces(dh, dtype):
+    """A row that is not a whole number of 16-byte pieces is refused
+    before any launch (24, 40 and 168 bytes)."""
+    q, kc, vc, cnt = _t(*_inputs(13, 1, 4, 2, 20, dh))
+    q, kc, vc = (t.to(dtype) for t in (q, kc, vc))
+    with pytest.raises(TileError, match="16-byte pieces"):
+        tiles.check_attn_inputs("cluster_attn", q, kc, vc, cnt)
+
+
 def test_plain_version_counts_no_launch():
     before = cluster_attn.launches
     q, kc, vc, cnt = _inputs(5, 1, 4, 2, 20, 16)
@@ -164,9 +213,9 @@ def test_input_contract():
         cluster_attn.cluster_attn_partial(
             *_t(*_inputs(7, 1, 9, 1, 20, 16)), 0.25)
     assert e.value.block == 8
-    with pytest.raises(TileError):                       # 12 * 4 bytes
+    with pytest.raises(TileError):                       # 10 * 4 bytes
         cluster_attn.cluster_attn_partial(
-            *_t(*_inputs(8, 1, 4, 2, 20, 12)), 0.25)
+            *_t(*_inputs(8, 1, 4, 2, 20, 10)), 0.25)
     with pytest.raises(TileError):                       # 64 pieces
         cluster_attn.cluster_attn_partial(
             *_t(*_inputs(9, 1, 2, 1, 8, 256)), 0.25)

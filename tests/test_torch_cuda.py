@@ -411,11 +411,14 @@ def _attn_inputs(dev, b, h, hkv, nc, dh, dtype=torch.float32, seed=6):
                                            (3, 48, 8, 777, 128),
                                            (1, 32, 8, 8192, 128),
                                            (1, 8, 1, 20000, 128),
-                                           (2, 16, 4, 100, 16)])
+                                           (2, 16, 4, 100, 16),
+                                           (1, 32, 32, 8192, 80),
+                                           (2, 16, 4, 777, 80)])
 def test_cluster_attn_kernel_matches_plain(dev, b, h, hkv, nc, dh, dtype):
     """One split (Nc = 64, 100), many (8192 and 20000 centroids), and Nc
-    not a multiple of the split (777, 20000) or of the ring stage; a
-    repeated launch is bit-identical."""
+    not a multiple of the split (777, 20000) or of the ring stage; dh = 80
+    (zamba2's, at G = 1 and G = 4), whose rows are not a power-of-two
+    number of 16-byte pieces; a repeated launch is bit-identical."""
     from repro_torch.kernels import cluster_attn, ref
     q, kc, vc, cnt = _attn_inputs(dev, b, h, hkv, nc, dh, dtype)
     before = cluster_attn.launches

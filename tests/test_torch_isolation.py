@@ -19,6 +19,7 @@ import repro_torch.kernels.scan, repro_torch.kernels.centroid
 import repro_torch.kernels.cluster_attn, repro_torch.models
 import repro_torch.models.lm, repro_torch.models.attention
 import repro_torch.models.moe, repro_torch.models.registry
+import repro_torch.models.ssm
 import repro_torch.stream, repro_torch.stream.kv, repro_torch.serve
 import repro_torch.stream.engine, repro_torch.data.synthetic
 import repro_torch.serve.engine, repro_torch.launch.serve

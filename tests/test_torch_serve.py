@@ -331,24 +331,28 @@ def test_resolve_recompress_precedence():
 @pytest.mark.parametrize("arch", ARCH_IDS)
 def test_build_model_raises_on_unported_families(arch):
     """The attention families build (gemma3, dbrx, llama4 and internvl2
-    among them); the recurrent and encoder-decoder ones raise."""
+    among them) and the recurrent ones (xlstm, zamba2); only the
+    encoder-decoder one raises."""
     cfg = get_config(arch).reduced()
-    if cfg.family in ("dense", "moe", "vlm"):
+    if cfg.family != "audio":
         model = build_model(cfg, device="cpu")
         assert model.cfg == cfg
-        assert model.group == ("super" if cfg.local_per_global else "blocks")
+        patterned = cfg.local_per_global or cfg.family in ("ssm", "hybrid")
+        assert model.group == ("super" if patterned else "blocks")
     else:
-        assert arch in ("xlstm-1.3b", "zamba2-2.7b", "whisper-base")
+        assert arch == "whisper-base"
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             build_model(cfg, device="cpu")
 
 
 @pytest.mark.parametrize("arch", ["gemma3-12b", "dbrx-132b",
                                   "llama4-maverick-400b-a17b",
-                                  "internvl2-2b"])
+                                  "internvl2-2b", "xlstm-1.3b",
+                                  "zamba2-2.7b"])
 def test_build_model_defaults_to_cuda(arch, monkeypatch):
-    """The families built from the attention block run on the card unless
-    the caller asks for the CPU: without one, the default raises."""
+    """The families built from the attention block and the recurrent ones
+    run on the card unless the caller asks for the CPU: without one, the
+    default raises."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
         build_model(get_config(arch).reduced())
