@@ -55,7 +55,16 @@ after:
     xlstm-1.3b on its O(1) recurrent state (one 256-token request), each
     one's forward over 2048 tokens, and its forward's logits against its
     decode's (gated on an f32 copy), on a sound run and on a planted
-    fault.
+    fault;
+  * training: llama3-8b at full width with 2 of its 32 layers (bf16 from
+    seed 0, AdamW with f32 master weights, 8 x 512 tokens in 2
+    micro-batches with remat) through ``Trainer.run`` for 2 steps into a
+    checkpoint, a second ``Trainer`` restoring it bit for bit, one step
+    from each state agreeing bit for bit, the embedding moved by weight
+    decay alone, one step with the gradient compressor (the Lloyd kernel
+    at d = 1 on each leaf's sample); then ``python -m
+    repro_torch.launch.train`` and ``launch.serve --ckpt-dir`` on its
+    checkpoint (reduced), in process.
 
     python3 chip_smoke.py          # needs one CUDA device (sm_90a) and nvcc
     python3 chip_smoke.py --stream-sweep 6   # only the stream's seed sweep
@@ -730,37 +739,48 @@ def oocore_spec(chunk_points: int = OOCORE_CHUNK, sse: str = "pool",
         execution=ExecutionSpec(mode=mode), levels=levels)
 
 
-def device_profile(fn) -> dict:
-    """Where the time of ``fn()`` goes: the wall time of one unprofiled
-    call (every card synchronised at both ends), the device's busy time in
-    a second, profiled call (``torch.profiler``: the kernels' device time
-    and count on every card, the copies apart, as the prefetchers' run on
-    their side streams), the idle share of one card's worth of busy time,
-    and the kernels that take the most device time."""
+def profiled_once(fn):
+    """(``fn()``, its profile): one call under ``torch.profiler`` (the
+    device's activity only: recording the host's operators as well slowed
+    a fold of about 140,000 launches from 2.6 s to over a minute), its
+    wall time under the profiler, the kernels' device time and count on
+    every card, the copies apart (as the prefetchers' run on their side
+    streams), and the kernels that take the most device time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+    sync_all()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        out = fn()
+        sync_all()
+    wall = time.perf_counter() - t0
+    rows = [(r.key, r.count, r.self_device_time_total / 1e6)
+            for r in prof.key_averages() if r.device_type == DeviceType.CUDA]
+    copies = [r for r in rows if r[0].startswith(("Memcpy", "Memset"))]
+    kernels = [r for r in rows if r not in copies]
+    top = sorted((r for r in kernels if r[2] > 0), key=lambda r: -r[2])[:8]
+    return out, dict(profiled_wall_s=wall,
+                     device_busy_s=sum(t for _, _, t in kernels),
+                     device_launches=sum(n for _, n, _ in kernels),
+                     copy_s=sum(t for _, _, t in copies),
+                     top_kernels=[dict(name=k[:80], calls=n, s=t)
+                                  for k, n, t in top])
+
+
+def device_profile(fn) -> dict:
+    """Where the time of ``fn()`` goes: the wall time of one unprofiled
+    call (every card synchronised at both ends), a second, profiled call
+    (:func:`profiled_once`), and the idle share of one card's worth of
+    busy time."""
     sync_all()
     t0 = time.perf_counter()
     fn()
     sync_all()
     wall = time.perf_counter() - t0
-    # the device's activity only: recording the host's operators as well
-    # slowed a fold of about 140,000 launches from 2.6 s to over a minute
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        fn()
-        sync_all()
-    rows = [(r.key, r.count, r.self_device_time_total / 1e6)
-            for r in prof.key_averages() if r.device_type == DeviceType.CUDA]
-    copies = [r for r in rows if r[0].startswith(("Memcpy", "Memset"))]
-    kernels = [r for r in rows if r not in copies]
-    busy = sum(s for _, _, s in kernels)
-    top = sorted((r for r in kernels if r[2] > 0), key=lambda r: -r[2])[:8]
-    return dict(wall_s=wall, device_busy_s=busy,
-                idle_share=max(0.0, 1.0 - busy / wall),
-                device_launches=sum(n for _, n, _ in kernels),
-                copy_s=sum(s for _, _, s in copies),
-                top_kernels=[dict(name=k[:80], calls=n, s=s)
-                             for k, n, s in top])
+    _, prof = profiled_once(fn)
+    del prof["profiled_wall_s"]
+    return dict(wall_s=wall, **prof,
+                idle_share=max(0.0, 1.0 - prof["device_busy_s"] / wall))
 
 
 def sync_all() -> None:
@@ -2099,8 +2119,8 @@ def launcher_request():
     torch.cuda.synchronize()
     reset_launches()
     t0 = time.perf_counter()
-    out = serve_main(["--arch", "llama3-8b", "--prompt-len", "64", "--gen",
-                      "16", "--batch", "2"])
+    out, _ = serve_main(["--arch", "llama3-8b", "--prompt-len", "64",
+                         "--gen", "16", "--batch", "2"])
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     vocab = get_config("llama3-8b").padded_vocab
@@ -2115,6 +2135,10 @@ def launcher_request():
 # width and 4 of its 40 layers (40 take 264 GB in bf16), internvl2-2b
 # at full width and depth; weights from SERVE_SEED
 GEMMA_PROMPT_LEN = 256        # tokens per request (prefill by decode steps)
+# one request: its refresh's five Lloyd launches take 10 s each (d = 256,
+# PERF.md §6), and a second request (about 75 s) would take the script
+# past its 1,000 s target once training came in
+GEMMA_REQUESTS = 1
 GEMMA_FORWARD_LEN = 4096      # the timed forward's tokens (B = 1)
 GEMMA_PARITY_LEN = 64         # forward against decode, every position
 GEMMA_PARITY_WINDOW = 48      # < GEMMA_PARITY_LEN: the local rings wrap
@@ -2160,9 +2184,9 @@ def serve_gemma_long_500k():
     """gemma3-12b at full width and depth (8 superblocks of 5 sliding-window
     layers + 1 global layer), bf16 from ``SERVE_SEED``, with the
     ``long_500k`` cache: the global layers' 8192 centroids + 1024-slot
-    window, the local layers' 1024-slot rings.  Two identical requests of
-    256 + 32 tokens, a refresh every 256 (the Lloyd kernel's SIMT route
-    at d = 256 over 64 lanes)."""
+    window, the local layers' 1024-slot rings.  ``GEMMA_REQUESTS``
+    request(s) of 256 + 32 tokens, a refresh every 256 (the Lloyd kernel's
+    SIMT route at d = 256 over 64 lanes)."""
     from repro_torch.configs import SHAPES, get_config
     from repro_torch.kernels import lloyd, tiles
     from repro_torch.models import build_model
@@ -2184,7 +2208,8 @@ def serve_gemma_long_500k():
           f"the d = 256 refresh takes route {route} with {blocks} blocks a "
           f"lane, not the SIMT route with one")
     requests, answers, last, prompt = serve_requests(
-        cfg, shape, model, GEMMA_PROMPT_LEN, GEN_TOKENS, 2, n_super)
+        cfg, shape, model, GEMMA_PROMPT_LEN, GEN_TOKENS, GEMMA_REQUESTS,
+        n_super)
     profile = decode_profile(model, shape)
     q = layer_query(model, model.layers()[0].glob, prompt[:, -1:],
                     GEMMA_PROMPT_LEN)
@@ -2200,8 +2225,7 @@ def serve_gemma_long_500k():
          refresh_lloyd=dict(route=route, lanes=lanes, blocks_per_lane=blocks,
                             m=nc + shape.cluster_window, k=nc, d=cfg.dh),
          init_s=init_s, requests=requests, answer=answers[0][0].tolist(),
-         identical_answers=True, decode_profile=profile,
-         served_cache_parity=parity)
+         decode_profile=profile, served_cache_parity=parity)
     return requests, parity
 
 
@@ -2611,6 +2635,266 @@ def divergence_by_block(model, p, ctx) -> list:
                 rel.append(round(float((x[:, 0] - xd[:, 0]).abs().max()
                                        / x[:, 0].abs().max()), 6))
     return rel
+
+
+# llama3-8b at full width (d 4096, 32 heads / 8 kv, dh 128, d_ff 14336,
+# vocab 128256) with 2 of its 32 layers: 1.487 B parameters, of which the
+# embedding and the head are 1.05 B; bf16 weights from seed 0, AdamW with
+# f32 master weights (the reference's plan below 3e10 parameters).  The
+# depth is cut for the checkpoint's bytes: 20.8 GB at 2 layers.
+TRAIN_LAYERS = 2
+TRAIN_SEQ, TRAIN_BATCH, TRAIN_MICRO = 512, 8, 2
+TRAIN_STEPS = 2
+COMPRESS_LEVELS = 16
+
+
+def host_available_gb() -> float:
+    for line in Path("/proc/meminfo").read_text().splitlines():
+        if line.startswith("MemAvailable:"):
+            return int(line.split()[1]) * 1024 / 1e9
+    return float("nan")
+
+
+def host_copy(t: torch.Tensor) -> torch.Tensor:
+    return t.to("cpu", copy=True)
+
+
+def bits_equal(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """Same dtype, shape and bit pattern (NaNs and signed zeros too)."""
+    if a.dtype != b.dtype or a.shape != b.shape:
+        return False
+    if a.is_floating_point():
+        ints = {2: torch.int16, 4: torch.int32, 8: torch.int64}
+        a, b = (t.view(ints[t.element_size()]) for t in (a, b))
+    return torch.equal(a, b)
+
+
+def trees_bits_equal(a, b) -> list:
+    """The keys at which two trees of tensors differ (compared on ``a``'s
+    devices)."""
+    from repro_torch import tree
+    fa = {tree.key_of(p): t for p, t in tree.items(a)}
+    fb = {tree.key_of(p): t for p, t in tree.items(b)}
+    if fa.keys() != fb.keys():
+        return sorted(fa.keys() ^ fb.keys())
+    return [k for k in fa if not bits_equal(fa[k], fb[k].to(fa[k].device))]
+
+
+def train_llama3_8b():
+    """The training path at full width (``TRAIN_LAYERS`` of llama3-8b's
+    layers): ``Trainer(steps=2, ckpt_every=2)`` over ``token_stream``
+    batches of 8 x 512 (``TrainPlan(n_micro=2, q_chunk=512, remat=True)``)
+    into a directory under ``build/``, which writes one checkpoint; a
+    second ``Trainer`` on it restores, bit for bit the first run's final
+    state (the two 20.8 GB states side by side on the card); one step from
+    the in-memory state, its loss and parameters kept on the host and the
+    state freed, then one from the restored state agree bit for bit (a
+    step with its gradients beside two states would pass 60 GB); the
+    embedding moves only by weight decay (the hoisted gather gives it no
+    gradient, as in the reference); then one step with the gradient
+    compressor hooked in, whose 1-D fits launch the Lloyd kernel
+    ``max_iters + 1`` times a leaf.  -> (the emitted fields, the head
+    gradient's 4096-value sample as (1, 4096, 1))."""
+    import dataclasses
+    import gc
+    import shutil
+    from repro_torch import tree
+    from repro_torch.ckpt import checkpoint as ckpt
+    from repro_torch.configs import ShapeConfig, get_config
+    from repro_torch.data import token_stream
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.optim import AdamW
+    from repro_torch.train.compress import SAMPLE, make_grad_compressor
+    from repro_torch.train.step import TrainPlan, make_train_step
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+
+    cfg = dataclasses.replace(get_config("llama3-8b"), n_layers=TRAIN_LAYERS)
+    shape = ShapeConfig("train_8x512", TRAIN_SEQ, TRAIN_BATCH, "train")
+    plan = TrainPlan(n_micro=TRAIN_MICRO, q_chunk=512, remat=True)
+    work = ROOT / "build" / "train_llama3_8b"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    tc = TrainerConfig(steps=TRAIN_STEPS, ckpt_every=TRAIN_STEPS,
+                       ckpt_dir=str(work), log_every=1, seed=0)
+    io = dict(save_s=[], restore_s=[])
+    real_save, real_restore = ckpt.save, ckpt.restore
+
+    def save(*a, **k):
+        io["free_disk_gb_before_write"] = shutil.disk_usage(work).free / 1e9
+        io["host_available_gb_before_write"] = host_available_gb()
+        sec, out = timed_s(lambda: real_save(*a, **k))
+        io["save_s"].append(sec)
+        io["bytes"] = (out / "arrays.npz").stat().st_size
+        return out
+
+    def restore(*a, **k):
+        sec, out = timed_s(lambda: real_restore(*a, **k))
+        io["restore_s"].append(sec)
+        return out
+
+    ckpt.save, ckpt.restore = save, restore
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        trainer = Trainer(cfg, shape, make_host_mesh(1, 1), tc, plan=plan)
+        opt = trainer.optimizer
+        check(isinstance(opt, AdamW) and opt.master_weights
+              and not callable(opt.lr), "train: not AdamW with master "
+              "weights at a constant lr")
+        walls, first = [], {}
+        train_step = trainer.train_step
+
+        def recording(state, batch):    # the initial embedding, step walls
+            if not first:
+                first["embed"] = host_copy(state["params"]["embed"])
+            sec, out = timed_s(lambda: train_step(state, batch))
+            walls.append(sec)
+            return out
+
+        trainer.train_step = recording
+        run_s, (state, hist) = timed_s(trainer.run)
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        check(len(hist) == TRAIN_STEPS and all(np.isfinite(hist)),
+              f"train: losses {hist}")
+        check(ckpt.steps(work) == [TRAIN_STEPS], f"train: checkpoints "
+              f"{ckpt.steps(work)}")
+        params = state["params"]
+        n_params = sum(t.numel() for t in tree.leaves(params))
+        state_gb = sum(t.numel() * t.element_size()
+                       for t in tree.leaves(state)) / 1e9
+        # the hoisted embedding: zero moments, the master weights moved by
+        # weight decay alone, step by step as the optimizer computes it
+        m = first.pop("embed").cuda().float()
+        for _ in range(TRAIN_STEPS):
+            m = m - opt.lr * (0.0 + opt.weight_decay * m)
+        embed_ok = (not state["opt"]["m"]["embed"].any()
+                    and not state["opt"]["v"]["embed"].any()
+                    and bits_equal(state["opt"]["master"]["embed"], m)
+                    and bits_equal(params["embed"],
+                                   m.to(params["embed"].dtype)))
+        check(embed_ok, "train: the embedding moved by more than its decay")
+        del m
+        resumed = Trainer(cfg, shape, make_host_mesh(1, 1), tc, plan=plan)
+        restored, start = resumed.restore_or_init()
+        check(start == TRAIN_STEPS, f"train: restored step {start}")
+        differ = trees_bits_equal(restored, state)
+        check(not differ, f"train: the restored state differs at {differ}")
+        batch = token_stream(TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ, cfg.vocab,
+                             seed=tc.seed)
+        (state, met), prof = profiled_once(lambda: train_step(state, batch))
+        # the idle share of the unprofiled step (the run's last, same shape)
+        prof["idle_share"] = max(0.0, 1.0 - prof["device_busy_s"] / walls[-1])
+        loss_mem = float(met["loss"])
+        params_mem = tree.map_(host_copy, state["params"])
+        del state, params, met, trainer, train_step, recording
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        state, met = resumed.train_step(restored, batch)
+        del restored
+        loss_res = float(met["loss"])
+        differ = trees_bits_equal(state["params"], params_mem)
+        check(loss_res == loss_mem and not differ,
+              f"train: the step from the restored state gave loss "
+              f"{loss_res} against {loss_mem}, parameters differ at {differ}")
+        del params_mem
+
+        # one step with the gradient compressor hooked in
+        comp = make_grad_compressor(levels=COMPRESS_LEVELS)
+        seen = {}
+
+        def compress(grads):
+            flat = grads["head"].reshape(-1, 1).float()
+            seen["sample"] = flat[::max(1, flat.shape[0] // SAMPLE)][
+                :SAMPLE].clone()[None]
+            seen["leaves"] = len(tree.leaves(grads))
+            seen["compress_s"], out = timed_s(lambda: comp(grads)[0])
+            return out
+
+        cstep = make_train_step(resumed.model, resumed.optimizer, cfg, shape,
+                                plan, compress_fn=compress)
+        batch = token_stream(TRAIN_STEPS + 1, TRAIN_BATCH, TRAIN_SEQ,
+                             cfg.vocab, seed=tc.seed)
+        reset_launches()
+        step_s, (state, met) = timed_s(lambda: cstep(state, batch))
+        launches = read_launches()
+        want = seen["leaves"] * (8 + 1)     # max_iters + the final pass
+        check(seen["leaves"] == 12 and launches["lloyd_step"] == want
+              and sum(launches.values()) == want,
+              f"train: compressor launches {launches}, want {want} Lloyd "
+              f"launches over {seen['leaves']} leaves")
+        check(np.isfinite(float(met["loss"])), "train: compressed step loss")
+        fields = dict(
+            arch=cfg.name, layers=TRAIN_LAYERS, of_layers=32,
+            n_params=n_params, state_gb=state_gb, plan=dataclasses.asdict(
+                plan), optimizer=dict(name="adamw", master_weights=True,
+                                      lr=opt.lr,
+                                      weight_decay=opt.weight_decay),
+            batch=[TRAIN_BATCH, TRAIN_SEQ], losses=hist, run_s=run_s,
+            step_wall_s=walls, tokens_per_s=TRAIN_BATCH * TRAIN_SEQ
+            / walls[-1], step_profile=prof, peak_gb=peak_gb,
+            checkpoint=io,
+            restored_bitwise=True, resumed_step=dict(
+                loss=loss_res, in_memory_loss=loss_mem,
+                params_bitwise=True),
+            embed_decay_only=embed_ok,
+            compressed_step=dict(step_s=step_s,
+                                 compress_s=seen["compress_s"],
+                                 leaves=seen["leaves"],
+                                 loss=float(met["loss"]),
+                                 launches=launches))
+        emit("train_llama3_8b", **fields)
+        del state, met, resumed, cstep
+        gc.collect()
+        torch.cuda.empty_cache()
+        return fields, seen["sample"]
+    finally:
+        ckpt.save, ckpt.restore = real_save, real_restore
+        shutil.rmtree(work, ignore_errors=True)
+
+
+def train_launcher():
+    """``python -m repro_torch.launch.train --arch llama3-8b --reduced
+    --steps 4 --ckpt-dir D``, then ``python -m repro_torch.launch.serve
+    --arch llama3-8b --reduced --ckpt-dir D --prompt-len 16 --gen 4
+    --batch 2``, both in this process on the card; the served parameters
+    are bit for bit the checkpoint's."""
+    import shutil
+    from repro_torch import tree
+    from repro_torch.ckpt import checkpoint as ckpt
+    from repro_torch.convert import lm_params_to_stacked
+    from repro_torch.launch.serve import main as serve_main
+    from repro_torch.launch.train import main as train_main
+
+    work = ROOT / "build" / "train_launcher"
+    shutil.rmtree(work, ignore_errors=True)
+    train_argv = ["--arch", "llama3-8b", "--reduced", "--steps", "4",
+                  "--ckpt-dir", str(work)]
+    serve_argv = ["--arch", "llama3-8b", "--reduced", "--ckpt-dir",
+                  str(work), "--prompt-len", "16", "--gen", "4", "--batch",
+                  "2"]
+    try:
+        train_s, (_, hist) = timed_s(lambda: train_main(train_argv))
+        check(len(hist) == 4 and all(np.isfinite(hist))
+              and ckpt.steps(work) == [4], f"train launcher: {hist}, "
+              f"checkpoints {ckpt.steps(work)}")
+        reset_launches()
+        serve_s, (out, model) = timed_s(lambda: serve_main(serve_argv))
+        served = lm_params_to_stacked({n: p.detach() for n, p in
+                                       model.named_parameters()})
+        with np.load(work / "step_00000004" / "arrays.npz") as data:
+            differ = [tree.key_of(p) for p, t in tree.items(served)
+                      if not bits_equal(t.cpu(), ckpt.from_numpy(
+                          data["params/" + tree.key_of(p)]))]
+        check(not differ, f"served parameters differ from the checkpoint's "
+              f"at {differ}")
+        check(tuple(out.shape) == (2, 4), f"served {tuple(out.shape)}")
+        emit("train_launcher", train_argv=" ".join(train_argv[:-1]) + " D",
+             serve_argv=" ".join(serve_argv[:4] + ["D"] + serve_argv[5:]),
+             train_s=train_s, losses=hist, serve_s=serve_s,
+             served_bitwise=True, tokens=out.tolist(),
+             launches=read_launches())
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
 
 
 def main() -> int:
@@ -3266,6 +3550,24 @@ def main() -> int:
     emit("models_parity", cases=model_cases,
          seconds=time.perf_counter() - t_models)
 
+    # -- 11b. training: llama3-8b at full width (2 of its 32 layers), its
+    # checkpoint and restart, one step with the gradient compressor (the
+    # Lloyd kernel at d = 1 on each leaf's sample), the two launchers
+    # (train, then serve the checkpoint), and the Lloyd kernel on the head
+    # gradient's sample against its plain version
+    from repro_torch.core.kmeans import landmark_init
+    t_train = time.perf_counter()
+    train, comp_x = train_llama3_8b()
+    torch.cuda.empty_cache()
+    train_launcher()
+    comp_w = torch.ones(comp_x.shape[:2], device=comp_x.device)
+    comp_c = landmark_init(comp_x, comp_w, COMPRESS_LEVELS)
+    train_cases = [lloyd_parity("lloyd_compressor_head", comp_x, comp_w,
+                                comp_c)]
+    cases += train_cases
+    emit("train_parity", cases=train_cases,
+         seconds=time.perf_counter() - t_train)
+
     # -- 12. kernel times at the paths' shapes ------------------------------
     # ms / plain_ms / library_ms: device time per call, with the inputs in
     # HBM (rotated copies); call_ms: the kernel's time per call with its
@@ -3483,6 +3785,8 @@ def main() -> int:
         served_ms=[ms for r in gemma_requests for f in r["refreshes"]
                    for ms in f["lloyd_device_ms"]])
     l_dbrx = lloyd_kernel_only("dbrx refresh, 32 lanes", 32, refresh)
+    l_compress = lloyd_entry("compressor, the head gradient's sample",
+                             comp_x, comp_w, comp_c)
     del gemma_refresh
     # the zamba2 refresh (tensor cores, d = 80): 4 lanes against the plain
     # version; all 192 lanes the served launches' own device times; its
@@ -3607,6 +3911,8 @@ def main() -> int:
                  "serve_gemma_long_500k": gemma_launches["lloyd_step"],
                  "serve_moe_long_500k": moe_launches["lloyd_step"],
                  "serve_zamba_long_500k": zamba_launches["lloyd_step"],
+                 "train_llama3_8b_compressed_step": train[
+                     "compressed_step"]["launches"]["lloyd_step"],
                  "oocore_5m": oo["launches"]["lloyd_step"],
                  "oocore_5m_flush": oo["flush_launches"]["lloyd_step"],
                  "stream_5m": st5["launches"]["lloyd_step"],
@@ -3618,7 +3924,7 @@ def main() -> int:
              library_ms=None,
              shapes=[l_local, l_merge, l_pq, l_refresh4, l_refresh,
                      l_refresh_bf16, l_gemma4, l_gemma, l_dbrx, l_zamba4,
-                     l_zamba, *l_index,
+                     l_zamba, l_compress, *l_index,
                      *l_oocore, *l_mesh]),
         dict(name="assign_argmin", route="cuda",
              source="src/repro_torch/kernels/csrc/assign.cu",

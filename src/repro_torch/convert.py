@@ -10,6 +10,13 @@ dict of the port's ``DecoderLM`` (:func:`lm_params_from_jax`), and a
 streaming clusterer's state continues in the port
 (:func:`stream_state_from_jax`).  Only plain Python and numpy cross over:
 nothing here imports the JAX package.
+
+Training keeps the reference's layout: a train state's parameters,
+gradients and optimizer moments are the reference's nested tree of
+stacked leaves (:func:`lm_params_to_stacked`), which the optimizers, the
+gradient compressor and the checkpoint see whole, and a model's per-layer
+parameters are views into it (:func:`bind_stacked`).  A reference train
+state continues in the port (:func:`train_state_from_jax`).
 """
 from __future__ import annotations
 
@@ -18,6 +25,7 @@ from typing import Any, Mapping
 import numpy as np
 import torch
 
+from repro_torch import tree
 from repro_torch.api import SampledKMeans
 from repro_torch.core.device import resolve_device
 from repro_torch.core.pipeline import SampledClusteringResult
@@ -120,15 +128,6 @@ def stream_state_from_jax(state, seed: int, *,
                        step=t(state.step, torch.int32), key=int(seed))
 
 
-def _leaves(tree, prefix=()):
-    """(path, array) for every array of a nested parameter dict."""
-    for name, sub in tree.items():
-        if isinstance(sub, Mapping):
-            yield from _leaves(sub, prefix + (name,))
-        else:
-            yield prefix + (name,), sub
-
-
 def lm_params_from_jax(cfg, params: Mapping[str, Any]
                        ) -> dict[str, torch.Tensor]:
     """The state dict of the port's ``DecoderLM`` for ``cfg`` from the JAX
@@ -141,18 +140,25 @@ def lm_params_from_jax(cfg, params: Mapping[str, Any]
     ``we3``, ``we2``[, ``w1``, ``w3``, ``w2``]}), or ``g_super`` whose
     per-superblock stacks are (n_super, per, ...) (gemma's ``local``,
     xlstm's ``mlstm``, zamba2's ``mamba``) or (n_super, ...) (gemma's
-    ``global``, xlstm's ``slstm``).  CPU tensors, each in its target
-    parameter's dtype (``cfg.dtype``, or f32 where the reference keeps
-    f32: the router, ``wi``, ``wf``, ``conv``, ``A_log``, ``D``,
-    ``dt_bias``); load them with ``model.load_state_dict(...)``."""
-    from repro_torch.models.lm import DecoderLM, _superblocks
+    ``global``, xlstm's ``slstm``); each leaf's place is
+    :func:`stack_path`'s.  CPU tensors, each in its target parameter's
+    dtype (``cfg.dtype``, or f32 where the reference keeps f32: the
+    router, ``wi``, ``wf``, ``conv``, ``A_log``, ``D``, ``dt_bias``);
+    load them with ``model.load_state_dict(...)``."""
+    from repro_torch.models.lm import DecoderLM
 
     target = dict(DecoderLM(cfg, device="meta").named_parameters())
+    layout: dict[tuple, list] = {}
+    for name in target:
+        path, idx = stack_path(name)
+        layout.setdefault(path, []).append((idx, name))
+    given = dict(tree.items(dict(params)))
+    unknown = sorted(set(given) - set(layout))
+    if unknown:
+        raise KeyError(f"lm_params_from_jax: {cfg.name} has no parameter "
+                       f"{'/'.join(unknown[0])!r}")
 
     def t(name, a):
-        if name not in target:
-            raise KeyError(f"lm_params_from_jax: {cfg.name} has no "
-                           f"parameter {name!r}")
         out = torch.as_tensor(np.array(a, dtype=np.float32))
         if tuple(out.shape) != tuple(target[name].shape):
             raise ValueError(f"lm_params_from_jax: {name} is "
@@ -160,33 +166,109 @@ def lm_params_from_jax(cfg, params: Mapping[str, Any]
                              f"{tuple(target[name].shape)}")
         return out.to(target[name].dtype)
 
-    state = {name: t(name, params[name]) for name in
-             ("embed", "final_ln", "head", "patch_proj") if name in params}
-    for path, arr in _leaves(params.get("shared", {})):
-        state["shared." + ".".join(path)] = t("shared." + ".".join(path),
-                                             arr)
-    group = "super" if "g_super" in params else "blocks"
-    n_super = _superblocks(cfg) if group == "super" else 0
-    per = {"local": cfg.local_per_global, "mlstm": cfg.mlstm_per_slstm,
-           "mamba": cfg.mamba_per_attn}
-    for path, arr in _leaves(params[f"g_{group}"]):
-        arr = np.asarray(arr)
-        # the stacking axes and the port's name for each stacked index:
-        # blocks.{i}, super.{i}.{local,mlstm,mamba}.{j} or
-        # super.{i}.{global,slstm}
-        if group == "blocks":
-            want, name = (cfg.n_layers,), (lambda i: f"{i[0]}")
-        elif path[0] in per:
-            want = (n_super, per[path[0]])
-            name = (lambda i, p=path[0]: f"{i[0]}.{p}.{i[1]}")
-        else:
-            want, name = (n_super,), (lambda i, p=path[0]: f"{i[0]}.{p}")
-        rest = ".".join(path if group == "blocks" else path[1:])
+    state = {}
+    for path, entries in layout.items():
+        if path not in given:
+            continue
+        arr = np.asarray(given[path])
+        idxs = [i for i, _ in entries]
+        want = tuple(max(i[a] for i in idxs) + 1
+                     for a in range(len(idxs[0])))
         if arr.shape[:len(want)] != want:
-            raise ValueError(f"lm_params_from_jax: g_{group} "
-                             f"{'.'.join(path)} stacks {arr.shape[:len(want)]}"
-                             f" layers, {cfg.name} has {want}")
-        for idx in np.ndindex(*want):
-            key = f"{group}.{name(idx)}.{rest}"
-            state[key] = t(key, arr[idx])
+            raise ValueError(f"lm_params_from_jax: {path[0]} "
+                             f"{'.'.join(path[1:])} stacks "
+                             f"{arr.shape[:len(want)]} layers, {cfg.name} "
+                             f"has {want}")
+        for idx, name in entries:
+            state[name] = t(name, arr[idx])
     return state
+
+
+def stack_path(name: str) -> tuple[tuple, tuple]:
+    """Where the port's parameter ``name`` lives in the reference's tree:
+    (the leaf's path, the index along its stacking axes).
+    ``blocks.3.attn.wq`` -> ((``g_blocks``, ``attn``, ``wq``), (3,));
+    ``super.2.local.1.ln1`` -> ((``g_super``, ``local``, ``ln1``), (2,
+    1)); ``super.2.global.ln1`` -> ((``g_super``, ``global``, ``ln1``),
+    (2,)); an unstacked leaf (``embed``, ``shared.attn.wq``) -> (its
+    path, ())."""
+    parts = name.split(".")
+    if parts[0] == "blocks":
+        return ("g_blocks", *parts[2:]), (int(parts[1]),)
+    if parts[0] == "super":
+        i, sub = int(parts[1]), parts[2]
+        if parts[3].isdigit():
+            return ("g_super", sub, *parts[4:]), (i, int(parts[3]))
+        return ("g_super", sub, *parts[3:]), (i,)
+    return tuple(parts), ()
+
+
+def lm_params_to_stacked(named: Mapping[str, torch.Tensor]) -> dict:
+    """The inverse of :func:`lm_params_from_jax` on tensors: the
+    reference's nested tree of stacked leaves (``embed``, ``final_ln``,
+    ``head``, ``patch_proj``, ``shared/...``, ``g_blocks/...`` (L, ...),
+    ``g_super/...`` (n_super[, per], ...)) from tensors keyed by the
+    port's parameter names: parameters, gradients or optimizer moments.
+    Stacked leaves are new tensors; an unstacked leaf is the given tensor
+    itself."""
+    groups: dict[tuple, list] = {}
+    for name, t in named.items():
+        path, idx = stack_path(name)
+        groups.setdefault(path, []).append((idx, t))
+    paths, values = [], []
+    for path, entries in groups.items():
+        entries.sort(key=lambda e: e[0])
+        idxs = [i for i, _ in entries]
+        lead = tuple(max(i[a] for i in idxs) + 1 for a in range(len(idxs[0])))
+        if idxs != list(np.ndindex(*lead)):
+            raise ValueError(f"lm_params_to_stacked: {'/'.join(path)} has "
+                             f"layers {idxs}, not every index of {lead}")
+        t0 = entries[0][1]
+        values.append(t0 if not lead else torch.stack(
+            [t for _, t in entries]).reshape(lead + tuple(t0.shape)))
+        paths.append(path)
+    return tree.unflatten(paths, values)
+
+
+def bind_stacked(model, params: Mapping) -> None:
+    """Make every parameter of ``model`` (a ``DecoderLM``) a view of its
+    place in ``params``, a tree of :func:`lm_params_to_stacked`'s layout
+    of the same shapes and dtypes: the model then computes with the
+    tree's values, and an update of the tree in place reaches it."""
+    for name, p in model.named_parameters():
+        path, idx = stack_path(name)
+        leaf = tree.get(params, path)[idx]
+        if leaf.shape != p.shape or leaf.dtype != p.dtype:
+            raise ValueError(f"bind_stacked: {name} is {tuple(p.shape)} "
+                             f"{p.dtype}, the tree holds "
+                             f"{tuple(leaf.shape)} {leaf.dtype}")
+        p.data = leaf
+
+
+def stacked_params(model) -> dict:
+    """``model``'s parameters in the reference's stacked tree (copies of
+    the layers' parameters), with ``model`` bound to it
+    (:func:`bind_stacked`)."""
+    params = lm_params_to_stacked({n: p.detach()
+                                   for n, p in model.named_parameters()})
+    bind_stacked(model, params)
+    return params
+
+
+def stacked_like(cfg) -> dict:
+    """The stacked tree of ``cfg``'s parameters on the ``meta`` device:
+    their shapes and dtypes, for ``ckpt.restore``'s ``like``."""
+    from repro_torch.models.lm import DecoderLM
+    return lm_params_to_stacked({n: p.detach() for n, p in DecoderLM(
+        cfg, device="meta").named_parameters()})
+
+
+def train_state_from_jax(state: Mapping[str, Any], *,
+                         device: "torch.device | str | None" = None) -> dict:
+    """The port's train state on ``device`` (``None``: the CUDA device)
+    from a JAX-package train state ``{"params", "opt", "step"}`` given as
+    numpy arrays (bf16 leaves as ``ml_dtypes`` bfloat16 or their ``|V2``
+    bits): the same nested tree, each leaf a tensor of its dtype."""
+    from repro_torch.ckpt.checkpoint import from_numpy
+    dev = resolve_device(device)
+    return tree.map_(lambda a: from_numpy(a).to(dev), dict(state))

@@ -1,8 +1,9 @@
 """Synthetic data for the PyTorch port.
 
-``blobs`` and ``drifting_blobs`` are copies of the JAX package's
-generators (numpy only), so the port's tests, ``chip_smoke.py`` and the JAX
-package build the same points from the same seed.
+``blobs``, ``drifting_blobs`` and ``token_stream`` are copies of the JAX
+package's generators (numpy only), so the port's tests, ``chip_smoke.py``
+and the JAX package build the same points and batches from the same
+seed.
 """
 from __future__ import annotations
 
@@ -46,3 +47,21 @@ def drifting_blobs(n_chunks: int, chunk_size: int, n_clusters: int = 8,
         labels.append(ids)
         traj.append(centers.astype(np.float32).copy())
     return np.stack(chunks), np.stack(labels), np.stack(traj)
+
+
+def token_stream(step: int, global_batch: int, seq_len: int, vocab: int,
+                 seed: int = 0):
+    """Deterministic batch for a given step (structured enough for a language
+    model to reduce loss on: a noisy order-2 markov-ish process).  Returns
+    numpy ``{"tokens", "labels"}``, each (global_batch, seq_len) int32."""
+    rng = np.random.default_rng((seed * 1_000_003 + step) % (2 ** 63))
+    base = rng.integers(0, vocab, (global_batch, seq_len + 1), dtype=np.int64)
+    # inject learnable structure: token_{t+1} = (token_t + delta) % vocab on
+    # 70% of positions
+    delta = rng.integers(1, 17)
+    mask = rng.random((global_batch, seq_len)) < 0.7
+    nxt = (base[:, :-1] + delta) % vocab
+    base[:, 1:][mask] = nxt[mask]
+    tokens = base[:, :-1].astype(np.int32)
+    labels = base[:, 1:].astype(np.int32)
+    return {"tokens": tokens, "labels": labels}

@@ -24,8 +24,14 @@ lpg, B, kv, W, dh) rings, "global": (n_super, B, kv, ...)}}``; xlstm's
 "slstm": {c, n, h: (n_super, B, d)}}}``; zamba2's ``{"super": {"mamba":
 {"state": (n_super, mpa, B, nh, d_state, 64), "conv": (n_super, mpa, B,
 3, C)}, "attn": (n_super, B, kv, ...)}}``.  A decode step is a Python
-loop over the layers that updates them in place.  ``forward`` and
-``loss`` run under ``no_grad`` (training comes with the trainer).
+loop over the layers that updates them in place, under ``no_grad``.
+``forward``, ``loss`` and ``loss_embedded`` are differentiable: the
+parameters are made without gradients (serving builds no graph), and the
+trainer turns gradients on for the ones it trains
+(:mod:`repro_torch.train.step`).  With ``remat`` each layer (each
+superblock) runs under ``torch.utils.checkpoint``, the counterpart of the
+reference's ``jax.checkpoint(..., nothing_saveable)``: its activations
+are recomputed in the backward pass.
 """
 from __future__ import annotations
 
@@ -34,6 +40,7 @@ from typing import Optional
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs import ArchConfig, ShapeConfig
 from repro_torch.core.device import derive_seed, resolve_device, seed_of
@@ -48,6 +55,29 @@ from .moe import moe_ffn, moe_ffn_decode
 from .ssm import Mamba2Block, MLSTMBlock, SLSTMBlock
 
 CACHE_KINDS = ("full", "clustered")
+
+
+class _HeadProduct(torch.autograd.Function):
+    """``x @ w`` of two low-precision CUDA matrices as an f32 product
+    (``torch.mm(..., out_dtype=f32)``, which has no derivative of its
+    own).  The backward is the reference's transpose of
+    ``dot_general(..., preferred_element_type=f32)``: the f32 cotangent
+    times the other operand in f32, rounded to the operand's type."""
+
+    @staticmethod
+    def forward(ctx, x, w):
+        ctx.save_for_backward(x, w)
+        return torch.mm(x, w, out_dtype=torch.float32)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        dx = dw = None
+        if ctx.needs_input_grad[0]:
+            dx = (g @ w.float().T).to(x.dtype)
+        if ctx.needs_input_grad[1]:
+            dw = (x.float().T @ g).to(w.dtype)
+        return dx, dw
 
 
 def _index(tree, i):
@@ -390,18 +420,25 @@ class DecoderLM(nn.Module):
             x = torch.cat([patches, x], dim=1)
         return x
 
-    def run_groups(self, x: torch.Tensor, ctx: dict
+    def run_groups(self, x: torch.Tensor, ctx: dict, *, remat: bool = True
                    ) -> tuple[torch.Tensor, torch.Tensor]:
         """Every layer over (B, S, d) -> (x, the MoE load-balance loss summed
-        over the layers, f32)."""
+        over the layers, f32).  ``remat`` recomputes each layer's
+        activations in the backward pass instead of keeping them (only
+        where a gradient is being recorded: serving runs the layers
+        plainly)."""
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        remat = remat and torch.is_grad_enabled() and (
+            x.requires_grad or any(p.requires_grad for p in self.parameters()))
         for layer in self.layers():
-            x, aux = layer(x, aux, ctx)
+            if remat:
+                x, aux = checkpoint(layer, x, aux, ctx, use_reentrant=False)
+            else:
+                x, aux = layer(x, aux, ctx)
         return x, aux
 
-    @torch.no_grad()
     def forward(self, batch: dict, ctx: Optional[dict] = None, *,
-                last_only: bool = False
+                remat: bool = True, last_only: bool = False
                 ) -> tuple[torch.Tensor, torch.Tensor]:
         """``batch``: ``tokens`` (B, S) and, for a VLM, ``patches``; ``ctx``
         from :meth:`make_ctx` (default: positions 0 .. S + n_patches - 1,
@@ -411,21 +448,34 @@ class DecoderLM(nn.Module):
         if ctx is None:
             s = batch["tokens"].shape[1] + self.cfg.n_patches
             ctx = self.make_ctx(torch.arange(s, device=self.device))
-        x, aux = self.run_groups(self.embed_in(batch), ctx)
+        x, aux = self.run_groups(self.embed_in(batch), ctx, remat=remat)
         if last_only:
             x = x[:, -1:]
         return self.head_out(x), aux
 
-    @torch.no_grad()
     def loss(self, batch: dict, ctx: Optional[dict] = None, *,
-             aux_weight: float = 0.01) -> torch.Tensor:
+             remat: bool = True, aux_weight: float = 0.01) -> torch.Tensor:
         """Mean next-token NLL against ``batch["labels"]`` (B, S) over the
         text positions (the patches' are left out), plus ``aux_weight``
         times the MoE load-balance loss."""
-        logits, aux = self.forward(batch, ctx)
+        logits, aux = self.forward(batch, ctx, remat=remat)
+        return self._text_loss(logits, batch["labels"], aux, aux_weight)
+
+    def loss_embedded(self, x: torch.Tensor, rest: dict, ctx: dict, *,
+                      remat: bool = True, aux_weight: float = 0.01
+                      ) -> torch.Tensor:
+        """:meth:`loss` from inputs already embedded (``x`` from
+        :meth:`embed_in`), so the trainer gathers the embeddings once a
+        step, outside the gradient; ``rest`` holds the batch's other
+        leaves (``labels``)."""
+        x, aux = self.run_groups(x, ctx, remat=remat)
+        return self._text_loss(self.head_out(x), rest["labels"], aux,
+                               aux_weight)
+
+    def _text_loss(self, logits, labels, aux, aux_weight):
         if self.cfg.n_patches:
             logits = logits[:, self.cfg.n_patches:]
-        return cross_entropy(logits, batch["labels"]) + aux_weight * aux
+        return cross_entropy(logits, labels) + aux_weight * aux
 
     # -- decode ------------------------------------------------------------
     def init_caches(self, b: int, shape: ShapeConfig, kind: str) -> dict:
@@ -448,13 +498,13 @@ class DecoderLM(nn.Module):
         from the activations and the head in their own type, with no
         rounding of the product to that type (the reference's
         ``dot_general(..., preferred_element_type=f32)``).  On CUDA the
-        product reads the head once and writes f32; on the CPU it is the
-        f32 product."""
+        product reads the head once and writes f32 (:class:`_HeadProduct`,
+        which gives it a backward); on the CPU it is the f32 product."""
         xn = rms_norm(x, self.final_ln, self.cfg.norm_eps)
         w = self.embed.T if self.cfg.tie_embeddings else self.head
         x2 = xn.reshape(-1, xn.shape[-1])
         if x2.device.type == "cuda" and x2.dtype != torch.float32:
-            logits = torch.mm(x2, w, out_dtype=torch.float32)
+            logits = _HeadProduct.apply(x2, w)
         else:
             logits = x2.float() @ w.float()
         return logits.reshape(*xn.shape[:-1], w.shape[-1])

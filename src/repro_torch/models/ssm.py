@@ -6,7 +6,8 @@ recurrence ``S_t = a_t S_{t-1} + k_t (x) v_t``, ``y_t = S_t q_t`` with a
 per-step log-decay, in f32.  Within a chunk it is a masked product; the
 chunks' summaries are combined by an exclusive scan over the chunks
 (``S_in[c] = A[c-1] S_in[c-1] + B[c-1]``; the reference's
-``lax.associative_scan`` computes the same states).  The decay gates are
+``lax.associative_scan`` computes the same states), each state read by its
+chunk as the scan reaches it.  The decay gates are
 sigmoidal, so every exponent is clipped to [-60, 0], as in the reference.
 
 Each block is an ``nn.Module`` with ``forward`` (a whole (B, S, d)
@@ -65,13 +66,17 @@ def chunked_lin_attn(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     to_end = _decay(tot[:, :, None] - cum)             # (B, nc, ch, H)
     summary = torch.einsum("bcshd,bcshe->bchde", kc * to_end[..., None], vc)
     a = _decay(tot)                                    # (B, nc, H)
-    s_in = torch.zeros_like(summary)
-    for c in range(1, nc):
-        s_in[:, c] = a[:, c - 1, :, None, None] * s_in[:, c - 1] \
-            + summary[:, c - 1]
-    cross = torch.einsum("bcthd,bchde->bcthe", qc * _decay(cum)[..., None],
-                         s_in)
-    return (intra + cross).reshape(b, s, h, dv)
+    # each chunk's cross term from the state entering it, one state at a
+    # time: no (B, nc, H, dk, dv) stack of states, and no state written
+    # over while autograd holds it for a product
+    qd = qc * _decay(cum)[..., None]
+    state = torch.zeros_like(summary[:, 0])
+    cross = []
+    for c in range(nc):
+        cross.append(torch.einsum("bthd,bhde->bthe", qd[:, c], state))
+        if c + 1 < nc:
+            state = a[:, c, :, None, None] * state + summary[:, c]
+    return (intra + torch.stack(cross, 1)).reshape(b, s, h, dv)
 
 
 def lin_attn_step(state: torch.Tensor, q: torch.Tensor, k: torch.Tensor,
@@ -210,11 +215,11 @@ class SLSTMBlock(nn.Module):
         w, r = self._weights()
         xg = rms_norm(x, self.ln, self.eps).float() @ w       # (B, S, 4d)
         c = n = h = torch.zeros((b, d), dtype=torch.float32, device=x.device)
-        hs = torch.empty((b, s, d), dtype=torch.float32, device=x.device)
+        hs = []
         for t in range(s):
             c, n, h = self._step(xg[:, t], r, c, n, h)
-            hs[:, t] = h
-        return x + dot(hs.to(x.dtype), self.down)
+            hs.append(h)
+        return x + dot(torch.stack(hs, 1).to(x.dtype), self.down)
 
     def decode(self, cache_l: dict, x: torch.Tensor, ctx: dict):
         w, r = self._weights()

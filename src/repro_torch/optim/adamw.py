@@ -1,0 +1,79 @@
+"""AdamW with f32 moments (and optional f32 master weights)."""
+from __future__ import annotations
+
+from typing import Callable
+
+import torch
+
+from repro_torch import tree
+
+
+class AdamW:
+    """``update`` works in place: the parameters, moments and master
+    weights it is given are overwritten with the step's (the counterpart
+    of the reference's jitted step, whose state is donated), and returned.
+    A leaf of two or more dims is decayed (the reference's ``p.ndim >=
+    2``, on the stacked leaf: the stacked norms are decayed too)."""
+
+    def __init__(self, lr: float | Callable = 3e-4, b1: float = 0.9,
+                 b2: float = 0.95, eps: float = 1e-8,
+                 weight_decay: float = 0.1, master_weights: bool = False,
+                 grad_clip: float = 1.0):
+        self.lr, self.b1, self.b2, self.eps = lr, b1, b2, eps
+        self.weight_decay = weight_decay
+        self.master_weights = master_weights
+        self.grad_clip = grad_clip
+
+    def init(self, params) -> dict:
+        def f32(p):
+            return torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+        state = {"step": torch.zeros((), dtype=torch.int32,
+                                     device=tree.leaves(params)[0].device),
+                 "m": tree.map_(f32, params),
+                 "v": tree.map_(f32, params)}
+        if self.master_weights:
+            state["master"] = tree.map_(
+                lambda p: p.detach().to(torch.float32, copy=True), params)
+        return state
+
+    def _lr(self, step):
+        return self.lr(step) if callable(self.lr) else self.lr
+
+    @torch.no_grad()
+    def update(self, grads, state, params):
+        """-> (params, state, {``grad_norm``, ``lr``}), updated in place."""
+        state["step"] += 1
+        step = state["step"]
+        lr = self._lr(step)
+        gl = tree.leaves(grads)
+        if self.grad_clip:
+            gnorm = torch.sqrt(sum(torch.sum(torch.square(g.float()))
+                                   for g in gl))
+            scale = torch.clamp(self.grad_clip / (gnorm + 1e-9), max=1.0)
+        else:
+            gnorm = torch.zeros((), device=step.device)
+            scale = 1.0
+        b1, b2 = self.b1, self.b2
+        t = step.to(torch.float32)
+        c1 = 1 - b1 ** t
+        c2 = 1 - b2 ** t
+        masters = (tree.leaves(state["master"]) if self.master_weights
+                   else [None] * len(gl))
+        for p, g, m, v, mw in zip(tree.leaves(params), gl,
+                                  tree.leaves(state["m"]),
+                                  tree.leaves(state["v"]), masters):
+            g = g.float() * scale
+            m.copy_(b1 * m + (1 - b1) * g)
+            v.copy_(b2 * v + (1 - b2) * g * g)
+            u = (m / c1) / (torch.sqrt(v / c2) + self.eps)
+            del g
+            base = mw if mw is not None else p.float()
+            decay = self.weight_decay if p.dim() >= 2 else 0.0
+            new = base - lr * (u + decay * base)
+            del u
+            p.copy_(new)
+            if mw is not None:
+                mw.copy_(new)
+        metrics = {"grad_norm": gnorm,
+                   "lr": torch.as_tensor(lr, device=step.device)}
+        return params, state, metrics

@@ -1,0 +1,134 @@
+"""Trainer: the fault-tolerant loop around train_step (the counterpart of
+:mod:`repro.train.trainer`).
+
+  * checkpoints are atomic and step-tagged (:mod:`repro_torch.ckpt`); on
+    start the trainer restores the newest complete step;
+  * the data stream is stateless in (seed, step): replay needs no
+    iterator snapshot;
+  * the loop tracks its step times and logs a step that takes over 3x the
+    rolling p95 (a straggler).
+
+The trainer runs on one device: its mesh's ``data`` and ``model`` axes
+must be 1.  The reference's GSPMD partition rules (``train/sharding.py``)
+have no single-controller counterpart yet (ROADMAP.md §1).
+"""
+from __future__ import annotations
+
+import dataclasses
+import os
+import pathlib
+import shutil
+import tempfile
+import time
+from typing import Callable, Optional
+
+import numpy as np
+import torch
+
+from repro_torch.ckpt import checkpoint as ckpt
+from repro_torch.configs import ArchConfig, ShapeConfig
+from repro_torch.convert import bind_stacked, stacked_like, stacked_params
+from repro_torch.data.synthetic import token_stream
+from repro_torch.launch.mesh import Mesh, check_mesh
+from repro_torch.models.registry import build_model
+from repro_torch.optim import get_optimizer
+from repro_torch.train.step import TrainPlan, default_plan, make_train_step
+
+
+@dataclasses.dataclass
+class TrainerConfig:
+    steps: int = 100
+    ckpt_every: int = 25
+    ckpt_dir: str = os.path.join(tempfile.gettempdir(), "repro_torch_ckpt")
+    log_every: int = 10
+    seed: int = 0
+    keep_last: int = 3
+
+
+def _device(mesh: Mesh) -> torch.device:
+    """The one device of a mesh whose every axis is 1; raises otherwise."""
+    check_mesh(mesh)
+    if mesh.size != 1:
+        raise NotImplementedError(
+            f"Trainer: a {dict(mesh.shape)} mesh; the port trains on one "
+            f"device (every mesh axis 1) until the data-parallel trainer "
+            f"is ported, see ROADMAP.md §1")
+    return mesh.devices.flat[0]
+
+
+class Trainer:
+    def __init__(self, cfg: ArchConfig, shape: ShapeConfig, mesh: Mesh,
+                 tcfg: TrainerConfig, plan: Optional[TrainPlan] = None,
+                 batch_fn: Optional[Callable] = None):
+        self.cfg, self.shape, self.mesh, self.tcfg = cfg, shape, mesh, tcfg
+        self.device = _device(mesh)
+        self.model = build_model(cfg, device=self.device)
+        self.plan = plan or default_plan(cfg, shape, 1)
+        self.optimizer = get_optimizer(
+            self.plan.optimizer,
+            master_weights=(self.plan.optimizer == "adamw"
+                            and cfg.param_count() < 3e10))
+        self.batch_fn = batch_fn or (lambda step: token_stream(
+            step, shape.global_batch, shape.seq_len, cfg.vocab,
+            seed=tcfg.seed))
+        self.train_step = make_train_step(self.model, self.optimizer, cfg,
+                                          shape, self.plan)
+
+    # -- state ---------------------------------------------------------------
+    def state_like(self) -> dict:
+        """The train state's structure, shapes and dtypes, on ``meta``."""
+        params = stacked_like(self.cfg)
+        return {"params": params, "opt": self.optimizer.init(params),
+                "step": torch.zeros((), dtype=torch.int32, device="meta")}
+
+    def init_state(self) -> dict:
+        """Weights from ``tcfg.seed`` (``init_params``), the optimizer's
+        initial state, step 0."""
+        params = stacked_params(self.model.init_params(self.tcfg.seed))
+        return {"params": params, "opt": self.optimizer.init(params),
+                "step": torch.zeros((), dtype=torch.int32,
+                                    device=self.device)}
+
+    def restore_or_init(self):
+        """-> (state, step): the newest complete checkpoint of
+        ``tcfg.ckpt_dir``, else :meth:`init_state` at step 0."""
+        step = ckpt.latest_step(self.tcfg.ckpt_dir)
+        if step is None:
+            return self.init_state(), 0
+        state, _ = ckpt.restore(self.tcfg.ckpt_dir, step, self.state_like(),
+                                device=self.device)
+        bind_stacked(self.model, state["params"])
+        print(f"[trainer] restored step {step} from {self.tcfg.ckpt_dir}")
+        return state, step
+
+    # -- loop ----------------------------------------------------------------
+    def run(self):
+        tc = self.tcfg
+        state, start = self.restore_or_init()
+        times = []
+        history = []
+        for step in range(start, tc.steps):
+            batch = {k: torch.as_tensor(v, device=self.device)
+                     for k, v in self.batch_fn(step).items()}
+            t0 = time.time()
+            state, metrics = self.train_step(state, batch)
+            loss = float(metrics["loss"])
+            dt = time.time() - t0
+            times.append(dt)
+            history.append(loss)
+            if len(times) > 20 and dt > 3.0 * float(np.percentile(times, 95)):
+                print(f"[straggler-watch] step {step} took {dt:.2f}s "
+                      f"(p95={np.percentile(times, 95):.2f}s)")
+            if (step + 1) % tc.log_every == 0:
+                print(f"step {step + 1:5d} loss {loss:.4f} "
+                      f"({dt * 1e3:.0f} ms)", flush=True)
+            if (step + 1) % tc.ckpt_every == 0 or step + 1 == tc.steps:
+                ckpt.save(tc.ckpt_dir, step + 1, state)
+                self._gc_ckpts()
+        return state, history
+
+    def _gc_ckpts(self):
+        all_steps = ckpt.steps(self.tcfg.ckpt_dir)
+        for s in all_steps[: -self.tcfg.keep_last]:
+            shutil.rmtree(pathlib.Path(self.tcfg.ckpt_dir) / f"step_{s:08d}",
+                          ignore_errors=True)

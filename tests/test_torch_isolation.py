@@ -26,6 +26,11 @@ import repro_torch.serve.engine, repro_torch.launch.serve
 import repro_torch.launch.mesh, repro_torch.core.distributed
 import repro_torch.stream.distributed
 import repro_torch.kernels.autotune, repro_torch.kernels.tune_table
+import repro_torch.tree, repro_torch.ckpt, repro_torch.ckpt.checkpoint
+import repro_torch.optim, repro_torch.optim.adamw, repro_torch.optim.adafactor
+import repro_torch.optim.schedule, repro_torch.train, repro_torch.train.step
+import repro_torch.train.compress, repro_torch.train.trainer
+import repro_torch.launch.train
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith(("jax.", "jaxlib"))
              or m == "repro" or m.startswith("repro."))
@@ -66,7 +71,13 @@ def test_no_source_file_imports_jax_or_the_reference():
             "repro_torch/stream/distributed.py",
             "repro_torch/configs/llama3_8b.py",
             "repro_torch/kernels/autotune.py",
-            "repro_torch/kernels/tune_table.py"} <= names
+            "repro_torch/kernels/tune_table.py", "repro_torch/tree.py",
+            "repro_torch/ckpt/checkpoint.py", "repro_torch/optim/adamw.py",
+            "repro_torch/optim/adafactor.py",
+            "repro_torch/optim/schedule.py", "repro_torch/train/step.py",
+            "repro_torch/train/compress.py",
+            "repro_torch/train/trainer.py",
+            "repro_torch/launch/train.py"} <= names
     offenders = [str(f.relative_to(ROOT)) for f in files
                  if _FORBIDDEN.search(f.read_text())]
     assert offenders == []

@@ -358,7 +358,11 @@ def test_build_model_defaults_to_cuda(arch, monkeypatch):
         build_model(get_config(arch).reduced())
 
 
-def test_launcher_refuses_checkpoints():
+def test_launcher_refuses_checkpoints(tmp_path):
+    """``--ckpt-dir`` restores a trainer's checkpoint (test_torch_train.py)
+    and refuses a directory that holds no complete one."""
     from repro_torch.launch.serve import main
-    with pytest.raises(NotImplementedError, match="checkpoint"):
-        main(["--reduced", "--ckpt-dir", "/nonexistent"])
+    (tmp_path / ".tmp_step_00000002_1").mkdir()
+    for d in (tmp_path / "nonexistent", tmp_path):
+        with pytest.raises(FileNotFoundError, match="checkpoint"):
+            main(["--reduced", "--ckpt-dir", str(d)])
