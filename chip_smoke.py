@@ -64,7 +64,19 @@ after:
     decay alone, one step with the gradient compressor (the Lloyd kernel
     at d = 1 on each leaf's sample); then ``python -m
     repro_torch.launch.train`` and ``launch.serve --ckpt-dir`` on its
-    checkpoint (reduced), in process.
+    checkpoint (reduced), in process;
+  * the encoder-decoder: whisper-base at full width and depth (bf16 from a
+    seed) through its forward over 8 x 4096 tokens and 1500 frames, its
+    forward's logits against its decode's on an f32 copy (sound, and with
+    cross caches of other frames, which must fail), ``ServeEngine`` on
+    decode_32k's full 32,768-slot cache at batch 8 and the launcher, and
+    ``make_train_step`` on 8 x 4096 tokens with its checkpoint read back
+    bit for bit;
+  * the data pipeline: ``ClusterBalancedSampler`` over 1,048,576 documents
+    of 129 tokens (sketches on the card, 1024 clusters, a chi-square test
+    of its draws, a landmark fit's labels against the plain version's,
+    one ``Trainer`` step fed by it), and the paper's Table 1 on the Iris
+    and Seeds surrogates through ``sampled_kmeans``.
 
     python3 chip_smoke.py          # needs one CUDA device (sm_90a) and nvcc
     python3 chip_smoke.py --stream-sweep 6   # only the stream's seed sweep
@@ -300,7 +312,8 @@ def lloyd_parity(name, x, w, c, cancel=None, config=None):
                 route=tiles.lloyd_route(c.shape[1], x.shape[2]),
                 dtype=str(x.dtype), labels_at_near_ties=n_diff,
                 max_sum_err=float((sums - csums).abs().amax()),
-                max_sse_rel_err=float(((sse - rsse).abs() / rsse).amax()))
+                max_sse_rel_err=float(torch.where(
+                    rsse > 0, (sse - rsse).abs() / rsse, 0.0).amax()))
 
 
 def assign_parity(name, x, c, config=None):
@@ -536,13 +549,16 @@ class ShapeRecorder:
     ``assign_argmin(x, c)`` or ``centroid_update(x, idx, w, k)``
     (``shapes``: shape -> calls; ``shared``: the shapes whose points one
     batch broadcast shares) and, where ``timed``, CUDA events around each
-    call, read with :meth:`device_ms`."""
+    call, read with :meth:`device_ms`; where ``keep``, a copy of the
+    tensor arguments of the first call at each shape (``inputs``)."""
 
-    def __init__(self, kernel: str, timed: bool = False):
+    def __init__(self, kernel: str, timed: bool = False, keep: bool = False):
         self.kernel = kernel
         self.timed = timed
+        self.keep = keep
         self.shapes: dict = {}
         self.shared: set = set()
+        self.inputs: dict = {}
         self.events: list = []
 
     def __enter__(self):
@@ -559,6 +575,9 @@ class ShapeRecorder:
             self.shapes[key] = self.shapes.get(key, 0) + 1
             if x.shape[0] > 1 and x.stride(0) == 0:
                 self.shared.add(key)
+            if self.keep and key not in self.inputs:
+                self.inputs[key] = tuple(
+                    a.clone() for a in (x, *args) if torch.is_tensor(a))
             if not self.timed:
                 return orig(x, *args, **kw)
             ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
@@ -1873,9 +1892,9 @@ def clustered_part(caches: dict) -> dict:
 
 
 def decode_profile(model, shape, steps: int = 4,
-                   kind: str = "clustered") -> dict:
-    """Where a decode step's time goes (``kind``'s cache): the wall time per
-    step
+                   kind: str = "clustered", batch: int = 1) -> dict:
+    """Where a decode step's time goes (``kind``'s cache, ``batch``
+    sequences): the wall time per step
     (``steps`` steps with no synchronisation between them, unprofiled),
     the device's busy time per step (the kernels' device time summed by
     ``torch.profiler`` over ``steps`` more steps; the profiler slows the
@@ -1883,8 +1902,8 @@ def decode_profile(model, shape, steps: int = 4,
     most device time (the kernel names are the library's or ours)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    caches = model.init_caches(1, shape, kind)
-    tok = torch.zeros((1, 1), dtype=torch.long, device="cuda")
+    caches = model.init_caches(batch, shape, kind)
+    tok = torch.zeros((batch, 1), dtype=torch.long, device="cuda")
     for i in range(steps):                       # warm-up
         model.decode_step(tok, caches, i, cache_kind=kind)
     torch.cuda.synchronize()
@@ -2897,6 +2916,498 @@ def train_launcher():
         shutil.rmtree(work, ignore_errors=True)
 
 
+# whisper-base (arXiv:2212.04356) at full width and depth: 6 encoder and 6
+# decoder layers, d 512, 8 heads of 64, d_ff 2048, 1500 frames, vocab
+# 51,865 padded to 51,968; bf16 weights from SERVE_SEED.  Its cells are
+# train_4k's 4096 tokens and decode_32k's 32,768-slot full cache
+# (long_500k is skipped for the encoder-decoder); the batches are cut for
+# the script's time (train_4k 256 -> 8: a step of 256 sequences would take
+# about 30 s; decode_32k 128 -> 8 for the served request, whose 288
+# steps would take a step's time at 128 each, which the decode profile
+# measures at the full batch, after the engine's cache is freed)
+WHISPER_BATCH = 8             # train_4k's and decode_32k's batch, cut
+WHISPER_TRAIN_MICRO = 2
+WHISPER_PROMPT_LEN = 256      # tokens per sequence (prefill by decode steps)
+WHISPER_PARITY_LEN = 64       # forward against decode, every position
+WHISPER_PARITY_BATCH = 2
+# forward against decode on an f32 copy: each position's largest logit
+# difference over its largest logit (PERF.md §2's limit)
+WHISPER_FWD_DEC_REL = 0.01
+WHISPER_STEPS = 2
+# the cluster-balanced sampler (data/pipeline.py) over a corpus of
+# 1,048,576 documents of 129 tokens from llama3-8b's vocabulary (541 MB of
+# int32 drawn on the card from seed 0, built as the tests' corpus: each
+# document draws 80% of its tokens from its topic's six words, the rest
+# uniformly): 32-dim sketches, 1024 clusters over 64 partitions at
+# compression 5; 65,536 drawn documents
+SAMPLER_DOCS, SAMPLER_SEQ = 1_048_576, 129
+SAMPLER_TOPICS, SAMPLER_TOPIC_WORDS, SAMPLER_NOISE = 1024, 6, 0.2
+SAMPLER_CLUSTERS, SAMPLER_SUB, SAMPLER_COMPRESSION = 1024, 64, 5
+SAMPLER_DRAWS = 65_536
+SAMPLER_LANDMARK_DOCS = 65_536
+SAMPLER_TRAIN_SEQ, SAMPLER_TRAIN_BATCH = 128, 8
+CHI2_P_MIN = 1e-3
+# the paper's Table 1 on the surrogates (tests/test_system.py's bound on
+# the relative SSE against standard k-means), as the mean over these
+# seeds: one seed's error is one draw of the fit's random stages; each
+# seed's error also stays below about 1.5x the largest sound reading
+# (0.170 on the H100, 0.167 on the CPU, iris with the equal scheme)
+TABLE1_SEEDS = range(8)
+TABLE1_REL_MAX = 0.12
+TABLE1_WORST_MAX = 0.25
+
+
+def whisper_model(dtype: str = "bfloat16"):
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    cfg = dataclasses.replace(get_config("whisper-base"), dtype=dtype)
+    return build_model(cfg).init_params(SERVE_SEED)
+
+
+def whisper_forward(model) -> dict:
+    """whisper-base's forward at full width and depth: ``forward(
+    last_only=True)`` over train_4k's 4096 tokens and 1500 frames at batch
+    ``WHISPER_BATCH``, timed, with its peak memory; then, on an f32 copy
+    (the same draws), the forward's logits at every position of a
+    64-token prompt against token-by-token ``decode_step`` on the full
+    cache with the cross caches filled from the same encoder output,
+    gated at ``WHISPER_FWD_DEC_REL``; and the same check with the cross
+    caches filled from other frames (a planted fault), which must fail
+    it."""
+    from repro_torch.configs import SHAPES, ShapeConfig
+    from repro_torch.models import batch_like
+    cfg = model.cfg
+    shape = dataclasses.replace(SHAPES["train_4k"], global_batch=WHISPER_BATCH)
+    batch = batch_like(cfg, shape, SERVE_SEED)
+    check(batch["frames"].shape == (WHISPER_BATCH, cfg.encoder_ctx,
+                                    cfg.d_model)
+          and batch["frames"].dtype == torch.bfloat16, "whisper frames")
+    model.forward({"tokens": batch["tokens"][:, :512],
+                   "frames": batch["frames"]}, last_only=True)   # warm-up
+    torch.cuda.reset_peak_memory_stats()
+    fwd_s, (last, aux) = timed_s(
+        lambda: model.forward(batch, last_only=True))
+    check(last.shape == (WHISPER_BATCH, 1, cfg.padded_vocab)
+          and bool(torch.isfinite(last).all()) and float(aux) == 0.0,
+          "whisper: bad forward logits")
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    n_tokens = WHISPER_BATCH * shape.seq_len
+
+    f32 = whisper_model("float32")
+    b, n = WHISPER_PARITY_BATCH, WHISPER_PARITY_LEN
+    p = {"tokens": batch["tokens"][:b, :n], "frames": batch["frames"][:b]}
+    fwd, _ = f32.forward(p)
+    other = batch_like(cfg, shape, SERVE_SEED + 1)["frames"][:b]
+
+    def against_forward(frames) -> dict:
+        caches = f32.init_caches(b, ShapeConfig("whisper_parity", n, b,
+                                                "decode"), "full")
+        # each layer's cross keys and values of the encoding (the engine
+        # leaves them zero, as the reference's does)
+        with torch.no_grad():
+            enc = f32.encode(frames)
+            for i, blk in enumerate(f32.dec):
+                k, v = blk.cross_kv(enc)
+                caches["xk"][i] = k.transpose(1, 2)
+                caches["xv"][i] = v.transpose(1, 2)
+        dec = torch.cat([f32.decode_step(p["tokens"][:, t:t + 1], caches,
+                                         t)[0] for t in range(n)], 1)
+        rel = ((dec - fwd).abs().amax(-1) / fwd.abs().amax(-1)).amax(0)
+        top1 = float((dec.argmax(-1) == fwd.argmax(-1)).float().mean())
+        return dict(max_rel=float(rel.max()),
+                    rel_by_position=[round(float(r), 7) for r in rel.cpu()],
+                    top1_agreement=top1)
+
+    row = against_forward(p["frames"])
+    check(row["max_rel"] <= WHISPER_FWD_DEC_REL,
+          f"whisper forward against decode (f32): {row}")
+    fault = against_forward(other)
+    check(fault["max_rel"] > WHISPER_FWD_DEC_REL,
+          f"whisper forward against decode misses cross caches of other "
+          f"frames: {fault}")
+    row["planted_fault"] = dict(what="cross caches from other frames",
+                                **fault)
+    del f32
+    torch.cuda.empty_cache()
+    fields = dict(
+        arch=cfg.name, n_params=sum(t.numel() for t in model.parameters()),
+        param_count=cfg.param_count(), batch=WHISPER_BATCH,
+        tokens=shape.seq_len, frames=cfg.encoder_ctx, forward_s=fwd_s,
+        tokens_per_s=n_tokens / fwd_s, peak_memory_gb=peak_gb,
+        parity_len=n, parity_batch=b, limit=WHISPER_FWD_DEC_REL,
+        forward_vs_decode_f32=row)
+    emit("whisper_forward", **fields)
+    return fields
+
+
+def serve_whisper_decode_32k(model) -> dict:
+    """``ServeEngine`` over whisper-base at decode_32k's full cache of
+    32,768 slots with its batch cut to ``WHISPER_BATCH``: one request of
+    256 prompt tokens a sequence (prefill by decode steps) and 32
+    generated; the decode's tokens/s, the peak memory, no kernel of the
+    five launched (the cache is full and nothing is clustered); a decode
+    step's wall time against the card's busy time at that batch and, once
+    the engine's cache is freed, at decode_32k's full batch (its 51.5 GB
+    cache and each layer's f32 copy fit the card); then ``python -m
+    repro_torch.launch.serve --arch whisper-base --prompt-len 64 --gen 16
+    --batch 2`` in this process."""
+    from repro_torch.configs import SHAPES
+    from repro_torch.core.device import derive_seed
+    from repro_torch.launch.serve import main as serve_main
+    from repro_torch.serve import ServeConfig, ServeEngine
+    from repro_torch.telemetry import RecordingLogger
+
+    cfg = model.cfg
+    shape = dataclasses.replace(SHAPES["decode_32k"],
+                                global_batch=WHISPER_BATCH)
+    log = RecordingLogger()
+    eng = ServeEngine(cfg, shape, model, ServeConfig(max_tokens=GEN_TOKENS),
+                      logger=log)
+    check(eng.kind == "full", f"whisper decode_32k cache kind {eng.kind}")
+    g = torch.Generator(device="cuda").manual_seed(derive_seed(SERVE_SEED, 6))
+    prompt = torch.randint(0, cfg.vocab, (WHISPER_BATCH, WHISPER_PROMPT_LEN),
+                           generator=g, device="cuda")
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    total_s, out = timed_s(lambda: eng.generate(prompt))
+    launches = read_launches()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    decode_s = sum(e["dur"] for e in log.named("decode_rate"))
+    check(out.shape == (WHISPER_BATCH, GEN_TOKENS) and int(out.min()) >= 0
+          and int(out.max()) < cfg.padded_vocab, "whisper: bad tokens")
+    check(sum(launches.values()) == 0,
+          f"whisper's full-cache decode launched a kernel: {launches}")
+    del eng
+    torch.cuda.empty_cache()
+    profile = decode_profile(model, shape, kind="full", batch=WHISPER_BATCH)
+    full_batch = SHAPES["decode_32k"].global_batch
+    torch.cuda.reset_peak_memory_stats()
+    profile_full = decode_profile(model, shape, kind="full",
+                                  batch=full_batch)
+    profile_full.update(batch=full_batch, peak_memory_gb=(
+        torch.cuda.max_memory_allocated() / 1e9))
+    torch.cuda.empty_cache()
+    reset_launches()
+    launcher_s, (tokens, _) = timed_s(lambda: serve_main(
+        ["--arch", "whisper-base", "--prompt-len", "64", "--gen", "16",
+         "--batch", "2"]))
+    check(tokens.shape == (2, 16) and int(tokens.min()) >= 0
+          and int(tokens.max()) < cfg.padded_vocab,
+          f"whisper launcher gave {tokens}")
+    fields = dict(
+        arch=cfg.name, shape=shape.name, cache_len=shape.seq_len,
+        batch=WHISPER_BATCH, prompt_len=WHISPER_PROMPT_LEN,
+        gen_tokens=GEN_TOKENS, total_s=total_s, prefill_s=total_s - decode_s,
+        decode_s=decode_s,
+        decode_tokens_per_s=WHISPER_BATCH * GEN_TOKENS / decode_s,
+        peak_memory_gb=peak_gb, launches=launches, decode_profile=profile,
+        decode_profile_full_batch=profile_full,
+        answer=out[0].tolist(), launcher=dict(
+            argv="--arch whisper-base --prompt-len 64 --gen 16 --batch 2",
+            seconds=launcher_s, launches=read_launches(),
+            tokens=tokens.tolist()))
+    emit("serve_whisper_decode_32k", **fields)
+    return fields
+
+
+def train_whisper() -> dict:
+    """whisper-base's training at full width and depth through
+    ``make_train_step``: train_4k's 4096 tokens with the batch cut to
+    ``WHISPER_BATCH`` (1500 frames each) in 2 micro-batches with remat,
+    AdamW with f32 master weights (the reference's plan below 3e10
+    parameters), batches from ``batch_like`` (the reference's ``Trainer``
+    cannot feed frames); ``WHISPER_STEPS`` steps, the losses finite, the
+    embedding moved by weight decay alone (the hoisted gather gives it no
+    gradient), a profiled step's idle share, and the state's checkpoint
+    read back bit for bit through ``stacked_like``."""
+    import shutil
+    from repro_torch import tree
+    from repro_torch.ckpt import checkpoint as ckpt
+    from repro_torch.configs import SHAPES
+    from repro_torch.convert import stacked_like, stacked_params
+    from repro_torch.models import batch_like
+    from repro_torch.optim import get_optimizer
+    from repro_torch.train.step import TrainPlan, make_train_step
+
+    model = whisper_model()
+    cfg = model.cfg
+    shape = dataclasses.replace(SHAPES["train_4k"], global_batch=WHISPER_BATCH)
+    plan = TrainPlan(n_micro=WHISPER_TRAIN_MICRO, q_chunk=2048, remat=True)
+    opt = get_optimizer("adamw", master_weights=True)
+    check(not callable(opt.lr), "whisper train: lr is a schedule")
+    torch.cuda.reset_peak_memory_stats()
+    params = stacked_params(model)
+    state = {"params": params, "opt": opt.init(params),
+             "step": torch.zeros((), dtype=torch.int32, device="cuda")}
+    step = make_train_step(model, opt, cfg, shape, plan)
+    embed0 = state["opt"]["master"]["embed"].clone()
+    walls, losses = [], []
+    for i in range(WHISPER_STEPS):
+        batch = batch_like(cfg, shape, i)
+        sec, (state, met) = timed_s(lambda: step(state, batch))
+        walls.append(sec)
+        losses.append(float(met["loss"]))
+    check(all(np.isfinite(losses)), f"whisper train: losses {losses}")
+    m = embed0
+    for _ in range(WHISPER_STEPS):
+        m = m - opt.lr * (0.0 + opt.weight_decay * m)
+    embed_ok = (not state["opt"]["m"]["embed"].any()
+                and not state["opt"]["v"]["embed"].any()
+                and bits_equal(state["opt"]["master"]["embed"], m)
+                and bits_equal(state["params"]["embed"],
+                               m.to(state["params"]["embed"].dtype)))
+    check(embed_ok, "whisper train: the embedding moved by more than its "
+          "decay")
+    del m, embed0
+    batch = batch_like(cfg, shape, WHISPER_STEPS)
+    (state, met), prof = profiled_once(lambda: step(state, batch))
+    prof["idle_share"] = max(0.0, 1.0 - prof["device_busy_s"] / walls[-1])
+    losses.append(float(met["loss"]))
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    work = ROOT / "build" / "train_whisper"
+    shutil.rmtree(work, ignore_errors=True)
+    try:
+        n = WHISPER_STEPS + 1
+        save_s, _ = timed_s(lambda: ckpt.save(work, n, state))
+        like_p = stacked_like(cfg)
+        like = {"params": like_p, "opt": opt.init(like_p),
+                "step": torch.zeros((), dtype=torch.int32, device="meta")}
+        restore_s, (restored, _) = timed_s(
+            lambda: ckpt.restore(work, n, like, device="cuda"))
+        differ = trees_bits_equal(restored, state)
+        check(not differ, f"whisper train: the restored state differs at "
+              f"{differ}")
+        n_bytes = (work / f"step_{n:08d}" / "arrays.npz").stat().st_size
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    fields = dict(
+        arch=cfg.name, n_params=sum(t.numel() for t in
+                                    tree.leaves(state["params"])),
+        batch=[WHISPER_BATCH, shape.seq_len], frames=cfg.encoder_ctx,
+        plan=dataclasses.asdict(plan), optimizer=dict(
+            name="adamw", master_weights=True, lr=opt.lr,
+            weight_decay=opt.weight_decay),
+        losses=losses, step_wall_s=walls,
+        tokens_per_s=WHISPER_BATCH * shape.seq_len / walls[-1],
+        step_profile=prof, peak_gb=peak_gb, embed_decay_only=embed_ok,
+        checkpoint=dict(bytes=n_bytes, save_s=save_s, restore_s=restore_s,
+                        restored_bitwise=True))
+    emit("train_whisper", **fields)
+    del state, restored, model, step
+    torch.cuda.empty_cache()
+    return fields
+
+
+def chi2_p(counts: np.ndarray) -> float:
+    """The p-value of Pearson's chi-square test that ``counts`` come from
+    a uniform draw over their cells (the regularised upper incomplete
+    gamma function of (cells - 1) / 2 and half the statistic)."""
+    expected = counts.sum() / len(counts)
+    stat = float(((counts - expected) ** 2 / expected).sum())
+    return float(torch.special.gammaincc(
+        torch.tensor((len(counts) - 1) / 2, dtype=torch.float64),
+        torch.tensor(stat / 2, dtype=torch.float64)))
+
+
+def topic_corpus(vocab: int, seed: int = 0) -> np.ndarray:
+    """(SAMPLER_DOCS, SAMPLER_SEQ) int32 tokens, drawn on the card and
+    brought to the host: each document a topic of ``SAMPLER_TOPICS``, each
+    token one of its topic's ``SAMPLER_TOPIC_WORDS`` words or, with
+    probability ``SAMPLER_NOISE``, any of ``vocab``
+    (tests/test_torch_data_pipeline.py's corpus at size)."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+
+    def draw(high, size):
+        return torch.randint(0, high, size, generator=g, device="cuda")
+
+    n, s = SAMPLER_DOCS, SAMPLER_SEQ
+    topic = draw(SAMPLER_TOPICS, (n, 1))
+    words = draw(vocab, (SAMPLER_TOPICS, SAMPLER_TOPIC_WORDS))
+    pick = words[topic, draw(SAMPLER_TOPIC_WORDS, (n, s))]
+    noise = torch.rand((n, s), generator=g, device="cuda") < SAMPLER_NOISE
+    return torch.where(noise, draw(vocab, (n, s)), pick).int().cpu().numpy()
+
+
+def cluster_balanced_sampler() -> dict:
+    """``data/pipeline.py`` on the card: the corpus's sketches
+    (``doc_sketch``), ``ClusterBalancedSampler(n_clusters=1024, n_sub=64,
+    compression=5)`` (the sampled k-means, then each document's nearest
+    center), with the Lloyd and assignment launches and their shapes;
+    the same fit again under the profiler (the card's busy share of the
+    fit, and the same labels: the fit is deterministic in its seed); the
+    assignment kernel at the fit's own launch (every document against
+    the fitted centers) held against the plain version (near-ties within
+    ``dot_rounding_bound``); ``SAMPLER_DRAWS`` drawn documents whose
+    clusters pass a chi-square test of a uniform draw; with a landmark
+    spec on the first 65,536 documents, the assignment kernel's labels
+    against the plain version's on the card; one reduced-llama
+    ``Trainer`` step fed by ``sampler.batch``, as ``examples/train_lm.py
+    --cluster-sampling`` does."""
+    import shutil
+    from repro_torch.configs import ShapeConfig, get_config
+    from repro_torch.core import ClusterSpec
+    from repro_torch.data import ClusterBalancedSampler, doc_sketch
+    from repro_torch.kernels import assign, ref
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.train.step import TrainPlan
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+
+    llama = get_config("llama3-8b")
+    make_s, docs = timed_s(lambda: topic_corpus(llama.vocab))
+    sketch_s, sk = timed_s(lambda: doc_sketch(docs))
+    check(sk.shape == (SAMPLER_DOCS, 32) and sk.device.type == "cuda"
+          and bool(torch.isfinite(sk).all()), "bad sketches")
+    norms = torch.linalg.vector_norm(sk, dim=1)
+    check(bool(((norms - 1).abs() < 1e-5).all()), "sketches not unit norm")
+    del norms
+
+    def fit():
+        return ClusterBalancedSampler(
+            docs, n_clusters=SAMPLER_CLUSTERS, n_sub=SAMPLER_SUB,
+            compression=SAMPLER_COMPRESSION, seed=0)
+
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    with ShapeRecorder("lloyd_step") as lrec, \
+            ShapeRecorder("assign_argmin") as arec:
+        sampler_s, sampler = timed_s(fit)
+    launches = read_launches()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    check(launches["lloyd_step"] > 0 and launches["assign_argmin"] > 0,
+          f"the sampler skipped a kernel: {launches}")
+    again, prof = profiled_once(fit)
+    check(np.array_equal(again.assignment, sampler.assignment),
+          "the sampler's fit is not deterministic in its seed")
+    prof["busy_share"] = prof["device_busy_s"] / sampler_s
+    prof["idle_share"] = max(0.0, 1.0 - prof["busy_share"])
+    del again
+    sizes = np.bincount(sampler.assignment, minlength=SAMPLER_CLUSTERS)
+    check(sampler.assignment.shape == (SAMPLER_DOCS,)
+          and sum(len(c) for c in sampler.by_cluster) == SAMPLER_DOCS,
+          "the sampler lost documents")
+    # the fit's assignment launch: every document against the centers
+    x, c = sk[None], sampler.centers[None]
+    idx, _ = assign.assign_argmin(x, c)
+    check(np.array_equal(idx[0].cpu().numpy(), sampler.assignment),
+          "the sampler's labels are not the assignment kernel's")
+    full_case = assign_parity("assign_sampler_"
+                              + "x".join(map(str, list(x.shape[:2])
+                                             + [c.shape[1], x.shape[2]])),
+                              x, c)
+    del sk, x, c, idx
+    torch.cuda.empty_cache()
+    draw_s, ids = timed_s(lambda: sampler.batch_indices(0, SAMPLER_DRAWS))
+    drawn = np.bincount(sampler.assignment[ids],
+                        minlength=SAMPLER_CLUSTERS)[sizes > 0]
+    p = chi2_p(drawn)
+    check(p > CHI2_P_MIN, f"cluster draws not uniform: p = {p}")
+    # the landmark spec: no random draw in the fit
+    lm_spec = ClusterSpec.make(SAMPLER_CLUSTERS, n_sub=SAMPLER_SUB,
+                               compression=SAMPLER_COMPRESSION,
+                               init="landmark", backend="cuda_fused")
+    sub = docs[:SAMPLER_LANDMARK_DOCS]
+    lm = ClusterBalancedSampler(sub, spec=lm_spec, seed=0)
+    x = doc_sketch(sub)[None]
+    c = lm.centers[None]
+    idx, dist = assign.assign_argmin(x, c)
+    check(np.array_equal(idx[0].cpu().numpy(), lm.assignment),
+          "the landmark sampler's labels are not the assignment kernel's")
+    ridx, rdist = ref.assign_argmin_ref(x, c)
+    near_ties = _check_assignment("sampler_landmark", x, c, idx, dist, ridx,
+                                  rdist, dot_rounding_bound(x, c))
+    # one Trainer step fed by the sampler (llama3-8b reduced, at its vocab)
+    cfg = dataclasses.replace(llama.reduced(), vocab=llama.vocab)
+    shape = ShapeConfig("sampler_train", SAMPLER_TRAIN_SEQ,
+                        SAMPLER_TRAIN_BATCH, "train")
+    work = ROOT / "build" / "sampler_train"
+    shutil.rmtree(work, ignore_errors=True)
+    try:
+        trainer = Trainer(cfg, shape, make_host_mesh(1, 1), TrainerConfig(
+            steps=1, ckpt_every=1, ckpt_dir=str(work), log_every=1),
+            plan=TrainPlan(n_micro=2, q_chunk=SAMPLER_TRAIN_SEQ),
+            batch_fn=lambda step: sampler.batch(step, SAMPLER_TRAIN_BATCH,
+                                                SAMPLER_TRAIN_SEQ))
+        train_s, (_, hist) = timed_s(trainer.run)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    check(len(hist) == 1 and np.isfinite(hist[0]),
+          f"sampler-fed train step: {hist}")
+    fields = dict(
+        docs=SAMPLER_DOCS, seq=SAMPLER_SEQ, vocab=llama.vocab,
+        topics=SAMPLER_TOPICS, topic_words=SAMPLER_TOPIC_WORDS,
+        noise=SAMPLER_NOISE, corpus_mb=docs.nbytes / 1e6,
+        make_corpus_s=make_s, sketch_s=sketch_s, sampler_s=sampler_s,
+        fit_and_assign_s=sampler_s - sketch_s, fit_profile=prof,
+        peak_memory_gb=peak_gb,
+        n_clusters=SAMPLER_CLUSTERS, non_empty=int((sizes > 0).sum()),
+        cluster_sizes=dict(min=int(sizes[sizes > 0].min()),
+                           max=int(sizes.max()),
+                           median=float(np.median(sizes[sizes > 0]))),
+        launches=launches,
+        lloyd_shapes=[dict(shape=list(k), calls=n)
+                      for k, n in lrec.shapes.items()],
+        assign_shapes=[dict(shape=list(k), calls=n)
+                       for k, n in arec.shapes.items()],
+        assign_parity=full_case,
+        draws=SAMPLER_DRAWS, draw_s=draw_s, chi2_p=p,
+        landmark=dict(docs=SAMPLER_LANDMARK_DOCS,
+                      labels_at_near_ties=near_ties),
+        train_step=dict(arch=cfg.name, vocab=cfg.vocab,
+                        batch=[SAMPLER_TRAIN_BATCH, SAMPLER_TRAIN_SEQ],
+                        loss=hist[0], seconds=train_s))
+    emit("cluster_balanced_sampler", **fields)
+    fields["lloyd_rec"], fields["assign_rec"] = lrec, arec
+    del docs, sampler, lm, x, c
+    torch.cuda.empty_cache()
+    return fields
+
+
+def paper_table1() -> dict:
+    """The paper's Table 1 through the port's ``sampled_kmeans`` on the
+    card: ``surrogate_iris`` and ``surrogate_seeds``, both schemes, 6
+    subclusters, compression 6; the relative SSE against
+    ``standard_kmeans(iters=40)``, its mean over ``TABLE1_SEEDS`` below
+    ``TABLE1_REL_MAX`` and each seed's below ``TABLE1_WORST_MAX``.  The
+    Lloyd launches' shapes are recorded with the inputs of the first call
+    at each (``lloyd_rec``), for the parity check against the plain
+    version."""
+    from repro_torch.core import (ClusterSpec, relative_error,
+                                  sampled_kmeans, standard_kmeans)
+    from repro_torch.data import surrogate_iris, surrogate_seeds
+    rows = []
+    reset_launches()
+    t0 = time.perf_counter()
+    with ShapeRecorder("lloyd_step", keep=True) as rec:
+        for name, data in (("iris", surrogate_iris),
+                           ("seeds", surrogate_seeds)):
+            x, _ = data()
+            full = float(standard_kmeans(x, 3, iters=40).sse)
+            for scheme in ("equal", "unequal"):
+                spec = ClusterSpec.make(3, scheme=scheme, n_sub=6,
+                                        compression=6)
+                rels = [relative_error(float(sampled_kmeans(
+                    x, 3, spec=spec, seed=seed).sse), full)
+                    for seed in TABLE1_SEEDS]
+                rows.append(dict(dataset=name, scheme=scheme,
+                                 mean_rel=float(np.mean(rels)),
+                                 max_rel=max(rels), rels=rels))
+                check(np.mean(rels) < TABLE1_REL_MAX
+                      and max(rels) < TABLE1_WORST_MAX,
+                      f"Table 1 {name} {scheme}: relative errors {rels}")
+        torch.cuda.synchronize()
+    launches = read_launches()
+    check(launches["lloyd_step"] > 0, f"Table 1 skipped the Lloyd kernel: "
+          f"{launches}")
+    fields = dict(rows=rows, seeds=len(TABLE1_SEEDS), limit=TABLE1_REL_MAX,
+                  worst_limit=TABLE1_WORST_MAX,
+                  seconds=time.perf_counter() - t0, launches=launches,
+                  lloyd_shapes=[dict(shape=list(k), calls=n)
+                                for k, n in sorted(rec.shapes.items())])
+    emit("paper_table1", **fields)
+    fields["lloyd_rec"] = rec
+    return fields
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3568,6 +4079,47 @@ def main() -> int:
     emit("train_parity", cases=train_cases,
          seconds=time.perf_counter() - t_train)
 
+    # -- 11c. whisper-base (forward, full-cache decode at decode_32k,
+    # training) and the data pipeline (the cluster-balanced sampler, the
+    # paper's Table 1 on the surrogates); then the Lloyd kernel at the
+    # sampler's shapes against its plain version, on all lanes where the
+    # plain version's (B, M, K) distances take under 4 GB, else on 4
+    t_new = time.perf_counter()
+    model = whisper_model()
+    whisper_forward(model)
+    serve_whisper_decode_32k(model)
+    del model
+    torch.cuda.empty_cache()
+    train_whisper()
+    sampler = cluster_balanced_sampler()
+    table1 = paper_table1()
+    sampler_lloyd, rec = [], sampler.pop("lloyd_rec")
+    for i, (shape, calls) in enumerate(sorted(rec.shapes.items())):
+        bb, mm, kk, dd = shape
+        lanes = bb if bb * mm * kk * 4 <= 4e9 else 4
+        sampler_lloyd.append((shape, calls, _case(
+            lanes, mm, kk, dd, share_x=shape in rec.shared, seed=100 + i)))
+    data_cases = [
+        lloyd_parity(f"lloyd_sampler_{'x'.join(map(str, shape))}", *inputs,
+                     cancel=(dot_rounding_bound(inputs[0], inputs[2])
+                             if tiles.lloyd_route(shape[2], shape[3]) == "tc"
+                             else None))
+        for shape, _, inputs in sampler_lloyd]
+    # Table 1's launches (d = 4 and 7) on the inputs each shape's first
+    # call was given
+    rec = table1.pop("lloyd_rec")
+    data_cases += [
+        lloyd_parity(f"lloyd_table1_{'x'.join(map(str, shape))}", *inputs,
+                     cancel=(dot_rounding_bound(inputs[0], inputs[2])
+                             if tiles.lloyd_route(shape[2], shape[3]) == "tc"
+                             else None))
+        for shape, inputs in sorted(rec.inputs.items())]
+    del rec
+    data_cases.append(sampler.pop("assign_parity"))
+    cases += data_cases
+    emit("data_parity", cases=data_cases,
+         seconds=time.perf_counter() - t_new)
+
     # -- 12. kernel times at the paths' shapes ------------------------------
     # ms / plain_ms / library_ms: device time per call, with the inputs in
     # HBM (rotated copies); call_ms: the kernel's time per call with its
@@ -3787,6 +4339,21 @@ def main() -> int:
     l_dbrx = lloyd_kernel_only("dbrx refresh, 32 lanes", 32, refresh)
     l_compress = lloyd_entry("compressor, the head gradient's sample",
                              comp_x, comp_w, comp_c)
+    # the sampler's fit (d = 32): each shape against the plain version on
+    # the lanes held above, and where those are fewer than the fit's, all
+    # of its lanes on the kernel alone
+    l_sampler = []
+    for shape, calls, inputs in sampler_lloyd:
+        e = lloyd_entry(f"sampler {'x'.join(map(str, inputs[0].shape))}"
+                        f"x{shape[2]}", *inputs, iters=5)
+        e["calls_per_fit"] = calls
+        l_sampler.append(e)
+        if inputs[0].shape[0] < shape[0]:
+            e = lloyd_kernel_only(f"sampler {shape[0]} lanes", shape[0],
+                                  inputs)
+            e["calls_per_fit"] = calls
+            l_sampler.append(e)
+    del sampler_lloyd
     del gemma_refresh
     # the zamba2 refresh (tensor cores, d = 80): 4 lanes against the plain
     # version; all 192 lanes the served launches' own device times; its
@@ -3878,6 +4445,12 @@ def main() -> int:
 
     a_shapes = [assign_entry(shape, calls, shape in assign_shared)
                 for shape, calls in sorted(assign_calls.items())]
+    # the sampler's assignment of every document (1 x 1,048,576 x 1024)
+    rec = sampler.pop("assign_rec")
+    a_shapes += [assign_entry(shape, {"cluster_balanced_sampler": n},
+                              shape in rec.shared)
+                 for shape, n in sorted(rec.shapes.items())]
+    del rec
     a_pred = next(e for e in a_shapes if e["shape"] == "predict")
     errs = {c["case"]: c for c in cases}
     mesh_runs = {
@@ -3913,6 +4486,9 @@ def main() -> int:
                  "serve_zamba_long_500k": zamba_launches["lloyd_step"],
                  "train_llama3_8b_compressed_step": train[
                      "compressed_step"]["launches"]["lloyd_step"],
+                 "cluster_balanced_sampler": sampler["launches"][
+                     "lloyd_step"],
+                 "paper_table1": table1["launches"]["lloyd_step"],
                  "oocore_5m": oo["launches"]["lloyd_step"],
                  "oocore_5m_flush": oo["flush_launches"]["lloyd_step"],
                  "stream_5m": st5["launches"]["lloyd_step"],
@@ -3924,7 +4500,7 @@ def main() -> int:
              library_ms=None,
              shapes=[l_local, l_merge, l_pq, l_refresh4, l_refresh,
                      l_refresh_bf16, l_gemma4, l_gemma, l_dbrx, l_zamba4,
-                     l_zamba, l_compress, *l_index,
+                     l_zamba, l_compress, *l_sampler, *l_index,
                      *l_oocore, *l_mesh]),
         dict(name="assign_argmin", route="cuda",
              source="src/repro_torch/kernels/csrc/assign.cu",
@@ -3938,6 +4514,9 @@ def main() -> int:
                  "index_5m": launches5["assign_argmin"],
                  "serve_long_500k": serve_launches["assign_argmin"],
                  "serve_zamba_long_500k": zamba_launches["assign_argmin"],
+                 "cluster_balanced_sampler": sampler["launches"][
+                     "assign_argmin"],
+                 "paper_table1": table1["launches"]["assign_argmin"],
                  "oocore_5m": oo["launches"]["assign_argmin"],
                  "oocore_5m_cuda": oo["cuda_launches"]["assign_argmin"],
                  "stream_5m": st5["launches"]["assign_argmin"],
@@ -3968,6 +4547,8 @@ def main() -> int:
                      "lloyd_centroid_update"],
                  "serve_zamba_long_500k": zamba_launches["centroid_update"],
                  "serve_zamba_long_500k_lloyd": zamba_launches[
+                     "lloyd_centroid_update"],
+                 "cluster_balanced_sampler_lloyd": sampler["launches"][
                      "lloyd_centroid_update"],
                  "index_200k_lloyd": index_launches["lloyd_centroid_update"],
                  "index_5m_lloyd": launches5["lloyd_centroid_update"],

@@ -4,9 +4,9 @@ path (a copy of the JAX package's ``repro.configs``, as data).
 
 Every architecture is one ``<arch>.py`` module exporting ``CONFIG``;
 ``get_config(name)`` resolves dashed CLI ids (``--arch llama3-8b``) for
-every id, including families the port does not run yet (those fail in
-``repro_torch.models.build_model``).  ``SHAPES`` are the four input-shape
-workloads; ``cells()`` yields the (arch x shape) matrix with its skips.
+every id, and ``repro_torch.models.build_model`` builds each.  ``SHAPES``
+are the four input-shape workloads; ``cells()`` yields the (arch x shape)
+matrix with its skips.
 """
 from __future__ import annotations
 

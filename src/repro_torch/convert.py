@@ -6,7 +6,7 @@ serialises a spec with ``to_dict()`` and its results are arrays; here those
 become the port's objects, so a fit made with the JAX package serves
 ``predict``/``transform``/``score`` from the port, and an index built with
 it serves ``search``.  A language model's parameter tree becomes the state
-dict of the port's ``DecoderLM`` (:func:`lm_params_from_jax`), and a
+dict of the port's model (:func:`lm_params_from_jax`), and a
 streaming clusterer's state continues in the port
 (:func:`stream_state_from_jax`).  Only plain Python and numpy cross over:
 nothing here imports the JAX package.
@@ -130,8 +130,8 @@ def stream_state_from_jax(state, seed: int, *,
 
 def lm_params_from_jax(cfg, params: Mapping[str, Any]
                        ) -> dict[str, torch.Tensor]:
-    """The state dict of the port's ``DecoderLM`` for ``cfg`` from the JAX
-    package's ``DecoderLM`` parameter tree given as numpy arrays:
+    """The state dict of the port's model for ``cfg`` (``build_model``)
+    from the JAX package's parameter tree given as numpy arrays:
     ``embed`` (Vp, d), ``final_ln`` (d,), ``head`` (d, Vp) unless the
     embeddings are tied, ``patch_proj`` (d, d) for a VLM, zamba2's
     ``shared`` attention block, and one stacked group: ``g_blocks``, each
@@ -140,14 +140,15 @@ def lm_params_from_jax(cfg, params: Mapping[str, Any]
     ``we3``, ``we2``[, ``w1``, ``w3``, ``w2``]}), or ``g_super`` whose
     per-superblock stacks are (n_super, per, ...) (gemma's ``local``,
     xlstm's ``mlstm``, zamba2's ``mamba``) or (n_super, ...) (gemma's
-    ``global``, xlstm's ``slstm``); each leaf's place is
+    ``global``, xlstm's ``slstm``); whisper's ``enc_ln`` and its ``enc``
+    and ``dec`` stacks, each leaf (L, ...); each leaf's place is
     :func:`stack_path`'s.  CPU tensors, each in its target parameter's
     dtype (``cfg.dtype``, or f32 where the reference keeps f32: the
     router, ``wi``, ``wf``, ``conv``, ``A_log``, ``D``, ``dt_bias``);
     load them with ``model.load_state_dict(...)``."""
-    from repro_torch.models.lm import DecoderLM
+    from repro_torch.models.registry import build_model
 
-    target = dict(DecoderLM(cfg, device="meta").named_parameters())
+    target = dict(build_model(cfg, device="meta").named_parameters())
     layout: dict[tuple, list] = {}
     for name in target:
         path, idx = stack_path(name)
@@ -190,11 +191,14 @@ def stack_path(name: str) -> tuple[tuple, tuple]:
     ``blocks.3.attn.wq`` -> ((``g_blocks``, ``attn``, ``wq``), (3,));
     ``super.2.local.1.ln1`` -> ((``g_super``, ``local``, ``ln1``), (2,
     1)); ``super.2.global.ln1`` -> ((``g_super``, ``global``, ``ln1``),
-    (2,)); an unstacked leaf (``embed``, ``shared.attn.wq``) -> (its
-    path, ())."""
+    (2,)); whisper's ``enc.1.attn.wq`` -> ((``enc``, ``attn``, ``wq``),
+    (1,)) and ``dec.0.lnx`` -> ((``dec``, ``lnx``), (0,)); an unstacked
+    leaf (``embed``, ``enc_ln``, ``shared.attn.wq``) -> (its path, ())."""
     parts = name.split(".")
     if parts[0] == "blocks":
         return ("g_blocks", *parts[2:]), (int(parts[1]),)
+    if parts[0] in ("enc", "dec"):
+        return (parts[0], *parts[2:]), (int(parts[1]),)
     if parts[0] == "super":
         i, sub = int(parts[1]), parts[2]
         if parts[3].isdigit():
@@ -207,7 +211,8 @@ def lm_params_to_stacked(named: Mapping[str, torch.Tensor]) -> dict:
     """The inverse of :func:`lm_params_from_jax` on tensors: the
     reference's nested tree of stacked leaves (``embed``, ``final_ln``,
     ``head``, ``patch_proj``, ``shared/...``, ``g_blocks/...`` (L, ...),
-    ``g_super/...`` (n_super[, per], ...)) from tensors keyed by the
+    ``g_super/...`` (n_super[, per], ...), whisper's ``enc/...`` and
+    ``dec/...`` (L, ...)) from tensors keyed by the
     port's parameter names: parameters, gradients or optimizer moments.
     Stacked leaves are new tensors; an unstacked leaf is the given tensor
     itself."""
@@ -231,10 +236,11 @@ def lm_params_to_stacked(named: Mapping[str, torch.Tensor]) -> dict:
 
 
 def bind_stacked(model, params: Mapping) -> None:
-    """Make every parameter of ``model`` (a ``DecoderLM``) a view of its
-    place in ``params``, a tree of :func:`lm_params_to_stacked`'s layout
-    of the same shapes and dtypes: the model then computes with the
-    tree's values, and an update of the tree in place reaches it."""
+    """Make every parameter of ``model`` (a ``DecoderLM`` or an
+    ``EncDecLM``) a view of its place in ``params``, a tree of
+    :func:`lm_params_to_stacked`'s layout of the same shapes and dtypes:
+    the model then computes with the tree's values, and an update of the
+    tree in place reaches it."""
     for name, p in model.named_parameters():
         path, idx = stack_path(name)
         leaf = tree.get(params, path)[idx]
@@ -258,8 +264,8 @@ def stacked_params(model) -> dict:
 def stacked_like(cfg) -> dict:
     """The stacked tree of ``cfg``'s parameters on the ``meta`` device:
     their shapes and dtypes, for ``ckpt.restore``'s ``like``."""
-    from repro_torch.models.lm import DecoderLM
-    return lm_params_to_stacked({n: p.detach() for n, p in DecoderLM(
+    from repro_torch.models.registry import build_model
+    return lm_params_to_stacked({n: p.detach() for n, p in build_model(
         cfg, device="meta").named_parameters()})
 
 

@@ -1,9 +1,11 @@
 """Synthetic data for the PyTorch port.
 
-``blobs``, ``drifting_blobs`` and ``token_stream`` are copies of the JAX
-package's generators (numpy only), so the port's tests, ``chip_smoke.py``
-and the JAX package build the same points and batches from the same
-seed.
+``blobs``, ``drifting_blobs``, ``surrogate_iris``, ``surrogate_seeds`` and
+``token_stream`` are copies of the JAX package's generators (numpy only),
+so the port's tests, ``chip_smoke.py`` and the JAX package build the same
+points and batches from the same seed.  The surrogates stand in for the
+paper's accuracy-table data sets (Iris 150 x 4, Seeds 210 x 7, 3 classes
+each), which are not available offline.
 """
 from __future__ import annotations
 
@@ -47,6 +49,41 @@ def drifting_blobs(n_chunks: int, chunk_size: int, n_clusters: int = 8,
         labels.append(ids)
         traj.append(centers.astype(np.float32).copy())
     return np.stack(chunks), np.stack(labels), np.stack(traj)
+
+
+def surrogate_iris(seed: int = 0):
+    """150 x 4, 3 classes; one pair of classes overlaps (like versicolor /
+    virginica) so the clustering problem has the same character.  Returns
+    numpy ``(points (150, 4) f32, labels (150,))``."""
+    rng = np.random.default_rng(seed)
+    mus = np.array([[5.0, 3.4, 1.5, 0.2],
+                    [5.9, 2.8, 4.3, 1.3],
+                    [6.6, 3.0, 5.6, 2.0]])
+    sds = np.array([[0.35, 0.38, 0.17, 0.10],
+                    [0.52, 0.31, 0.47, 0.20],
+                    [0.64, 0.32, 0.55, 0.27]])
+    x = np.concatenate([rng.normal(m, s, (50, 4)) for m, s in zip(mus, sds)])
+    y = np.repeat(np.arange(3), 50)
+    perm = rng.permutation(150)
+    return x[perm].astype(np.float32), y[perm]
+
+
+def surrogate_seeds(seed: int = 0):
+    """210 x 7, 3 classes (wheat kernel geometry style: correlated
+    features).  Returns numpy ``(points (210, 7) f32, labels (210,))``."""
+    rng = np.random.default_rng(seed)
+    mus = np.array([
+        [14.3, 14.3, 0.880, 5.51, 3.24, 2.67, 5.09],
+        [18.3, 16.1, 0.885, 6.14, 3.68, 3.60, 6.02],
+        [11.9, 13.2, 0.849, 5.23, 2.85, 4.83, 5.12]])
+    sds = np.array([
+        [1.21, 0.57, 0.016, 0.23, 0.18, 1.17, 0.26],
+        [1.44, 0.62, 0.012, 0.27, 0.19, 1.25, 0.25],
+        [0.72, 0.34, 0.022, 0.14, 0.15, 1.34, 0.16]])
+    x = np.concatenate([rng.normal(m, s, (70, 7)) for m, s in zip(mus, sds)])
+    y = np.repeat(np.arange(3), 70)
+    perm = rng.permutation(210)
+    return x[perm].astype(np.float32), y[perm]
 
 
 def token_stream(step: int, global_batch: int, seq_len: int, vocab: int,

@@ -7,7 +7,8 @@ checkpoint.
 
 Runs on the CUDA device, for any architecture ``build_model`` builds
 (dense, gemma3's local/global, MoE, the VLM backbone on text prompts,
-xlstm and zamba2).
+xlstm, zamba2, and whisper, whose cross-attention caches stay zero as in
+the reference's engine).
 The shape is a decode shape of ``prompt-len + gen`` tokens with the full
 KV cache.  ``--ckpt-dir`` restores ``params`` from the newest complete
 checkpoint of a trainer's directory (``repro_torch.launch.train``) and

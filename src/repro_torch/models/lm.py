@@ -80,6 +80,49 @@ class _HeadProduct(torch.autograd.Function):
         return dx, dw
 
 
+def attn_params(d: int, dims: AttnDims, dtype: torch.dtype, device
+                ) -> nn.ParameterDict:
+    """An attention layer's zeroed projections ``wq``, ``wk``, ``wv``,
+    ``wo``, each (d_in, d_out)."""
+    h, kv, dh = dims
+    return nn.ParameterDict({
+        "wq": param((d, h * dh), dtype, device),
+        "wk": param((d, kv * dh), dtype, device),
+        "wv": param((d, kv * dh), dtype, device),
+        "wo": param((h * dh, d), dtype, device)})
+
+
+def vocab_logits(x: torch.Tensor, final_ln: torch.Tensor, w: torch.Tensor,
+                 eps: float) -> torch.Tensor:
+    """Final norm and the vocabulary projection by ``w`` (d, Vp): f32
+    logits computed from the activations and ``w`` in their own type, with
+    no rounding of the product to that type (the reference's
+    ``dot_general(..., preferred_element_type=f32)``).  On CUDA the
+    product reads ``w`` once and writes f32 (:class:`_HeadProduct`, which
+    gives it a backward); on the CPU it is the f32 product."""
+    xn = rms_norm(x, final_ln, eps)
+    x2 = xn.reshape(-1, xn.shape[-1])
+    if x2.device.type == "cuda" and x2.dtype != torch.float32:
+        logits = _HeadProduct.apply(x2, w)
+    else:
+        logits = x2.float() @ w.float()
+    return logits.reshape(*xn.shape[:-1], w.shape[-1])
+
+
+def draw_weights(embed: torch.Tensor, projections: list,
+                 seed: "int | torch.Generator") -> None:
+    """Fill ``embed`` with N(0, 0.02^2) draws and each projection with
+    N(0, 1 / d_in) draws (d_in its next-to-last axis), each tensor from
+    its own generator seeded from ``seed`` in this order."""
+    base = seed_of(seed)
+    scaled = [(embed, 0.02)] + [(w, w.shape[-2] ** -0.5)
+                                for w in projections]
+    for i, (w, scale) in enumerate(scaled):
+        gen = torch.Generator(device=w.device)
+        gen.manual_seed(derive_seed(base, i))
+        ninit_(w, gen, scale)
+
+
 def _index(tree, i):
     """A cache tree with every tensor indexed at ``i`` along its first
     axis (views: in-place updates reach the stacked cache)."""
@@ -102,11 +145,7 @@ class AttnBlock(nn.Module):
         self.eps = cfg.norm_eps
         self.window = window
         self.ln1 = param((d,), dtype, device)
-        self.attn = nn.ParameterDict({
-            "wq": param((d, h * dh), dtype, device),
-            "wk": param((d, kv * dh), dtype, device),
-            "wv": param((d, kv * dh), dtype, device),
-            "wo": param((h * dh, d), dtype, device)})
+        self.attn = attn_params(d, self.dims, dtype, device)
         self.ln2 = param((d,), dtype, device)
         if moe:
             e, f = cfg.n_experts, cfg.d_ff
@@ -378,7 +417,6 @@ class DecoderLM(nn.Module):
         tensor from its own generator seeded from ``seed``, in the order
         head, zamba2's shared block, the layers, the patch projection;
         returns ``self``."""
-        base = seed_of(seed)
         projections = [] if self.cfg.tie_embeddings else [self.head]
         if self.cfg.family == "hybrid":
             projections += self.shared.projections()
@@ -386,12 +424,7 @@ class DecoderLM(nn.Module):
                         for w in layer.projections()]
         if self.cfg.n_patches:
             projections.append(self.patch_proj)
-        scaled = [(self.embed, 0.02)] + [(w, w.shape[-2] ** -0.5)
-                                         for w in projections]
-        for i, (w, scale) in enumerate(scaled):
-            gen = torch.Generator(device=w.device)
-            gen.manual_seed(derive_seed(base, i))
-            ninit_(w, gen, scale)
+        draw_weights(self.embed, projections, seed)
         return self
 
     # -- context -------------------------------------------------------------
@@ -494,20 +527,10 @@ class DecoderLM(nn.Module):
             len(layers), b, shape, kind, self.dtype, self.device)}
 
     def head_out(self, x: torch.Tensor) -> torch.Tensor:
-        """Final norm and the vocabulary projection, f32 logits computed
-        from the activations and the head in their own type, with no
-        rounding of the product to that type (the reference's
-        ``dot_general(..., preferred_element_type=f32)``).  On CUDA the
-        product reads the head once and writes f32 (:class:`_HeadProduct`,
-        which gives it a backward); on the CPU it is the f32 product."""
-        xn = rms_norm(x, self.final_ln, self.cfg.norm_eps)
+        """Final norm and the vocabulary projection (:func:`vocab_logits`;
+        by the embedding's transpose where they are tied)."""
         w = self.embed.T if self.cfg.tie_embeddings else self.head
-        x2 = xn.reshape(-1, xn.shape[-1])
-        if x2.device.type == "cuda" and x2.dtype != torch.float32:
-            logits = _HeadProduct.apply(x2, w)
-        else:
-            logits = x2.float() @ w.float()
-        return logits.reshape(*xn.shape[:-1], w.shape[-1])
+        return vocab_logits(x, self.final_ln, w, self.cfg.norm_eps)
 
     @torch.no_grad()
     def decode_step(self, tokens: torch.Tensor, caches: dict, pos: int, *,

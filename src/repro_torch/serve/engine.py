@@ -12,12 +12,15 @@ refills; the cache stays O(S_0/c + W) while the centroids track the whole
 history.
 
 The engine serves any model :func:`~repro_torch.models.build_model`
-returns (a :class:`~repro_torch.models.DecoderLM` holding its weights:
+returns (a :class:`~repro_torch.models.DecoderLM` or, for whisper, an
+:class:`~repro_torch.models.EncDecLM`, holding its weights:
 ``build_model(cfg)`` then ``init_params(seed)`` or ``load_state_dict``), on
-the device the model lives on.  Decode caches are updated in place; a
-refresh folds only the clustered caches (gemma's global layers, not its
-local rings; zamba2's shared attention, not its Mamba2 states).  The prompt is fed token by token, as the reference's engine
-feeds it.
+the device the model lives on.  Whisper decodes on the full cache, and
+its cross-attention caches stay zero, as the reference's engine leaves
+them.  Decode caches are updated in place; a refresh folds only the
+clustered caches (gemma's global layers, not its local rings; zamba2's
+shared attention, not its Mamba2 states).  The prompt is fed token by
+token, as the reference's engine feeds it.
 """
 from __future__ import annotations
 
@@ -34,6 +37,7 @@ from repro_torch.core.backend import get_backend
 from repro_torch.core.device import derive_seed, make_generator
 from repro_torch.core.spec import ClusterSpec, StopSpec
 from repro_torch.models.attention import compress_kv_cache
+from repro_torch.models.encdec import EncDecLM
 from repro_torch.models.lm import DecoderLM
 from repro_torch.models.registry import cache_kind
 from repro_torch.stream.kv import refresh_layer_cache
@@ -100,16 +104,19 @@ def resolve_recompress(scfg: ServeConfig) -> tuple[StopSpec, str]:
 
 
 class ServeEngine:
-    """Batched generation from a :class:`DecoderLM` (``params``: the model
-    holding the weights, built for ``cfg``) at ``shape``, whose cache kind
-    follows :func:`~repro_torch.models.cache_kind`."""
+    """Batched generation from a :class:`DecoderLM` or an
+    :class:`EncDecLM` (``params``: the model holding the weights, built
+    for ``cfg``) at ``shape``, whose cache kind follows
+    :func:`~repro_torch.models.cache_kind`."""
 
     def __init__(self, cfg: ArchConfig, shape: ShapeConfig,
-                 params: DecoderLM, scfg: Optional[ServeConfig] = None, *,
-                 logger=None):
-        if not isinstance(params, DecoderLM) or params.cfg != cfg:
-            raise TypeError("ServeEngine: params must be the DecoderLM "
-                            f"built for {cfg.name} (build_model(cfg))")
+                 params: "DecoderLM | EncDecLM",
+                 scfg: Optional[ServeConfig] = None, *, logger=None):
+        if (not isinstance(params, (DecoderLM, EncDecLM))
+                or params.cfg != cfg):
+            raise TypeError("ServeEngine: params must be the DecoderLM or "
+                            f"EncDecLM built for {cfg.name} "
+                            f"(build_model(cfg))")
         self.cfg, self.shape = cfg, shape
         self.model = params
         self.device = params.device

@@ -78,7 +78,9 @@ def make_train_step(model, optimizer, cfg: ArchConfig, shape: ShapeConfig,
     (and a VLM's patch projection) runs once, outside the gradient, as the
     reference hoists it out of its accumulation scan: ``embed`` (and
     ``patch_proj``) get a zero gradient unless the head reads the
-    embedding (tied).  Each micro's gradient is added into a tree in
+    embedding (tied).  The batch's other leaves (``labels``, whisper's
+    ``frames``) are split the same way and passed to each micro's
+    ``loss_embedded``.  Each micro's gradient is added into a tree in
     ``plan.grad_dtype``; the sum over ``n_micro`` is cast to f32, passed
     through ``compress_fn`` (grads -> grads) and applied by
     ``optimizer.update``.  metrics: ``loss`` (the micro losses' mean) and

@@ -10,7 +10,12 @@
 
 The trainer runs on one device: its mesh's ``data`` and ``model`` axes
 must be 1.  The reference's GSPMD partition rules (``train/sharding.py``)
-have no single-controller counterpart yet (ROADMAP.md §1).
+have no single-controller counterpart yet (ROADMAP.md §1).  It trains the
+decoder-only families: its batches are ``tokens`` and ``labels``, and
+the reference's trainer cannot feed whisper's ``frames`` either (its
+batch shardings and its default ``token_stream`` name only the two).
+Whisper trains through :func:`repro_torch.train.step.make_train_step`
+with a batch from :func:`repro_torch.models.registry.batch_like`.
 """
 from __future__ import annotations
 
@@ -60,6 +65,12 @@ class Trainer:
     def __init__(self, cfg: ArchConfig, shape: ShapeConfig, mesh: Mesh,
                  tcfg: TrainerConfig, plan: Optional[TrainPlan] = None,
                  batch_fn: Optional[Callable] = None):
+        if cfg.family == "audio":
+            raise ValueError(
+                f"Trainer: {cfg.name} needs its batch's frames, which the "
+                f"trainer's token batches lack (as the reference's); train "
+                f"it with train.step.make_train_step and a "
+                f"models.registry.batch_like batch")
         self.cfg, self.shape, self.mesh, self.tcfg = cfg, shape, mesh, tcfg
         self.device = _device(mesh)
         self.model = build_model(cfg, device=self.device)

@@ -23,7 +23,7 @@ from repro_torch.configs import ARCH_IDS, ShapeConfig, get_config
 from repro_torch.convert import lm_params_from_jax
 from repro_torch.core import (ClusterSpec, LevelSpec, StopSpec,
                               kmeans_batched)
-from repro_torch.models import build_model
+from repro_torch.models import EncDecLM, build_model
 from repro_torch.serve import ServeConfig, ServeEngine, resolve_recompress
 from repro_torch.stream import refresh_clustered_cache, refresh_layer_cache
 from repro_torch.telemetry import RecordingLogger
@@ -329,30 +329,30 @@ def test_resolve_recompress_precedence():
 
 
 @pytest.mark.parametrize("arch", ARCH_IDS)
-def test_build_model_raises_on_unported_families(arch):
+def test_build_model_builds_every_family(arch):
     """The attention families build (gemma3, dbrx, llama4 and internvl2
-    among them) and the recurrent ones (xlstm, zamba2); only the
-    encoder-decoder one raises."""
+    among them), the recurrent ones (xlstm, zamba2) and the
+    encoder-decoder (whisper)."""
     cfg = get_config(arch).reduced()
+    model = build_model(cfg, device="cpu")
+    assert model.cfg == cfg
     if cfg.family != "audio":
-        model = build_model(cfg, device="cpu")
-        assert model.cfg == cfg
         patterned = cfg.local_per_global or cfg.family in ("ssm", "hybrid")
         assert model.group == ("super" if patterned else "blocks")
     else:
-        assert arch == "whisper-base"
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            build_model(cfg, device="cpu")
+        assert arch == "whisper-base" and isinstance(model, EncDecLM)
+        assert (len(model.enc), len(model.dec)) == (cfg.encoder_layers,
+                                                    cfg.n_layers)
 
 
 @pytest.mark.parametrize("arch", ["gemma3-12b", "dbrx-132b",
                                   "llama4-maverick-400b-a17b",
                                   "internvl2-2b", "xlstm-1.3b",
-                                  "zamba2-2.7b"])
+                                  "zamba2-2.7b", "whisper-base"])
 def test_build_model_defaults_to_cuda(arch, monkeypatch):
-    """The families built from the attention block and the recurrent ones
-    run on the card unless the caller asks for the CPU: without one, the
-    default raises."""
+    """The families built from the attention block, the recurrent ones and
+    the encoder-decoder run on the card unless the caller asks for the
+    CPU: without one, the default raises."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
         build_model(get_config(arch).reduced())
