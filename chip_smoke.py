@@ -64,7 +64,10 @@ after:
     decay alone, one step with the gradient compressor (the Lloyd kernel
     at d = 1 on each leaf's sample); then ``python -m
     repro_torch.launch.train`` and ``launch.serve --ckpt-dir`` on its
-    checkpoint (reduced), in process;
+    checkpoint (reduced), in process; the data-parallel trainer at the
+    same configuration on a two-shard mesh (``cuda:0`` twice) against
+    the one-device step bit for bit, and its compressed step (the hook
+    once, on the summed gradient);
   * the encoder-decoder: whisper-base at full width and depth (bf16 from a
     seed) through its forward over 8 x 4096 tokens and 1500 frames, its
     forward's logits against its decode's on an f32 copy (sound, and with
@@ -2916,6 +2919,159 @@ def train_launcher():
         shutil.rmtree(work, ignore_errors=True)
 
 
+# the data-parallel step's fallback rule, where its bits part from the
+# one-device step's (tests/test_torch_train.py's for AdamW): loss at rtol
+# 1e-6; parameters and master weights at rtol 1e-5 (atol 1e-6) except
+# entries whose gradient is at rounding level (first moment below 1e-4 of
+# its leaf's largest), at most 0.1% of a leaf, each within 2 lr
+DP_LOSS_RTOL, DP_PARAM_RTOL, DP_PARAM_ATOL = 1e-6, 1e-5, 1e-6
+DP_ODD_SHARE = 1e-3
+
+
+def dp_fallback(state, kept, lr: float) -> dict:
+    """``state`` (on the card) against ``kept`` (the host copy of the
+    one-device step's) under the fallback rule: -> the leaves that break
+    it and each compared leaf's count of entries beyond rtol."""
+    from repro_torch import tree
+    odd, broken = {}, []
+    for path, a in tree.items(state):
+        key = tree.key_of(path)
+        if not key.startswith(("params/", "opt/master/")):
+            continue
+        leaf = path[1:] if path[0] == "params" else path[2:]
+        b = tree.get(kept, path).to(a.device).float()
+        a = a.float()
+        close = torch.isclose(a, b, rtol=DP_PARAM_RTOL, atol=DP_PARAM_ATOL)
+        m = tree.get(state["opt"]["m"], leaf).abs()
+        tiny = m < 1e-4 * m.max()
+        far = ~close
+        odd[key] = int(far.sum())
+        if (not bool((close | tiny).all())
+                or odd[key] > DP_ODD_SHARE * far.numel()
+                or bool(((a - b).abs()[far] > 2 * lr).any())):
+            broken.append(key)
+    return dict(odd=odd, broken=broken)
+
+
+def train_data_parallel():
+    """The data-parallel trainer at ``train_llama3_8b``'s configuration
+    (llama3-8b at full width with ``TRAIN_LAYERS`` layers, bf16 from seed
+    0, AdamW with f32 master weights, 8 x 512 tokens, ``TrainPlan(n_micro=2,
+    q_chunk=512)``): one step of a ``Trainer`` on a (1, 1) mesh from the
+    seed-0 state, its loss and state kept on the host and the state
+    freed; one step of a ``Trainer`` on ``make_host_mesh(2, 1,
+    device="cuda")`` (``cuda:0`` twice: one micro-batch a shard, each
+    into its own accumulator, added in mesh order) from a fresh seed-0
+    state on the same batch, held bit for bit against the first (loss,
+    parameters, optimizer state), or under :func:`dp_fallback`'s rule,
+    with the leaves that part reported; a profiled repeat for the device's
+    busy time; then one data=2 step with the gradient compressor hooked
+    in, which must launch the Lloyd kernel ``12 x 9`` times (the hook runs
+    once, on the summed gradient).  No checkpoint is written.  -> (the
+    emitted fields, the compressed step's head-gradient sample as (1,
+    4096, 1))."""
+    import gc
+    from repro_torch import tree
+    from repro_torch.configs import ShapeConfig, get_config
+    from repro_torch.data import token_stream
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.train.compress import SAMPLE, make_grad_compressor
+    from repro_torch.train.sharding import batch_devices
+    from repro_torch.train.step import TrainPlan, make_train_step
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+
+    cfg = dataclasses.replace(get_config("llama3-8b"), n_layers=TRAIN_LAYERS)
+    shape = ShapeConfig("train_8x512", TRAIN_SEQ, TRAIN_BATCH, "train")
+    plan = TrainPlan(n_micro=TRAIN_MICRO, q_chunk=512, remat=True)
+    tc = TrainerConfig(steps=1, ckpt_dir=str(ROOT / "build" / "unused"),
+                       seed=0)
+    batch = token_stream(0, TRAIN_BATCH, TRAIN_SEQ, cfg.vocab, seed=tc.seed)
+
+    one = Trainer(cfg, shape, make_host_mesh(1, 1), tc, plan=plan)
+    state = one.init_state()
+    torch.cuda.reset_peak_memory_stats()
+    one_s, (state, met) = timed_s(lambda: one.train_step(state, batch))
+    peak_one_gb = torch.cuda.max_memory_allocated() / 1e9
+    loss_one = met["loss"].cpu()
+    kept = tree.map_(host_copy, state)
+    del state, met, one
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    mesh = make_host_mesh(2, 1, device="cuda")
+    two = Trainer(cfg, shape, mesh, tc, plan=plan)
+    devices = batch_devices(mesh)
+    check(len(devices) == 2 and two.plan is plan
+          and two.device == devices[0], f"data parallel: {mesh}, "
+          f"{two.device}")
+    state = two.init_state()
+    torch.cuda.reset_peak_memory_stats()
+    step_s, (state, met) = timed_s(lambda: two.train_step(state, batch))
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    loss_two = met["loss"].cpu()
+    differ = trees_bits_equal(state, kept)
+    bitwise = bits_equal(loss_two, loss_one) and not differ
+    fields = dict(
+        arch=cfg.name, layers=TRAIN_LAYERS, of_layers=32,
+        mesh=repr(mesh), shards=len(devices),
+        micro_per_shard=plan.n_micro // len(devices),
+        plan=dataclasses.asdict(plan), batch=[TRAIN_BATCH, TRAIN_SEQ],
+        loss_one_device=float(loss_one), loss_data_parallel=float(loss_two),
+        bitwise=bitwise, differ=differ, one_device_step_s=one_s,
+        step_wall_s=step_s, tokens_per_s=TRAIN_BATCH * TRAIN_SEQ / step_s,
+        peak_gb=peak_gb, one_device_peak_gb=peak_one_gb)
+    if not bitwise:
+        fields["fallback"] = dp_fallback(state, kept, two.optimizer.lr)
+        loss_ok = np.isclose(float(loss_two), float(loss_one),
+                             rtol=DP_LOSS_RTOL, atol=0.0)
+        emit("train_data_parallel_parted", **fields)
+        check(loss_ok and not fields["fallback"]["broken"],
+              f"data parallel: the data=2 step parts from the one-device "
+              f"step at {differ}, beyond the fallback rule at "
+              f"{fields['fallback']['broken']}")
+    del kept
+    (state, met), prof = profiled_once(lambda: two.train_step(state, batch))
+    fields["step_profile"] = prof
+    fields["idle_share"] = max(0.0, 1.0 - prof["device_busy_s"] / step_s)
+
+    comp = make_grad_compressor(levels=COMPRESS_LEVELS)
+    seen = dict(calls=0)
+
+    def compress(grads):
+        seen["calls"] += 1
+        flat = grads["head"].reshape(-1, 1).float()
+        seen["sample"] = flat[::max(1, flat.shape[0] // SAMPLE)][
+            :SAMPLE].clone()[None]
+        seen["leaves"] = len(tree.leaves(grads))
+        seen["compress_s"], out = timed_s(lambda: comp(grads)[0])
+        return out
+
+    cstep = make_train_step(two.model, two.optimizer, cfg, shape, plan,
+                            compress_fn=compress, mesh=mesh)
+    batch = token_stream(1, TRAIN_BATCH, TRAIN_SEQ, cfg.vocab, seed=tc.seed)
+    reset_launches()
+    cstep_s, (state, met) = timed_s(lambda: cstep(state, batch))
+    launches = read_launches()
+    want = seen["leaves"] * (8 + 1)     # max_iters + the final pass
+    check(seen["calls"] == 1 and seen["leaves"] == 12
+          and launches["lloyd_step"] == want
+          and sum(launches.values()) == want,
+          f"data parallel: compressor called {seen['calls']} times, "
+          f"launches {launches}, want {want} Lloyd launches")
+    check(np.isfinite(float(met["loss"])), "data parallel: compressed loss")
+    fields["compressed_step"] = dict(step_s=cstep_s,
+                                     compress_s=seen["compress_s"],
+                                     hook_calls=seen["calls"],
+                                     leaves=seen["leaves"],
+                                     loss=float(met["loss"]),
+                                     launches=launches)
+    emit("train_data_parallel", **fields)
+    del state, met, two, cstep
+    gc.collect()
+    torch.cuda.empty_cache()
+    return fields, seen["sample"]
+
+
 # whisper-base (arXiv:2212.04356) at full width and depth: 6 encoder and 6
 # decoder layers, d 512, 8 heads of 64, d_ff 2048, 1500 frames, vocab
 # 51,865 padded to 51,968; bf16 weights from SERVE_SEED.  Its cells are
@@ -4064,17 +4220,23 @@ def main() -> int:
     # -- 11b. training: llama3-8b at full width (2 of its 32 layers), its
     # checkpoint and restart, one step with the gradient compressor (the
     # Lloyd kernel at d = 1 on each leaf's sample), the two launchers
-    # (train, then serve the checkpoint), and the Lloyd kernel on the head
-    # gradient's sample against its plain version
+    # (train, then serve the checkpoint), the data-parallel trainer on a
+    # two-shard mesh against the one-device step, and the Lloyd kernel on
+    # both compressed steps' head-gradient samples against its plain
+    # version
     from repro_torch.core.kmeans import landmark_init
     t_train = time.perf_counter()
     train, comp_x = train_llama3_8b()
     torch.cuda.empty_cache()
     train_launcher()
+    dp, dp_x = train_data_parallel()
     comp_w = torch.ones(comp_x.shape[:2], device=comp_x.device)
     comp_c = landmark_init(comp_x, comp_w, COMPRESS_LEVELS)
+    dp_c = landmark_init(dp_x, comp_w, COMPRESS_LEVELS)
     train_cases = [lloyd_parity("lloyd_compressor_head", comp_x, comp_w,
-                                comp_c)]
+                                comp_c),
+                   lloyd_parity("lloyd_compressor_dp_head", dp_x, comp_w,
+                                dp_c)]
     cases += train_cases
     emit("train_parity", cases=train_cases,
          seconds=time.perf_counter() - t_train)
@@ -4485,6 +4647,8 @@ def main() -> int:
                  "serve_moe_long_500k": moe_launches["lloyd_step"],
                  "serve_zamba_long_500k": zamba_launches["lloyd_step"],
                  "train_llama3_8b_compressed_step": train[
+                     "compressed_step"]["launches"]["lloyd_step"],
+                 "train_data_parallel_compressed_step": dp[
                      "compressed_step"]["launches"]["lloyd_step"],
                  "cluster_balanced_sampler": sampler["launches"][
                      "lloyd_step"],

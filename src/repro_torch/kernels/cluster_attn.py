@@ -10,6 +10,9 @@ what its ``pallas_call`` returns, the unnormalised online-softmax state
 window) into it.  For CPU tensors it runs the plain version
 (:func:`repro_torch.kernels.ref.cluster_attn_decode_ref`), for CUDA tensors
 it launches the kernel or raises; ``launches`` counts kernel launches.
+For ``meta`` tensors (the dry run, :mod:`repro_torch.launch.dryrun`) it
+returns empty outputs of the right shapes and computes nothing: shape
+propagation, not a fallback.
 """
 from __future__ import annotations
 
@@ -61,10 +64,15 @@ def cluster_attn_partial(q: torch.Tensor, kc: torch.Tensor, vc: torch.Tensor,
     b, h, hkv, nc, dh = check_attn_inputs("cluster_attn", q, kc, vc, counts)
     if q.device.type == "cpu":
         return cluster_attn_decode_ref(q, kc, vc, counts, scale)
+    g = h // hkv
+    if q.device.type == "meta":
+        meta = dict(device="meta", dtype=torch.float32)
+        return (torch.empty((b, hkv, g, dh), **meta),
+                torch.empty((b, hkv, g), **meta),
+                torch.empty((b, hkv, g), **meta))
     if q.device.type != "cuda":
         raise ValueError(f"cluster_attn: unsupported device {q.device}")
     dev = q.device
-    g = h // hkv
     sm_count = torch.cuda.get_device_properties(dev).multi_processor_count
     s, chunk = attn_splits(b, hkv, nc, sm_count)
     f32 = dict(device=dev, dtype=torch.float32)

@@ -121,12 +121,39 @@ def make_mesh(shape: Sequence[int], axes: Sequence[str],
     return Mesh(arr.reshape(tuple(shape)), axes)
 
 
+class AbstractMesh:
+    """A mesh's axis names and sizes without devices (JAX's
+    ``AbstractMesh``): what the partition rules
+    (:mod:`repro_torch.train.sharding`) read, for meshes larger than the
+    visible cards (the dry run's production meshes)."""
+
+    def __init__(self, shape: Sequence[int], axis_names: Sequence[str]):
+        if len(shape) != len(axis_names):
+            raise ValueError(f"mesh: shape {tuple(shape)} for axes "
+                             f"{tuple(axis_names)}")
+        self.axis_names = tuple(axis_names)
+        self.shape = dict(zip(self.axis_names, shape))
+        self.size = math.prod(shape)
+
+    def __repr__(self):
+        return f"AbstractMesh({self.shape})"
+
+
+def _production(multi_pod: bool) -> tuple[tuple, tuple]:
+    if multi_pod:
+        return (2, 16, 16), ("pod", "data", "model")
+    return (16, 16), ("data", "model")
+
+
 def make_production_mesh(*, multi_pod: bool = False) -> Mesh:
     """16 x 16 devices ("data", "model"); two pods add a leading "pod"
     axis.  Raises with fewer CUDA cards."""
-    shape = (2, 16, 16) if multi_pod else (16, 16)
-    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
-    return make_mesh(shape, axes)
+    return make_mesh(*_production(multi_pod))
+
+
+def production_mesh_shape(*, multi_pod: bool = False) -> AbstractMesh:
+    """The axes of :func:`make_production_mesh`, without its devices."""
+    return AbstractMesh(*_production(multi_pod))
 
 
 def make_host_mesh(n_data: int = 1, n_model: int = 1, *,

@@ -3,10 +3,14 @@
   PYTHONPATH=src python -m repro_torch.launch.train --arch llama3-8b \
       --steps 100 --reduced --ckpt-dir CKPT_DIR
 
-Trains on the CUDA device, with weights drawn from seed 0 and batches
-from ``token_stream``; a directory that holds a checkpoint resumes from
-its newest complete step.  ``--data-mesh`` and ``--model-mesh`` stay 1:
-the trainer runs on one device (ROADMAP.md §1).
+Trains with weights drawn from seed 0 and batches from ``token_stream``;
+a directory that holds a checkpoint resumes from its newest complete
+step.  ``--data-mesh N`` trains data parallel on the first N CUDA cards
+(``--model-mesh M``: an N x M mesh, whose "model" entries past the
+first stay idle), and
+raises when fewer are visible; ``--n-micro`` must be a multiple of N
+(each card takes whole micro-batches).  A checkpoint written with one
+``--data-mesh`` resumes with another.
 """
 from __future__ import annotations
 

@@ -8,12 +8,21 @@
   * the loop tracks its step times and logs a step that takes over 3x the
     rolling p95 (a straggler).
 
-The trainer runs on one device: its mesh's ``data`` and ``model`` axes
-must be 1.  The reference's GSPMD partition rules (``train/sharding.py``)
-have no single-controller counterpart yet (ROADMAP.md §1).  It trains the
-decoder-only families: its batches are ``tokens`` and ``labels``, and
-the reference's trainer cannot feed whisper's ``frames`` either (its
-batch shardings and its default ``token_stream`` name only the two).
+The trainer takes a mesh of any size.  Its step is data parallel over
+the mesh's batch axes (``sharding.batch_axis``: "data", or "pod" and
+"data"), whole micro-batches to a shard (:func:`make_train_step` with
+``mesh=``), and its plan is ``default_plan(cfg, shape, dp)`` with dp the
+number of data shards, as the reference's.  The state lives on the first
+shard's device, and the checkpoint is that state, so a checkpoint
+written on one mesh restores on a mesh of another data size bit for bit
+(the reference's elastic rescale).  No parameter or optimizer state is
+sharded: each shard's device holds a whole replica of the parameters,
+and the devices of a "model" axis past its first entry hold and run
+nothing (the batch is replicated along it), so the result is the
+reference's whatever that axis's size.  It trains the decoder-only
+families: its batches are ``tokens`` and ``labels``, and the reference's
+trainer cannot feed whisper's ``frames`` either (its batch shardings and
+its default ``token_stream`` name only the two).
 Whisper trains through :func:`repro_torch.train.step.make_train_step`
 with a batch from :func:`repro_torch.models.registry.batch_like`.
 """
@@ -37,6 +46,7 @@ from repro_torch.data.synthetic import token_stream
 from repro_torch.launch.mesh import Mesh, check_mesh
 from repro_torch.models.registry import build_model
 from repro_torch.optim import get_optimizer
+from repro_torch.train.sharding import batch_devices
 from repro_torch.train.step import TrainPlan, default_plan, make_train_step
 
 
@@ -50,17 +60,6 @@ class TrainerConfig:
     keep_last: int = 3
 
 
-def _device(mesh: Mesh) -> torch.device:
-    """The one device of a mesh whose every axis is 1; raises otherwise."""
-    check_mesh(mesh)
-    if mesh.size != 1:
-        raise NotImplementedError(
-            f"Trainer: a {dict(mesh.shape)} mesh; the port trains on one "
-            f"device (every mesh axis 1) until the data-parallel trainer "
-            f"is ported, see ROADMAP.md §1")
-    return mesh.devices.flat[0]
-
-
 class Trainer:
     def __init__(self, cfg: ArchConfig, shape: ShapeConfig, mesh: Mesh,
                  tcfg: TrainerConfig, plan: Optional[TrainPlan] = None,
@@ -72,9 +71,10 @@ class Trainer:
                 f"it with train.step.make_train_step and a "
                 f"models.registry.batch_like batch")
         self.cfg, self.shape, self.mesh, self.tcfg = cfg, shape, mesh, tcfg
-        self.device = _device(mesh)
+        shards = batch_devices(check_mesh(mesh))
+        self.device = shards[0]
         self.model = build_model(cfg, device=self.device)
-        self.plan = plan or default_plan(cfg, shape, 1)
+        self.plan = plan or default_plan(cfg, shape, len(shards))
         self.optimizer = get_optimizer(
             self.plan.optimizer,
             master_weights=(self.plan.optimizer == "adamw"
@@ -83,7 +83,7 @@ class Trainer:
             step, shape.global_batch, shape.seq_len, cfg.vocab,
             seed=tcfg.seed))
         self.train_step = make_train_step(self.model, self.optimizer, cfg,
-                                          shape, self.plan)
+                                          shape, self.plan, mesh=mesh)
 
     # -- state ---------------------------------------------------------------
     def state_like(self) -> dict:

@@ -39,6 +39,15 @@ def map_(fn: Callable, tree, *rest):
     return fn(tree, *rest)
 
 
+def map_with_path(fn: Callable, tree, prefix: tuple = ()):
+    """``fn(path, leaf)`` of each leaf, in a tree of ``tree``'s
+    structure (``jax.tree_util.tree_map_with_path``)."""
+    if isinstance(tree, dict):
+        return {k: map_with_path(fn, v, prefix + (k,))
+                for k, v in tree.items()}
+    return fn(prefix, tree)
+
+
 def unflatten(paths: list, values: list) -> dict:
     """The nested dict with ``values[i]`` at ``paths[i]``."""
     out: dict = {}

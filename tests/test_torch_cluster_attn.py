@@ -222,10 +222,20 @@ def test_input_contract():
 
 
 def test_meta_device_is_refused():
-    q, kc, vc, cnt = (t.to("meta") for t in _t(*_inputs(10, 1, 4, 2, 20,
-                                                        16)))
-    with pytest.raises(ValueError, match="unsupported device"):
-        cluster_attn.cluster_attn_partial(q, kc, vc, cnt, 0.25)
+    """``meta`` inputs beside inputs on another device are refused; all on
+    ``meta`` (the dry run) they get empty f32 outputs of the plain
+    version's shapes: no computation, no launch, no plain version."""
+    cpu = _t(*_inputs(10, 1, 4, 2, 20, 16))
+    q, kc, vc, cnt = (t.to("meta") for t in cpu)
+    with pytest.raises(ValueError, match="on meta"):
+        cluster_attn.cluster_attn_partial(cpu[0], kc, vc, cnt, 0.25)
+    before = cluster_attn.launches
+    got = cluster_attn.cluster_attn_partial(q, kc, vc, cnt, 0.25)
+    want = cluster_attn.cluster_attn_partial(*cpu, 0.25)
+    assert cluster_attn.launches == before
+    for g, w in zip(got, want):
+        assert g.device.type == "meta" and g.shape == w.shape
+        assert g.dtype == torch.float32
 
 
 @pytest.mark.parametrize("b,hkv,nc,want", [

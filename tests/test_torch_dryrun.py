@@ -1,0 +1,147 @@
+"""The port's dry run (``repro_torch.launch.dryrun``) on the ``meta``
+device: every architecture's reduced config through a train, a prefill
+and a decode cell (the full and the clustered cache) with the A/B FLOP
+count; the full configs' byte accounting for every runnable cell of
+``configs.cells()`` on both production meshes; the cluster-attention
+wrapper's ``meta`` branch; and the command line, which writes only into
+the directory it is given."""
+import json
+import math
+
+import pytest
+import torch
+
+from repro_torch.configs import ARCH_IDS, SHAPES, ShapeConfig, cells, \
+    get_config
+from repro_torch.kernels import cluster_attn
+from repro_torch.kernels.ref import cluster_attn_decode_ref
+from repro_torch.launch import dryrun
+from repro_torch.launch.mesh import AbstractMesh, production_mesh_shape
+
+MESH = AbstractMesh((2, 2), ("data", "model"))
+SMALL = {"train": ShapeConfig("train_s", 64, 8, "train"),
+         "prefill": ShapeConfig("prefill_s", 64, 2, "prefill"),
+         "decode": ShapeConfig("decode_s", 64, 2, "decode"),
+         "clustered": ShapeConfig("long_s", 64, 1, "decode",
+                                  cluster_compression=4, cluster_window=16)}
+
+
+@pytest.mark.parametrize("cell", list(SMALL))
+@pytest.mark.parametrize("arch", ARCH_IDS)
+def test_reduced_cells_run_on_meta_with_every_field(arch, cell):
+    cfg, shape = get_config(arch).reduced(), SMALL[cell]
+    rec = dryrun.dry_run(cfg, shape, MESH)
+    for key in ("shape", "kind", "n_super", "layers_per_step", "params",
+                "active_params", "chips", "gate", "memory", "seconds",
+                "parts", "total_flops", "model_flops_global",
+                "useful_flop_ratio"):
+        assert key in rec, key
+    assert rec["gate"]["ran"] == "meta" and rec["chips"] == 4
+    mem = rec["memory"]
+    assert mem["fits"] is None and mem["card"] is None     # no card here
+    for part in ("sharded_per_device", "port_per_device"):
+        assert mem[part]["total"] == sum(v for k, v in mem[part].items()
+                                         if k != "total") > 0
+    assert mem["sharded_per_device"]["params"] <= \
+        mem["port_per_device"]["params"]
+    assert rec["parts"]["block"] > 0 and rec["total_flops"] > 0
+    assert 0 < rec["useful_flop_ratio"] < math.inf
+    if shape.kind == "train":
+        assert rec["plan"]["n_micro"] == 4            # 8 rows over dp = 2
+        assert rec["parts"]["n_micro"] == 4
+    if shape.kind == "decode":
+        want = "clustered" if (cell == "clustered" and cfg.family in (
+            "dense", "moe", "vlm", "hybrid")) else "full"
+        assert rec["cache_kind"] == want
+    json.dumps(rec)                                   # a JSON record
+
+
+def test_decode_flops_count_the_cluster_attention():
+    """The kernel's 4 B H Nc dh a clustered layer (which FlopCounterMode
+    cannot see) is counted, so it is part of the block's FLOPs."""
+    cfg = get_config("llama3-8b").reduced()
+    long = dryrun.dry_run(cfg, SMALL["clustered"], MESH)
+    caches = dryrun.build_decode_program(
+        dryrun._variant(cfg, 1, 1), SMALL["clustered"], MESH)[1][1]
+    nc = SMALL["clustered"].seq_len // SMALL["clustered"].cluster_compression
+    assert dryrun.cluster_attn_flops(cfg, caches) == \
+        4.0 * 1 * cfg.n_heads * nc * cfg.dh
+    assert long["parts"]["block"] >= dryrun.cluster_attn_flops(cfg, caches)
+
+
+@pytest.mark.parametrize("mesh_name", ["single", "multi"])
+def test_full_configs_byte_accounting_for_every_cell(mesh_name):
+    """Every runnable cell of ``configs.cells()`` builds its full-depth
+    trees on ``meta`` and accounts what one device holds; the only cell
+    skipped is whisper at long_500k."""
+    mesh = production_mesh_shape(multi_pod=(mesh_name == "multi"))
+    skipped = []
+    for arch, shape_name, ok, _ in cells():
+        if not ok:
+            skipped.append((arch, shape_name))
+            continue
+        cfg, shape = get_config(arch), SHAPES[shape_name]
+        rec = dryrun.account(cfg, shape, mesh)
+        sharded = rec["memory"]["sharded_per_device"]
+        port = rec["memory"]["port_per_device"]
+        assert 0 < sharded["total"] <= port["total"], (arch, shape_name)
+        # two bytes or more a parameter (bf16, f32 where the reference
+        # keeps f32), over at least the analytic count's parameters
+        assert port["params"] > cfg.param_count(), arch
+        if shape.kind == "train":
+            assert rec["plan"]["n_micro"] == max(
+                1, shape.global_batch // (16 if mesh_name == "single"
+                                          else 32))
+    assert skipped == [("whisper-base", "long_500k")]
+
+
+def test_the_meta_branch_gives_the_plain_versions_shapes():
+    """Empty f32 ``meta`` outputs of the plain version's shapes, with no
+    launch counted; the CPU still runs the plain version."""
+    gen = torch.Generator().manual_seed(0)
+    b, h, hkv, nc, dh = 2, 8, 2, 24, 16
+    q = torch.randn((b, h, dh), generator=gen)
+    kc = torch.randn((b, hkv, nc, dh), generator=gen)
+    vc = torch.randn((b, hkv, nc, dh), generator=gen)
+    counts = torch.rand((b, hkv, nc), generator=gen)
+    want = cluster_attn_decode_ref(q, kc, vc, counts, dh ** -0.5)
+    before = cluster_attn.launches
+    got = cluster_attn.cluster_attn_partial(
+        *(t.to("meta") for t in (q, kc, vc, counts)), dh ** -0.5)
+    assert cluster_attn.launches == before
+    for g, w in zip(got, want):
+        assert g.device.type == "meta" and g.shape == w.shape
+        assert g.dtype == w.dtype == torch.float32
+    cpu = cluster_attn.cluster_attn_partial(q, kc, vc, counts, dh ** -0.5)
+    for g, w in zip(cpu, want):
+        assert torch.equal(g, w)
+
+
+def test_the_command_line_writes_only_into_its_directory(tmp_path,
+                                                         monkeypatch):
+    """Records (and a skip record) under ``--out``, nothing in the working
+    directory or the default ``build/dryrun``; a second run skips the
+    existing records."""
+    work, out = tmp_path / "work", tmp_path / "out"
+    work.mkdir()
+    monkeypatch.chdir(work)
+    default = list(dryrun.ART.glob("*")) if dryrun.ART.exists() else None
+    argv = ["--shape", "long_500k", "--mesh", "single", "--no-ab", "--out",
+            str(out)]
+    assert dryrun.main(["--arch", "whisper-base", *argv]) == 0
+    assert dryrun.main(["--arch", "llama3-8b", *argv]) == 0
+    assert sorted(p.name for p in out.iterdir()) == [
+        "llama3-8b__long_500k__single.json",
+        "whisper-base__long_500k__single.json"]
+    rec = json.loads((out / "llama3-8b__long_500k__single.json").read_text())
+    assert rec["arch"] == "llama3-8b" and rec["cache_kind"] == "clustered"
+    assert "parts" not in rec                          # --no-ab
+    assert "skipped" in json.loads(
+        (out / "whisper-base__long_500k__single.json").read_text())
+    assert list(work.iterdir()) == []
+    now = list(dryrun.ART.glob("*")) if dryrun.ART.exists() else None
+    assert now == default
+    mtime = (out / "llama3-8b__long_500k__single.json").stat().st_mtime_ns
+    assert dryrun.main(["--arch", "llama3-8b", *argv]) == 0
+    assert (out / "llama3-8b__long_500k__single.json").stat(
+        ).st_mtime_ns == mtime

@@ -32,6 +32,7 @@ import repro_torch.optim.schedule, repro_torch.train, repro_torch.train.step
 import repro_torch.train.compress, repro_torch.train.trainer
 import repro_torch.launch.train
 import repro_torch.models.encdec, repro_torch.data.pipeline
+import repro_torch.train.sharding, repro_torch.launch.dryrun
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith(("jax.", "jaxlib"))
              or m == "repro" or m.startswith("repro."))
@@ -80,7 +81,9 @@ def test_no_source_file_imports_jax_or_the_reference():
             "repro_torch/train/trainer.py",
             "repro_torch/launch/train.py", "repro_torch/models/encdec.py",
             "repro_torch/data/pipeline.py",
-            "repro_torch/data/synthetic.py"} <= names
+            "repro_torch/data/synthetic.py",
+            "repro_torch/train/sharding.py",
+            "repro_torch/launch/dryrun.py"} <= names
     offenders = [str(f.relative_to(ROOT)) for f in files
                  if _FORBIDDEN.search(f.read_text())]
     assert offenders == []

@@ -311,9 +311,21 @@ def test_trainer_keeps_the_last_checkpoints(tmp_path):
 
 
 def test_trainer_refuses_a_larger_mesh(tmp_path):
-    mesh = make_host_mesh(2, 1, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    """A mesh whose data shards do not divide the plan's micro-batches (4
+    shards, 2 micro-batches) is refused, not trained on another plan."""
+    mesh = make_host_mesh(4, 1, device="cpu")
+    with pytest.raises(ValueError, match="n_micro=2"):
         _trainer(2, tmp_path, mesh=mesh)
+
+
+def test_trainer_trains_on_a_two_shard_mesh(tmp_path):
+    """A (2, 1) mesh trains: one micro-batch a shard, so its loss is the
+    one-shard trainer's bit for bit."""
+    _, hist = _trainer(1, tmp_path / "two",
+                       mesh=make_host_mesh(2, 1, device="cpu")).run()
+    _, want = _trainer(1, tmp_path / "one").run()
+    assert hist == want and all(np.isfinite(hist))
+    assert tckpt.steps(tmp_path / "two") == [1]
 
 
 def test_trainer_picks_the_reference_plan(tmp_path):
