@@ -64,10 +64,12 @@ after:
     decay alone, one step with the gradient compressor (the Lloyd kernel
     at d = 1 on each leaf's sample); then ``python -m
     repro_torch.launch.train`` and ``launch.serve --ckpt-dir`` on its
-    checkpoint (reduced), in process; the data-parallel trainer at the
-    same configuration on a two-shard mesh (``cuda:0`` twice) against
-    the one-device step bit for bit, and its compressed step (the hook
-    once, on the summed gradient);
+    checkpoint (reduced), in process; the one-device step on a state of
+    whole tensors at the same configuration; the sharded trainer at the
+    same configuration on a 2 x 2 mesh (``cuda:0`` four times: each
+    position's blocks of the parameters, accumulator and optimizer state,
+    each equal to ``shard_bytes``) against the one-device step, and its
+    compressed step (the hook once, on the gradient gathered whole);
   * the encoder-decoder: whisper-base at full width and depth (bf16 from a
     seed) through its forward over 8 x 4096 tokens and 1500 frames, its
     forward's logits against its decode's on an f32 copy (sound, and with
@@ -2677,8 +2679,16 @@ def host_available_gb() -> float:
     return float("nan")
 
 
-def host_copy(t: torch.Tensor) -> torch.Tensor:
-    return t.to("cpu", copy=True)
+def on_card(t) -> torch.Tensor:
+    """A tensor, or a sharded leaf gathered whole on its first device (a
+    leaf of one block there is read in place)."""
+    from repro_torch.core.blocks import Sharded, gather
+    return gather(t, t.device) if isinstance(t, Sharded) else t
+
+
+def host_copy(t) -> torch.Tensor:
+    """A host copy of a tensor, or of a sharded leaf gathered whole."""
+    return on_card(t).to("cpu", copy=True)
 
 
 def bits_equal(a: torch.Tensor, b: torch.Tensor) -> bool:
@@ -2699,12 +2709,18 @@ def trees_bits_equal(a, b) -> list:
     fb = {tree.key_of(p): t for p, t in tree.items(b)}
     if fa.keys() != fb.keys():
         return sorted(fa.keys() ^ fb.keys())
-    return [k for k in fa if not bits_equal(fa[k], fb[k].to(fa[k].device))]
+    out = []
+    for k in fa:
+        a = on_card(fa[k])
+        if not bits_equal(a, on_card(fb[k]).to(a.device)):
+            out.append(k)
+    return out
 
 
 def train_llama3_8b():
     """The training path at full width (``TRAIN_LAYERS`` of llama3-8b's
-    layers): ``Trainer(steps=2, ckpt_every=2)`` over ``token_stream``
+    layers): ``Trainer(steps=2, ckpt_every=2)`` (its state in the blocks
+    of a 1 x 1 mesh: one block a leaf) over ``token_stream``
     batches of 8 x 512 (``TrainPlan(n_micro=2, q_chunk=512, remat=True)``)
     into a directory under ``build/``, which writes one checkpoint; a
     second ``Trainer`` on it restores, bit for bit the first run's final
@@ -2723,6 +2739,7 @@ def train_llama3_8b():
     from repro_torch import tree
     from repro_torch.ckpt import checkpoint as ckpt
     from repro_torch.configs import ShapeConfig, get_config
+    from repro_torch.core.blocks import is_sharded
     from repro_torch.data import token_stream
     from repro_torch.launch.mesh import make_host_mesh
     from repro_torch.optim import AdamW
@@ -2768,6 +2785,7 @@ def train_llama3_8b():
         def recording(state, batch):    # the initial embedding, step walls
             if not first:
                 first["embed"] = host_copy(state["params"]["embed"])
+                first["sharded"] = is_sharded(state["params"])
             sec, out = timed_s(lambda: train_step(state, batch))
             walls.append(sec)
             return out
@@ -2788,11 +2806,14 @@ def train_llama3_8b():
         m = first.pop("embed").cuda().float()
         for _ in range(TRAIN_STEPS):
             m = m - opt.lr * (0.0 + opt.weight_decay * m)
-        embed_ok = (not state["opt"]["m"]["embed"].any()
-                    and not state["opt"]["v"]["embed"].any()
-                    and bits_equal(state["opt"]["master"]["embed"], m)
-                    and bits_equal(params["embed"],
+        embed = {k: on_card(tree.get(state, ("opt", k, "embed")))
+                 for k in ("m", "v", "master")}
+        embed_ok = (first["sharded"] and not embed["m"].any()
+                    and not embed["v"].any()
+                    and bits_equal(embed["master"], m)
+                    and bits_equal(on_card(params["embed"]),
                                    m.to(params["embed"].dtype)))
+        del embed
         check(embed_ok, "train: the embedding moved by more than its decay")
         del m
         resumed = Trainer(cfg, shape, make_host_mesh(1, 1), tc, plan=plan)
@@ -2919,64 +2940,122 @@ def train_launcher():
         shutil.rmtree(work, ignore_errors=True)
 
 
-# the data-parallel step's fallback rule, where its bits part from the
-# one-device step's (tests/test_torch_train.py's for AdamW): loss at rtol
-# 1e-6; parameters and master weights at rtol 1e-5 (atol 1e-6) except
-# entries whose gradient is at rounding level (first moment below 1e-4 of
-# its leaf's largest), at most 0.1% of a leaf, each within 2 lr
-DP_LOSS_RTOL, DP_PARAM_RTOL, DP_PARAM_ATOL = 1e-6, 1e-5, 1e-6
-DP_ODD_SHARE = 1e-3
+def whole_train_state(cfg, opt):
+    """(the model on the card bound to it, the one-device train state):
+    the seed-0 weights as the stacked tree of whole tensors, the
+    optimizer's initial state, step 0."""
+    from repro_torch.convert import stacked_params
+    from repro_torch.models.registry import build_model
+    model = build_model(cfg, device="cuda").init_params(0)
+    params = stacked_params(model)
+    return model, {"params": params, "opt": opt.init(params),
+                   "step": torch.zeros((), dtype=torch.int32,
+                                       device="cuda")}
 
 
-def dp_fallback(state, kept, lr: float) -> dict:
-    """``state`` (on the card) against ``kept`` (the host copy of the
-    one-device step's) under the fallback rule: -> the leaves that break
-    it and each compared leaf's count of entries beyond rtol."""
+def train_one_device():
+    """The one-device step on a state of whole tensors at
+    ``train_llama3_8b``'s configuration (llama3-8b at full width with
+    ``TRAIN_LAYERS`` layers, bf16 from seed 0, AdamW with f32 master
+    weights, 8 x 512 tokens, ``TrainPlan(n_micro=2, q_chunk=512)``):
+    ``make_train_step`` without a mesh, one step from the seed-0 state,
+    its loss, norm and state kept on the host and the state freed.  No
+    checkpoint is written.  -> (the emitted fields, the loss, norm, lr
+    and host state that :func:`train_sharded` is held against)."""
+    import gc
     from repro_torch import tree
-    odd, broken = {}, []
-    for path, a in tree.items(state):
-        key = tree.key_of(path)
-        if not key.startswith(("params/", "opt/master/")):
+    from repro_torch.configs import ShapeConfig, get_config
+    from repro_torch.data import token_stream
+    from repro_torch.optim import AdamW
+    from repro_torch.train.step import TrainPlan, make_train_step
+
+    cfg = dataclasses.replace(get_config("llama3-8b"), n_layers=TRAIN_LAYERS)
+    shape = ShapeConfig("train_8x512", TRAIN_SEQ, TRAIN_BATCH, "train")
+    plan = TrainPlan(n_micro=TRAIN_MICRO, q_chunk=512, remat=True)
+    batch = token_stream(0, TRAIN_BATCH, TRAIN_SEQ, cfg.vocab, seed=0)
+
+    opt = AdamW(master_weights=True)       # the trainer's, below 3e10
+    model, state = whole_train_state(cfg, opt)
+    one = make_train_step(model, opt, cfg, shape, plan)
+    torch.cuda.reset_peak_memory_stats()
+    step_s, (state, met) = timed_s(lambda: one(state, batch))
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    check(np.isfinite(float(met["loss"])), "one device: loss")
+    baseline = dict(loss=met["loss"].cpu(), grad_norm=met["grad_norm"].cpu(),
+                    lr=opt.lr, state=tree.map_(host_copy, state))
+    fields = dict(
+        arch=cfg.name, layers=TRAIN_LAYERS, of_layers=32,
+        plan=dataclasses.asdict(plan), batch=[TRAIN_BATCH, TRAIN_SEQ],
+        loss=float(baseline["loss"]),
+        grad_norm=float(baseline["grad_norm"]), step_wall_s=step_s,
+        tokens_per_s=TRAIN_BATCH * TRAIN_SEQ / step_s, peak_gb=peak_gb)
+    emit("train_one_device", **fields)
+    del state, met, model, one
+    gc.collect()
+    torch.cuda.empty_cache()
+    return fields, baseline
+
+
+# the sharded step against the one-device step (acceptance rule where
+# their bits part): loss bit for bit; grad_norm at rtol 1e-6; moments,
+# master weights and f32 parameters at rtol 1e-5 except entries whose
+# gradient is at rounding level (the one-device first moment below 1e-4
+# of its leaf's largest); bf16 parameters at most one ulp apart
+SHARDED_MESH = (2, 2)
+SHARDED_NORM_RTOL, SHARDED_STATE_RTOL = 1e-6, 1e-5
+
+
+def sharded_vs_one_device(state, kept) -> dict:
+    """Each leaf of the sharded ``state``'s parameters and optimizer
+    state, gathered on the card, against ``kept`` (the host copy of the
+    one-device step's): -> the count of leaves equal bit for bit and the
+    keys of those outside the rule."""
+    from repro_torch import tree
+    bitwise, outside = 0, []
+    for path, s in tree.items({k: state[k] for k in ("params", "opt")}):
+        a = on_card(s)
+        b = tree.get(kept, path).to(a.device)
+        if bits_equal(a, b):
+            bitwise += 1
             continue
-        leaf = path[1:] if path[0] == "params" else path[2:]
-        b = tree.get(kept, path).to(a.device).float()
-        a = a.float()
-        close = torch.isclose(a, b, rtol=DP_PARAM_RTOL, atol=DP_PARAM_ATOL)
-        m = tree.get(state["opt"]["m"], leaf).abs()
-        tiny = m < 1e-4 * m.max()
-        far = ~close
-        odd[key] = int(far.sum())
-        if (not bool((close | tiny).all())
-                or odd[key] > DP_ODD_SHARE * far.numel()
-                or bool(((a - b).abs()[far] > 2 * lr).any())):
-            broken.append(key)
-    return dict(odd=odd, broken=broken)
+        if a.dtype == torch.bfloat16:
+            ok = int((a.view(torch.int16).int()
+                      - b.view(torch.int16).int()).abs().max()) <= 1
+        elif a.is_floating_point():
+            leaf = path[1:] if path[0] == "params" else path[2:]
+            m = tree.get(kept["opt"]["m"], leaf).to(a.device).abs()
+            ok = bool((torch.isclose(a, b, rtol=SHARDED_STATE_RTOL, atol=0.0)
+                       | (m < 1e-4 * m.max())).all())
+        else:
+            ok = False
+        if not ok:
+            outside.append(tree.key_of(path))
+    return dict(bitwise_leaves=bitwise, outside=outside)
 
 
-def train_data_parallel():
-    """The data-parallel trainer at ``train_llama3_8b``'s configuration
-    (llama3-8b at full width with ``TRAIN_LAYERS`` layers, bf16 from seed
-    0, AdamW with f32 master weights, 8 x 512 tokens, ``TrainPlan(n_micro=2,
-    q_chunk=512)``): one step of a ``Trainer`` on a (1, 1) mesh from the
-    seed-0 state, its loss and state kept on the host and the state
-    freed; one step of a ``Trainer`` on ``make_host_mesh(2, 1,
-    device="cuda")`` (``cuda:0`` twice: one micro-batch a shard, each
-    into its own accumulator, added in mesh order) from a fresh seed-0
-    state on the same batch, held bit for bit against the first (loss,
-    parameters, optimizer state), or under :func:`dp_fallback`'s rule,
-    with the leaves that part reported; a profiled repeat for the device's
-    busy time; then one data=2 step with the gradient compressor hooked
-    in, which must launch the Lloyd kernel ``12 x 9`` times (the hook runs
-    once, on the summed gradient).  No checkpoint is written.  -> (the
-    emitted fields, the compressed step's head-gradient sample as (1,
-    4096, 1))."""
+def train_sharded(baseline: dict):
+    """The sharded trainer at ``train_llama3_8b``'s configuration on
+    ``make_host_mesh(2, 2, device="cuda")``: ``cuda:0`` four times, so
+    each position's blocks of the parameters, the gradient accumulator
+    and the optimizer state are held once on the one card (no device
+    holds less here; the 1/W saving shows only in the byte counts).
+    ``Trainer.init_state`` from seed 0 a leaf at a time; one step on the
+    one-device step's batch, held against ``baseline`` (from
+    :func:`train_one_device`: the loss bit for bit, the norm and the
+    state under :func:`sharded_vs_one_device`'s rule); each position's
+    bytes against ``sharding.shard_bytes``; the step's gathers, wall,
+    peak and a profiled repeat; then one compressed sharded step (the
+    hook once, on the gradient gathered whole: 12 x 9 Lloyd launches).
+    No checkpoint.  -> (the emitted fields, the compressed step's
+    head-gradient sample as (1, 4096, 1))."""
     import gc
     from repro_torch import tree
     from repro_torch.configs import ShapeConfig, get_config
     from repro_torch.data import token_stream
     from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.optim import AdamW
+    from repro_torch.train import sharding as sh
     from repro_torch.train.compress import SAMPLE, make_grad_compressor
-    from repro_torch.train.sharding import batch_devices
     from repro_torch.train.step import TrainPlan, make_train_step
     from repro_torch.train.trainer import Trainer, TrainerConfig
 
@@ -2986,51 +3065,61 @@ def train_data_parallel():
     tc = TrainerConfig(steps=1, ckpt_dir=str(ROOT / "build" / "unused"),
                        seed=0)
     batch = token_stream(0, TRAIN_BATCH, TRAIN_SEQ, cfg.vocab, seed=tc.seed)
-
-    one = Trainer(cfg, shape, make_host_mesh(1, 1), tc, plan=plan)
-    state = one.init_state()
+    mesh = make_host_mesh(*SHARDED_MESH, device="cuda")
+    tr = Trainer(cfg, shape, mesh, tc, plan=plan)
+    opt = tr.optimizer
+    check(isinstance(opt, AdamW) and opt.master_weights
+          and opt.lr == baseline["lr"], "sharded: not the one-device "
+          "step's AdamW")
     torch.cuda.reset_peak_memory_stats()
-    one_s, (state, met) = timed_s(lambda: one.train_step(state, batch))
-    peak_one_gb = torch.cuda.max_memory_allocated() / 1e9
-    loss_one = met["loss"].cpu()
-    kept = tree.map_(host_copy, state)
-    del state, met, one
-    gc.collect()
-    torch.cuda.empty_cache()
-
-    mesh = make_host_mesh(2, 1, device="cuda")
-    two = Trainer(cfg, shape, mesh, tc, plan=plan)
-    devices = batch_devices(mesh)
-    check(len(devices) == 2 and two.plan is plan
-          and two.device == devices[0], f"data parallel: {mesh}, "
-          f"{two.device}")
-    state = two.init_state()
+    init_s, state = timed_s(tr.init_state)
+    init_peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    specs = tr.specs()
+    held = tr.position_bytes(state)
+    want = {k: sh.shard_bytes(state[k], specs[k], mesh)
+            for k in ("params", "opt")}
     torch.cuda.reset_peak_memory_stats()
-    step_s, (state, met) = timed_s(lambda: two.train_step(state, batch))
+    step_s, (state, met) = timed_s(lambda: tr.train_step(state, batch))
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    loss_two = met["loss"].cpu()
-    differ = trees_bits_equal(state, kept)
-    bitwise = bits_equal(loss_two, loss_one) and not differ
+    stats = dict(tr.train_step.stats)
+    gdtype = getattr(torch, plan.grad_dtype)
+    held["grad_accumulator"] = stats.pop("accumulator_bytes")
+    want["grad_accumulator"] = sh.shard_bytes(
+        tree.map_(lambda p: torch.empty(p.shape, dtype=gdtype,
+                                        device="meta"), state["params"]),
+        sh.grad_specs(state["params"], mesh), mesh)
+    bytes_ok = all(bool((held[k] == want[k]).all()) for k in want)
+    loss_ok = bits_equal(met["loss"].cpu(), baseline["loss"])
+    norm_ok = bool(np.isclose(float(met["grad_norm"]),
+                              float(baseline["grad_norm"]),
+                              rtol=SHARDED_NORM_RTOL, atol=0.0))
+    rule = sharded_vs_one_device(state, baseline["state"])
     fields = dict(
-        arch=cfg.name, layers=TRAIN_LAYERS, of_layers=32,
-        mesh=repr(mesh), shards=len(devices),
-        micro_per_shard=plan.n_micro // len(devices),
+        arch=cfg.name, layers=TRAIN_LAYERS, of_layers=32, mesh=repr(mesh),
+        data_shards=len(sh.batch_devices(mesh)),
         plan=dataclasses.asdict(plan), batch=[TRAIN_BATCH, TRAIN_SEQ],
-        loss_one_device=float(loss_one), loss_data_parallel=float(loss_two),
-        bitwise=bitwise, differ=differ, one_device_step_s=one_s,
-        step_wall_s=step_s, tokens_per_s=TRAIN_BATCH * TRAIN_SEQ / step_s,
-        peak_gb=peak_gb, one_device_peak_gb=peak_one_gb)
-    if not bitwise:
-        fields["fallback"] = dp_fallback(state, kept, two.optimizer.lr)
-        loss_ok = np.isclose(float(loss_two), float(loss_one),
-                             rtol=DP_LOSS_RTOL, atol=0.0)
-        emit("train_data_parallel_parted", **fields)
-        check(loss_ok and not fields["fallback"]["broken"],
-              f"data parallel: the data=2 step parts from the one-device "
-              f"step at {differ}, beyond the fallback rule at "
-              f"{fields['fallback']['broken']}")
-    del kept
-    (state, met), prof = profiled_once(lambda: two.train_step(state, batch))
+        loss=float(met["loss"]), loss_one_device=float(baseline["loss"]),
+        loss_bitwise=loss_ok, grad_norm=float(met["grad_norm"]),
+        grad_norm_one_device=float(baseline["grad_norm"]),
+        state=rule, bytes_per_position={
+            k: dict(held=held[k].tolist(), shard_bytes=int(want[k]))
+            for k in want},
+        bytes_equal_shard_bytes=bytes_ok, gather=stats, init_s=init_s,
+        init_peak_gb=init_peak_gb, step_wall_s=step_s,
+        tokens_per_s=TRAIN_BATCH * TRAIN_SEQ / step_s, peak_gb=peak_gb)
+    if not (bytes_ok and loss_ok and norm_ok and not rule["outside"]
+            and stats["max_live_layers"] == 1 and stats["live_after"] == 0):
+        emit("train_sharded_failed", **fields)
+    check(bytes_ok, f"sharded: bytes a position holds {held}, "
+          f"shard_bytes {want}")
+    check(loss_ok and norm_ok and not rule["outside"],
+          f"sharded: loss {float(met['loss'])} against "
+          f"{float(baseline['loss'])}, norm {float(met['grad_norm'])} "
+          f"against {float(baseline['grad_norm'])}, leaves outside the "
+          f"rule {rule['outside']}")
+    check(stats["max_live_layers"] == 1 and stats["live_after"] == 0,
+          f"sharded: gathered layers alive at once {stats}")
+    (state, met), prof = profiled_once(lambda: tr.train_step(state, batch))
     fields["step_profile"] = prof
     fields["idle_share"] = max(0.0, 1.0 - prof["device_busy_s"] / step_s)
 
@@ -3046,27 +3135,27 @@ def train_data_parallel():
         seen["compress_s"], out = timed_s(lambda: comp(grads)[0])
         return out
 
-    cstep = make_train_step(two.model, two.optimizer, cfg, shape, plan,
+    cstep = make_train_step(tr.model, opt, cfg, shape, plan,
                             compress_fn=compress, mesh=mesh)
     batch = token_stream(1, TRAIN_BATCH, TRAIN_SEQ, cfg.vocab, seed=tc.seed)
     reset_launches()
     cstep_s, (state, met) = timed_s(lambda: cstep(state, batch))
     launches = read_launches()
-    want = seen["leaves"] * (8 + 1)     # max_iters + the final pass
+    want_l = seen["leaves"] * (8 + 1)   # max_iters + the final pass
     check(seen["calls"] == 1 and seen["leaves"] == 12
-          and launches["lloyd_step"] == want
-          and sum(launches.values()) == want,
-          f"data parallel: compressor called {seen['calls']} times, "
-          f"launches {launches}, want {want} Lloyd launches")
-    check(np.isfinite(float(met["loss"])), "data parallel: compressed loss")
+          and launches["lloyd_step"] == want_l
+          and sum(launches.values()) == want_l,
+          f"sharded: compressor called {seen['calls']} times, launches "
+          f"{launches}, want {want_l} Lloyd launches")
+    check(np.isfinite(float(met["loss"])), "sharded: compressed loss")
     fields["compressed_step"] = dict(step_s=cstep_s,
                                      compress_s=seen["compress_s"],
                                      hook_calls=seen["calls"],
                                      leaves=seen["leaves"],
                                      loss=float(met["loss"]),
                                      launches=launches)
-    emit("train_data_parallel", **fields)
-    del state, met, two, cstep
+    emit("train_sharded", **fields)
+    del state, met, tr, cstep
     gc.collect()
     torch.cuda.empty_cache()
     return fields, seen["sample"]
@@ -4220,23 +4309,25 @@ def main() -> int:
     # -- 11b. training: llama3-8b at full width (2 of its 32 layers), its
     # checkpoint and restart, one step with the gradient compressor (the
     # Lloyd kernel at d = 1 on each leaf's sample), the two launchers
-    # (train, then serve the checkpoint), the data-parallel trainer on a
-    # two-shard mesh against the one-device step, and the Lloyd kernel on
-    # both compressed steps' head-gradient samples against its plain
-    # version
+    # (train, then serve the checkpoint), the one-device step on a state
+    # of whole tensors, the sharded trainer on a 2 x 2 mesh against it,
+    # and the Lloyd kernel on the two compressed steps' head-gradient
+    # samples against its plain version
     from repro_torch.core.kmeans import landmark_init
     t_train = time.perf_counter()
     train, comp_x = train_llama3_8b()
     torch.cuda.empty_cache()
     train_launcher()
-    dp, dp_x = train_data_parallel()
+    _, one_device = train_one_device()
+    sd, sd_x = train_sharded(one_device)
+    del one_device
     comp_w = torch.ones(comp_x.shape[:2], device=comp_x.device)
     comp_c = landmark_init(comp_x, comp_w, COMPRESS_LEVELS)
-    dp_c = landmark_init(dp_x, comp_w, COMPRESS_LEVELS)
     train_cases = [lloyd_parity("lloyd_compressor_head", comp_x, comp_w,
-                                comp_c),
-                   lloyd_parity("lloyd_compressor_dp_head", dp_x, comp_w,
-                                dp_c)]
+                                comp_c)]
+    train_cases.append(lloyd_parity(
+        "lloyd_compressor_sharded_head", sd_x, comp_w,
+        landmark_init(sd_x, comp_w, COMPRESS_LEVELS)))
     cases += train_cases
     emit("train_parity", cases=train_cases,
          seconds=time.perf_counter() - t_train)
@@ -4648,7 +4739,7 @@ def main() -> int:
                  "serve_zamba_long_500k": zamba_launches["lloyd_step"],
                  "train_llama3_8b_compressed_step": train[
                      "compressed_step"]["launches"]["lloyd_step"],
-                 "train_data_parallel_compressed_step": dp[
+                 "train_sharded_compressed_step": sd[
                      "compressed_step"]["launches"]["lloyd_step"],
                  "cluster_balanced_sampler": sampler["launches"][
                      "lloyd_step"],

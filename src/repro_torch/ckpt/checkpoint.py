@@ -29,6 +29,7 @@ import torch
 
 from repro_torch import tree
 from repro_torch.core.device import resolve_device
+from repro_torch.core.blocks import Sharded, gather, shard
 
 _BF16_BITS = np.dtype("V2")
 
@@ -55,14 +56,16 @@ def from_numpy(a) -> torch.Tensor:
 
 def save(ckpt_dir, step: int, state, *,
          extra: Optional[dict] = None) -> pathlib.Path:
-    """Write ``state`` (a nested dict of tensors) as step ``step`` and
-    commit it; a step written before is replaced.  -> the step's
-    directory."""
+    """Write ``state`` (a nested dict of tensors, or of the blocks of
+    :mod:`repro_torch.core.blocks`, each leaf gathered to the host in
+    turn) as step ``step`` and commit it; a step written before is
+    replaced.  -> the step's directory."""
     ckpt_dir = pathlib.Path(ckpt_dir)
     final = ckpt_dir / f"step_{step:08d}"
     tmp = ckpt_dir / f".tmp_step_{step:08d}_{int(time.time() * 1e6)}"
     tmp.mkdir(parents=True, exist_ok=True)
-    arrays = {tree.key_of(p): to_numpy(leaf) for p, leaf in tree.items(state)}
+    arrays = {tree.key_of(p): to_numpy(gather(leaf, "cpu") if isinstance(
+        leaf, Sharded) else leaf) for p, leaf in tree.items(state)}
     np.savez(tmp / "arrays.npz", **arrays)
     manifest = {
         "step": step,
@@ -95,11 +98,16 @@ def latest_step(ckpt_dir) -> Optional[int]:
 
 
 def restore(ckpt_dir, step: int, like, *,
-            device: "torch.device | str | None" = None) -> tuple[Any, dict]:
+            device: "torch.device | str | None" = None, specs=None,
+            mesh=None) -> tuple[Any, dict]:
     """Step ``step`` in the structure of ``like`` (a nested dict of
     tensors, on the ``meta`` device for shapes alone), each leaf in its
     ``like`` leaf's dtype, on ``device`` (``None``: the ``like`` leaf's
-    device, or the CUDA device for a ``meta`` leaf).  Keys the checkpoint
+    device, or the CUDA device for a ``meta`` leaf).  With ``specs`` (a
+    tree of partition specs over some of ``like``'s subtrees, e.g. a
+    train state's ``params`` and ``opt``) and ``mesh``, each of those
+    leaves is cut from the host straight into its blocks on ``mesh``
+    (:func:`repro_torch.core.blocks.shard`).  Keys the checkpoint
     holds beyond ``like``'s are not read.  -> (state, manifest)."""
     d = pathlib.Path(ckpt_dir) / f"step_{step:08d}"
     manifest = json.loads((d / "manifest.json").read_text())
@@ -115,12 +123,28 @@ def restore(ckpt_dir, step: int, like, *,
             if tuple(arr.shape) != tuple(leaf.shape):
                 raise ValueError(f"{key}: shape {arr.shape} != "
                                  f"{tuple(leaf.shape)}")
-            dev = (device if device is not None
-                   else None if leaf.device.type == "meta" else leaf.device)
+            spec = _spec_at(specs, path)
+            host = from_numpy(arr)
+            if spec is not None:
+                values.append(shard(host.to(leaf.dtype), spec, mesh))
+            else:
+                dev = (device if device is not None else None
+                       if leaf.device.type == "meta" else leaf.device)
+                values.append(host.to(resolve_device(dev), leaf.dtype))
             paths.append(path)
-            values.append(from_numpy(arr).to(resolve_device(dev),
-                                             leaf.dtype))
+            del host, arr
     return tree.unflatten(paths, values), manifest
+
+
+def _spec_at(specs, path: tuple):
+    """The spec at ``path`` of ``specs``, or ``None`` where it has
+    none."""
+    node = specs
+    for key in path:
+        if not isinstance(node, dict) or key not in node:
+            return None
+        node = node[key]
+    return node
 
 
 def restore_latest(ckpt_dir, like, *, device=None):

@@ -18,10 +18,12 @@ dtype and computes nothing:
 
 Each cell's record holds the bytes one device would hold under the
 reference's partition rules (:mod:`repro_torch.train.sharding`) on the
-production mesh (16 x 16, or 2 x 16 x 16), the bytes the port's own
-layout holds (it shards nothing: a whole replica on every device, the
-state on the first), ``fits`` against the visible card's memory (``null``
-with no card), and, on the single-pod mesh unless ``--no-ab``, the FLOPs
+production mesh (16 x 16, or 2 x 16 x 16), the bytes the port's layout
+holds (a training cell's: the sharded trainer's blocks under those rules
+plus the largest layer its step gathers and the leaves it gathers once a
+step; serving's: its model whole), the bytes of every tree whole,
+``fits`` against the visible card's memory (``null`` with no card), and,
+on the single-pod mesh unless ``--no-ab``, the FLOPs
 of ``torch.utils.flop_counter.FlopCounterMode`` assembled by the
 reference's A/B differencing: stem + n_super x block (x n_micro) +
 optimizer, the cluster attention's 4 B H Nc dh a layer added from its
@@ -182,52 +184,87 @@ def build_decode_program(cfg, shape, mesh):
 # the record
 # ---------------------------------------------------------------------------
 
+# the stacked groups, whose leaves the sharded step gathers a layer at a
+# time (every other leaf once a step)
+_STACKED = ("g_blocks", "g_super", "enc", "dec")
+
+
+def _gathered_bytes(params, p_specs) -> tuple[int, int]:
+    """What the sharded step gathers onto a computing device beside its
+    blocks: (the largest layer's copies, the once-a-step leaves' copies).
+    A leaf its spec splits is copied whole; a replicated one is read in
+    place (no copy)."""
+    layer: dict = {}
+    once = 0
+    for (path, leaf), spec in zip(tree.items(params), tree.leaves(p_specs)):
+        if all(ax is None for ax in spec):
+            continue
+        nbytes = leaf.numel() * leaf.element_size()
+        if path[0] in _STACKED:
+            layer[path[0]] = layer.get(path[0], 0) + nbytes // leaf.shape[0]
+        else:
+            once += nbytes
+    return max(layer.values(), default=0), once
+
+
 def _memory(cfg, shape, mesh, kind: str, args, plan) -> dict:
     """What one device holds: under the reference's rules on ``mesh``
-    (``sharded``) and in the port's layout (``port``: every tree whole, a
-    training cell's gradient both as the accumulator in ``grad_dtype`` and
-    as the f32 sum); arguments only, not activations."""
+    (``sharded``), in the port's layout (``port``) and with every tree
+    whole (``whole``); arguments only, not activations.  A training
+    cell's ``port`` is the sharded trainer's: its blocks under the rules
+    (parameters, optimizer state, the gradient accumulator in
+    ``grad_dtype``), the largest layer its step gathers and the leaves it
+    gathers once a step (:func:`_gathered_bytes`).  Serving holds its
+    model whole on one device, so a prefill or decode cell's ``port`` is
+    ``whole``; ``whole`` of a training cell also counts the f32 gradient
+    sum."""
     params = args[0]["params"] if kind == "train" else args[0]
     p_specs = param_specs(params, mesh)
-    sharded, port = {}, {}
+    sharded, whole = {}, {}
     if kind == "decode" and "embed" in p_specs:
         # no embed gradient at decode: the table splits d over "model"
         p_specs = dict(p_specs, embed=filter_divisible(
             P(None, "model"), params["embed"].shape, mesh))
     sharded["params"] = shard_bytes(params, p_specs, mesh)
-    port["params"] = tree_bytes(params)
+    whole["params"] = tree_bytes(params)
     if kind == "train":
         state, batch = args
         opt = state["opt"]
         sharded["opt"] = shard_bytes(opt, opt_state_specs(opt, p_specs,
                                                           mesh), mesh)
-        port["opt"] = tree_bytes(opt)
+        whole["opt"] = tree_bytes(opt)
         gdtype = getattr(torch, plan.grad_dtype)
         acc = tree.map_(lambda p: torch.empty(p.shape, dtype=gdtype,
                                               device="meta"), params)
         sharded["grad_accumulator"] = shard_bytes(acc, grad_specs(params,
                                                                   mesh),
                                                   mesh)
-        port["grad_accumulator"] = tree_bytes(acc)
-        port["grad_sum_f32"] = sum(p.numel() * 4
-                                   for p in tree.leaves(params))
+        whole["grad_accumulator"] = tree_bytes(acc)
+        whole["grad_sum_f32"] = sum(p.numel() * 4
+                                    for p in tree.leaves(params))
     elif kind == "prefill":
         batch = args[1]
     else:
         caches, batch = args[1], {"token": args[2]}
         sharded["caches"] = shard_bytes(
             caches, cache_specs(caches, mesh, shape.global_batch), mesh)
-        port["caches"] = tree_bytes(caches)
+        whole["caches"] = tree_bytes(caches)
     sharded["batch"] = shard_bytes(batch, batch_specs(batch, mesh), mesh)
-    port["batch"] = tree_bytes(batch)
-    sharded["total"] = sum(sharded.values())
-    port["total"] = sum(port.values())
+    whole["batch"] = tree_bytes(batch)
+    if kind == "train":
+        port = dict(sharded)
+        port["gathered_layer"], port["gathered_once"] = _gathered_bytes(
+            params, p_specs)
+    else:
+        port = dict(whole)
+    for part in (sharded, whole, port):
+        part["total"] = sum(part.values())
     card = None
     if torch.cuda.is_available():
         props = torch.cuda.get_device_properties(0)
         card = {"name": props.name, "total_memory": props.total_memory}
     return {"sharded_per_device": sharded, "port_per_device": port,
-            "card": card,
+            "whole_per_device": whole, "card": card,
             "fits": None if card is None else {
                 "sharded": sharded["total"] <= card["total_memory"],
                 "port": port["total"] <= card["total_memory"]}}

@@ -5,12 +5,14 @@
 
 Trains with weights drawn from seed 0 and batches from ``token_stream``;
 a directory that holds a checkpoint resumes from its newest complete
-step.  ``--data-mesh N`` trains data parallel on the first N CUDA cards
-(``--model-mesh M``: an N x M mesh, whose "model" entries past the
-first stay idle), and
-raises when fewer are visible; ``--n-micro`` must be a multiple of N
-(each card takes whole micro-batches).  A checkpoint written with one
-``--data-mesh`` resumes with another.
+step.  ``--data-mesh N --model-mesh M`` trains on an N x M mesh of the
+first N M CUDA cards (raises when fewer are visible) with the train
+state sharded over it by the reference's partition rules: each card
+holds its blocks of the parameters, the gradient accumulator and the
+optimizer state.  The N data cards compute, each on whole micro-batches
+(``--n-micro`` must be a multiple of N); the "model" cards hold their
+blocks, and their compute waits for tensor parallelism.  A checkpoint
+written on one mesh resumes on another.
 """
 from __future__ import annotations
 

@@ -24,6 +24,8 @@ from __future__ import annotations
 
 from typing import Optional
 
+import functools
+
 import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
@@ -34,7 +36,8 @@ from repro_torch.core.device import resolve_device
 from .attention import (AttnDims, _cache_attend, attention, attention_decode,
                         init_kv_cache)
 from .layers import cross_entropy, dot, param, rms_norm, rope_tables, swiglu
-from .lm import _index, attn_params, draw_weights, vocab_logits
+from .lm import (_index, attn_params, draw_weights, gathered_call,
+                 vocab_logits, weight_draws)
 
 
 def _sinusoid(n: int, d: int, device=None) -> torch.Tensor:
@@ -157,14 +160,19 @@ class EncDecLM(nn.Module):
     def device(self) -> torch.device:
         return self.embed.device
 
+    def draws(self) -> list:
+        """(parameter, scale) of every drawn weight in draw order
+        (:func:`~repro_torch.models.lm.weight_draws`): embeddings, head,
+        encoder layers, decoder layers."""
+        return weight_draws(self.embed, [self.head] + [
+            w for blk in [*self.enc, *self.dec] for w in blk.projections()])
+
     def init_params(self, seed: "int | torch.Generator" = 0) -> "EncDecLM":
         """Draw every weight at the JAX package's scales (embeddings 0.02,
         projections ``d_in ** -0.5``; norms 0), each tensor from its own
-        generator seeded from ``seed``, in the order head, encoder layers,
-        decoder layers; returns ``self``."""
-        draw_weights(self.embed, [self.head] + [
-            w for blk in [*self.enc, *self.dec] for w in blk.projections()],
-            seed)
+        generator seeded from ``seed``, in the order of :meth:`draws`;
+        returns ``self``."""
+        draw_weights(self.draws(), seed)
         return self
 
     def make_ctx(self, positions: torch.Tensor, *, q_chunk: int = 2048,
@@ -192,8 +200,10 @@ class EncDecLM(nn.Module):
              + _sinusoid(t, self.cfg.d_model, self.device).to(self.dtype))
         ectx = {"rope": (None, None),
                 "q_chunk": (ctx or {}).get("q_chunk", 2048)}
-        for blk in self.enc:
-            x = blk(x, ectx)
+        gather = (ctx or {}).get("gather")
+        for i, blk in enumerate(self.enc):
+            x = (blk(x, ectx) if gather is None
+                 else gathered_call(blk, gather, f"enc.{i}", x, ectx))
         return rms_norm(x, self.enc_ln, self.cfg.norm_eps)
 
     # -- decoder (training, prefill) -------------------------------------------
@@ -209,13 +219,21 @@ class EncDecLM(nn.Module):
         recomputes each decoder layer in the backward pass (the
         reference's ``jax.checkpoint`` of the decoder's layer; the encoder
         keeps its activations), only where a gradient is being
-        recorded."""
+        recorded.  With ``ctx["gather"]`` (a sharded train step's) each
+        layer computes with the weights it gathers: a decoder layer inside
+        its checkpointed call, an encoder layer plainly, so the encoder's
+        gathered weights live until the backward, as its activations
+        do."""
         enc = self.encode(frames, ctx)
+        gather = ctx.get("gather")
         remat = remat and torch.is_grad_enabled() and (
-            x.requires_grad or any(p.requires_grad for p in self.parameters()))
-        for blk in self.dec:
-            x = (checkpoint(blk, x, enc, ctx, use_reentrant=False) if remat
-                 else blk(x, enc, ctx))
+            gather is not None or x.requires_grad
+            or any(p.requires_grad for p in self.parameters()))
+        for i, blk in enumerate(self.dec):
+            call = blk if gather is None else functools.partial(
+                gathered_call, blk, gather, f"dec.{i}")
+            x = (checkpoint(call, x, enc, ctx, use_reentrant=False) if remat
+                 else call(x, enc, ctx))
         if last_only:
             x = x[:, -1:]
         return self.head_out(x)

@@ -40,6 +40,7 @@ from typing import Optional
 
 import torch
 from torch import nn
+from torch.func import functional_call
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs import ArchConfig, ShapeConfig
@@ -109,18 +110,44 @@ def vocab_logits(x: torch.Tensor, final_ln: torch.Tensor, w: torch.Tensor,
     return logits.reshape(*xn.shape[:-1], w.shape[-1])
 
 
-def draw_weights(embed: torch.Tensor, projections: list,
-                 seed: "int | torch.Generator") -> None:
-    """Fill ``embed`` with N(0, 0.02^2) draws and each projection with
-    N(0, 1 / d_in) draws (d_in its next-to-last axis), each tensor from
-    its own generator seeded from ``seed`` in this order."""
+def weight_draws(embed: torch.Tensor, projections: list) -> list:
+    """(tensor, scale) of every drawn weight in draw order: ``embed`` at
+    0.02, then each projection at ``d_in ** -0.5`` (d_in its next-to-last
+    axis)."""
+    return [(embed, 0.02)] + [(w, w.shape[-2] ** -0.5) for w in projections]
+
+
+def draw(w: torch.Tensor, base: int, i: int, scale: float) -> None:
+    """Fill ``w`` with N(0, scale^2) draws from its own generator on its
+    device, seeded ``derive_seed(base, i)``."""
+    gen = torch.Generator(device=w.device)
+    gen.manual_seed(derive_seed(base, i))
+    ninit_(w, gen, scale)
+
+
+def draw_weights(draws: list, seed: "int | torch.Generator") -> None:
+    """Fill the i-th tensor of ``draws`` (:func:`weight_draws`) by
+    :func:`draw` from ``seed``."""
     base = seed_of(seed)
-    scaled = [(embed, 0.02)] + [(w, w.shape[-2] ** -0.5)
-                                for w in projections]
-    for i, (w, scale) in enumerate(scaled):
-        gen = torch.Generator(device=w.device)
-        gen.manual_seed(derive_seed(base, i))
-        ninit_(w, gen, scale)
+    for i, (w, scale) in enumerate(draws):
+        draw(w, base, i, scale)
+
+
+def initial_fill(model: nn.Module, name: str) -> float:
+    """The value parameter ``name`` of ``model`` is made with, before any
+    draw: one for the names its owning block lists in ``ONES`` (Mamba2's
+    ``D``), else zero."""
+    owner, _, leaf = name.rpartition(".")
+    return 1.0 if leaf in getattr(model.get_submodule(owner), "ONES",
+                                  ()) else 0.0
+
+
+def gathered_call(layer: nn.Module, gather, name: str, *args):
+    """``layer(*args)`` computing with the weights ``gather(name)`` gives
+    (``{name within the layer: tensor}``): a sharded train step's
+    per-layer gather, which the caller puts inside the checkpointed call
+    so the backward's recompute gathers again."""
+    return functional_call(layer, gather(name), args)
 
 
 def _index(tree, i):
@@ -409,14 +436,10 @@ class DecoderLM(nn.Module):
                             else [])]
 
     # -- params ------------------------------------------------------------
-    def init_params(self, seed: "int | torch.Generator" = 0) -> "DecoderLM":
-        """Draw every weight at the JAX package's scales (embeddings 0.02,
-        projections ``d_in ** -0.5``, the experts', the recurrent blocks'
-        and the conv's too, with d_in the next-to-last axis; norms 0;
-        Mamba2's ``A_log`` 0, ``D`` 1, ``dt_bias`` 0, never drawn), each
-        tensor from its own generator seeded from ``seed``, in the order
-        head, zamba2's shared block, the layers, the patch projection;
-        returns ``self``."""
+    def draws(self) -> list:
+        """(parameter, scale) of every drawn weight in draw order
+        (:func:`weight_draws`): embeddings, head, zamba2's shared block,
+        the layers, the patch projection."""
         projections = [] if self.cfg.tie_embeddings else [self.head]
         if self.cfg.family == "hybrid":
             projections += self.shared.projections()
@@ -424,7 +447,16 @@ class DecoderLM(nn.Module):
                         for w in layer.projections()]
         if self.cfg.n_patches:
             projections.append(self.patch_proj)
-        draw_weights(self.embed, projections, seed)
+        return weight_draws(self.embed, projections)
+
+    def init_params(self, seed: "int | torch.Generator" = 0) -> "DecoderLM":
+        """Draw every weight at the JAX package's scales (embeddings 0.02,
+        projections ``d_in ** -0.5``, the experts', the recurrent blocks'
+        and the conv's too, with d_in the next-to-last axis; norms 0;
+        Mamba2's ``A_log`` 0, ``D`` 1, ``dt_bias`` 0, never drawn), each
+        tensor from its own generator seeded from ``seed``, in the order
+        of :meth:`draws`; returns ``self``."""
+        draw_weights(self.draws(), seed)
         return self
 
     # -- context -------------------------------------------------------------
@@ -459,15 +491,21 @@ class DecoderLM(nn.Module):
         over the layers, f32).  ``remat`` recomputes each layer's
         activations in the backward pass instead of keeping them (only
         where a gradient is being recorded: serving runs the layers
-        plainly)."""
+        plainly).  With ``ctx["gather"]`` (a sharded train step's) each
+        layer computes with the weights it gathers, inside the
+        checkpointed call (:func:`gathered_call`)."""
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        gather = ctx.get("gather")
         remat = remat and torch.is_grad_enabled() and (
-            x.requires_grad or any(p.requires_grad for p in self.parameters()))
-        for layer in self.layers():
+            gather is not None or x.requires_grad
+            or any(p.requires_grad for p in self.parameters()))
+        for i, layer in enumerate(self.layers()):
+            call = layer if gather is None else functools.partial(
+                gathered_call, layer, gather, f"{self.group}.{i}")
             if remat:
-                x, aux = checkpoint(layer, x, aux, ctx, use_reentrant=False)
+                x, aux = checkpoint(call, x, aux, ctx, use_reentrant=False)
             else:
-                x, aux = layer(x, aux, ctx)
+                x, aux = call(x, aux, ctx)
         return x, aux
 
     def forward(self, batch: dict, ctx: Optional[dict] = None, *,

@@ -270,6 +270,8 @@ class Mamba2Block(nn.Module):
     projection.  ``A_log`` = 0, ``D`` = 1 and ``dt_bias`` = 0 as
     initialised (never drawn)."""
 
+    ONES = ("D",)       # made as ones (every other parameter as zeros)
+
     def __init__(self, d: int, d_state: int, eps: float, dtype, device):
         super().__init__()
         di = 2 * d

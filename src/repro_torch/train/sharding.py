@@ -11,18 +11,28 @@ describe:
   * tensor parallel over "model" (heads, ffn hidden, vocab, experts);
   * ZeRO-3: the remaining big parameter dim shards over "data".
 
-The port runs none of that layout.  Its data-parallel step
-(:mod:`repro_torch.train.step`) splits the batch over the shards of
-:func:`batch_axis` and keeps a whole replica of the parameters on each
-shard's device; no parameter or optimizer state is sharded.  The specs
-here are the reference's, computed over the port's trees (the stacked
-tree of :func:`repro_torch.convert.stacked_like`, the port's optimizer
-states, ``models.input_specs`` and ``init_caches``), for the dry run's
-accounting of what one device would hold (:func:`shard_bytes`).  A mesh
-is anything with ``axis_names`` and a ``shape`` dict (a
+The port lays a train state out as the specs describe, in the blocks of
+:mod:`repro_torch.core.blocks`: for each leaf and its spec, mesh position
+p holds one block of the leaf's rank, and positions that the spec does
+not tell apart hold the same block once per distinct device.  This
+module gives the specs (``param_specs``, ``grad_specs``,
+``opt_state_specs``), a whole state cut into them (:func:`shard_state`)
+and the step's one gradient accumulator (:func:`grad_accumulator`); the
+bytes each position holds equal :func:`shard_bytes` for the parameters,
+the accumulator and the optimizer state.  The sharded step
+(:mod:`repro_torch.train.step`) gathers each layer's weights inside its
+checkpointed call and adds its gradient back into the owners' blocks;
+the computing stays on the data shards' devices, so the positions of a
+"model" axis past its first entry hold their blocks and run nothing
+(tensor-parallel compute is not ported).  The specs are the reference's,
+computed over the port's trees (the stacked tree of
+:func:`repro_torch.convert.stacked_like`, the port's optimizer states,
+``models.input_specs`` and ``init_caches``); the dry run reads
+:func:`shard_bytes` for what one device holds.  A mesh is anything with
+``axis_names`` and a ``shape`` dict (a
 :class:`~repro_torch.launch.mesh.Mesh` or an
-:class:`~repro_torch.launch.mesh.AbstractMesh`).  There is no
-``param_shardings``: the port has no ``NamedSharding``.
+:class:`~repro_torch.launch.mesh.AbstractMesh`); blocks need a ``Mesh``.
+There is no ``param_shardings``: the port has no ``NamedSharding``.
 """
 from __future__ import annotations
 
@@ -31,8 +41,10 @@ import re
 from typing import Sequence
 
 import numpy as np
+import torch
 
 from repro_torch import tree
+from repro_torch.core.blocks import axes_of, shard_tree, ways, zeros
 
 
 class PartitionSpec(tuple):
@@ -106,19 +118,11 @@ def spec_for(path_str: str, ndim: int, mesh_axes: Sequence[str]) -> P:
     return P()
 
 
-def _axes(entry) -> tuple:
-    return entry if isinstance(entry, tuple) else (entry,)
-
-
-def _ways(entry, mesh) -> int:
-    return math.prod(mesh.shape[a] for a in _axes(entry))
-
-
 def filter_divisible(spec: P, shape, mesh) -> P:
     """``spec`` with the sharding dropped on every dim its mesh axes do not
     divide (whisper's 51,865 vocabulary on 16 ways)."""
     parts = list(spec) + [None] * (len(shape) - len(spec))
-    return P(*(None if ax is None or shape[dim] % _ways(ax, mesh)
+    return P(*(None if ax is None or shape[dim] % ways(ax, mesh)
                else ax for dim, ax in enumerate(parts[:len(shape)])))
 
 
@@ -187,14 +191,14 @@ def batch_axis(mesh):
 def dp_size(mesh) -> int:
     """The number of data-parallel shards: the product of
     :func:`batch_axis`'s sizes."""
-    return _ways(batch_axis(mesh), mesh)
+    return ways(batch_axis(mesh), mesh)
 
 
 def batch_devices(mesh) -> list:
     """The device of each data-parallel shard, in mesh order (pod major),
     the other axes at index 0: a ``Mesh``'s entries along
     :func:`batch_axis` (entries may repeat a device)."""
-    axes = _axes(batch_axis(mesh))
+    axes = axes_of(batch_axis(mesh))
     pick = tuple(slice(None) if a in axes else 0 for a in mesh.axis_names)
     return list(np.asarray(mesh.devices[pick]).reshape(-1))
 
@@ -243,6 +247,31 @@ def shard_bytes(tree_like, specs, mesh) -> int:
         dims = list(leaf.shape)
         for i, ax in enumerate(spec):
             if ax is not None:
-                dims[i] = -(-dims[i] // _ways(ax, mesh))
+                dims[i] = -(-dims[i] // ways(ax, mesh))
         total += math.prod(dims) * leaf.element_size()
     return total
+
+
+def state_specs(state, mesh) -> dict:
+    """The specs of a train state's ``params`` and ``opt`` (whole or
+    sharded leaves, or ``meta`` ones)."""
+    p_specs = param_specs(state["params"], mesh)
+    return {"params": p_specs,
+            "opt": opt_state_specs(state["opt"], p_specs, mesh)}
+
+
+def shard_state(state, mesh) -> dict:
+    """A whole train state in the block layout of :func:`state_specs` on
+    ``mesh``; ``step`` stays a tensor, on the first data shard's
+    device."""
+    specs = state_specs(state, mesh)
+    return {"params": shard_tree(state["params"], specs["params"], mesh),
+            "opt": shard_tree(state["opt"], specs["opt"], mesh),
+            "step": state["step"].to(batch_devices(mesh)[0])}
+
+
+def grad_accumulator(params, mesh, dtype: torch.dtype):
+    """The sharded step's one gradient accumulator: zeros in ``dtype`` in
+    the blocks of :func:`grad_specs`."""
+    return tree.map_(lambda p, s: zeros(p.shape, dtype, s, mesh), params,
+                     grad_specs(params, mesh))

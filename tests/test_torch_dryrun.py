@@ -84,15 +84,38 @@ def test_full_configs_byte_accounting_for_every_cell(mesh_name):
         rec = dryrun.account(cfg, shape, mesh)
         sharded = rec["memory"]["sharded_per_device"]
         port = rec["memory"]["port_per_device"]
-        assert 0 < sharded["total"] <= port["total"], (arch, shape_name)
+        whole = rec["memory"]["whole_per_device"]
+        assert 0 < sharded["total"] <= port["total"] <= whole["total"], (
+            arch, shape_name)
         # two bytes or more a parameter (bf16, f32 where the reference
         # keeps f32), over at least the analytic count's parameters
-        assert port["params"] > cfg.param_count(), arch
+        assert whole["params"] > cfg.param_count(), arch
         if shape.kind == "train":
             assert rec["plan"]["n_micro"] == max(
                 1, shape.global_batch // (16 if mesh_name == "single"
                                           else 32))
     assert skipped == [("whisper-base", "long_500k")]
+
+
+def test_a_training_cells_port_figure_is_the_sharded_trainers():
+    """llama3-8b at train_4k on 16 x 16: the port holds the rules' blocks
+    plus one gathered layer (at most a whole layer's bytes) and the head
+    (the one split leaf outside the layers: ``embed`` and ``final_ln`` are
+    replicated, read in place), far below every tree whole."""
+    cfg = get_config("llama3-8b")
+    mem = dryrun.account(cfg, SHAPES["train_4k"],
+                         production_mesh_shape())["memory"]
+    sharded, port = mem["sharded_per_device"], mem["port_per_device"]
+    whole = mem["whole_per_device"]
+    d, f, kv = cfg.d_model, cfg.d_ff, cfg.n_kv_heads * cfg.dh
+    layer = 2 * (2 * d * d + 2 * d * kv + 3 * d * f + 2 * d)
+    head = 2 * d * cfg.padded_vocab
+    assert port["gathered_once"] == head
+    assert 0 < port["gathered_layer"] <= layer
+    assert sharded["total"] < port["total"] <= sharded["total"] + layer + head
+    assert port["total"] < whole["total"] / 50
+    for part in ("params", "opt", "grad_accumulator", "batch"):
+        assert port[part] == sharded[part], part
 
 
 def test_the_meta_branch_gives_the_plain_versions_shapes():

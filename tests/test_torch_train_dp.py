@@ -12,9 +12,10 @@ reference's state carried across and is held under
 rounding-level gradient entry anywhere within 2 lr (ROADMAP §3), and the
 reduced gemma and xlstm trees have 1-2 such entries in leaves of 128,
 past the AdamW rule's 0.1% of a leaf, at W = 1 as in the one-device
-step.  W = 1 is the one-device step bit for bit, and so is W = n_micro
-(each shard's sum is one micro-batch's gradient); AdamW with master
-weights runs in the compressor and trainer cases."""
+step.  On a mesh the whole state is read as one block a leaf and every
+shard adds its micro-batches' gradients into the one accumulator in
+micro-batch order, so every W is the one-device step bit for bit; AdamW
+with master weights runs in the compressor and trainer cases."""
 import functools
 
 import jax
@@ -35,6 +36,7 @@ from repro_torch.ckpt import checkpoint as tckpt
 from repro_torch.configs import ShapeConfig, get_config
 from repro_torch.convert import bind_stacked, stacked_params, \
     train_state_from_jax
+from repro_torch.core.blocks import gather_tree
 from repro_torch.launch.mesh import make_host_mesh
 from repro_torch.models import build_model
 from repro_torch.train.step import TrainPlan, make_train_step
@@ -111,7 +113,9 @@ def _bits(t: torch.Tensor) -> torch.Tensor:
 
 
 def _differ(a, b) -> list:
-    fa, fb = dict(tree.items(a)), dict(tree.items(b))
+    """The keys where two states differ in bits (a state in the block
+    layout gathered whole first)."""
+    fa, fb = (dict(tree.items(gather_tree(t, "cpu"))) for t in (a, b))
     assert fa.keys() == fb.keys()
     return [tree.key_of(p) for p in fa
             if fa[p].dtype != fb[p].dtype
@@ -187,9 +191,9 @@ def test_a_plan_the_shards_do_not_divide_raises(n_micro, w):
 
 
 def test_replica_models_bind_to_their_parameters():
-    """A replica made for another device (built on ``meta``, its storage
-    allocated on the device, then bound to the copied tree) computes the
-    model's loss from that tree."""
+    """A model built on ``meta``, its storage allocated on a device, then
+    bound to a copied tree (:func:`~repro_torch.convert.bind_stacked`)
+    computes the model's loss from that tree."""
     cfg = get_config("zamba2-2.7b").reduced()
     model = build_model(cfg, device="cpu").init_params(3)
     params = stacked_params(model)
