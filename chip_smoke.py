@@ -68,8 +68,10 @@ after:
     whole tensors at the same configuration; the sharded trainer at the
     same configuration on a 2 x 2 mesh (``cuda:0`` four times: each
     position's blocks of the parameters, accumulator and optimizer state,
-    each equal to ``shard_bytes``) against the one-device step, and its
-    compressed step (the hook once, on the gradient gathered whole);
+    each equal to ``shard_bytes``; attention, the FFN and the head
+    computed over "model", each position gathering only its blocks)
+    against the one-device step at rounding level, and its compressed
+    step (the hook once, on the gradient gathered whole);
   * the encoder-decoder: whisper-base at full width and depth (bf16 from a
     seed) through its forward over 8 x 4096 tokens and 1500 frames, its
     forward's logits against its decode's on an f32 copy (sound, and with
@@ -2996,41 +2998,65 @@ def train_one_device():
     return fields, baseline
 
 
-# the sharded step against the one-device step (acceptance rule where
-# their bits part): loss bit for bit; grad_norm at rtol 1e-6; moments,
-# master weights and f32 parameters at rtol 1e-5 except entries whose
-# gradient is at rounding level (the one-device first moment below 1e-4
-# of its leaf's largest); bf16 parameters at most one ulp apart
+# the sharded step against the one-device step.  Where the mesh's "model"
+# axis is 1 (2 x 1, 2 x 2 x 1, the Trainer's 1 x 1) the step is the
+# one-device step bit for bit (tests/test_torch_train_sharded.py).  Here
+# "model" is 2: attention, the dense FFN and the head are computed over
+# it, and the row-parallel adds (the f32 partials of wo, w2 and the
+# vocab-parallel loss's sums) reorder the sums, as the reference's GSPMD
+# step does.  So the rule is: the loss at rtol 1e-3; grad_norm at rtol
+# 1e-2; each leaf's AdamW first moment (the step's gradient times
+# 1 - beta1) within a relative Frobenius error of 1e-2; every parameter
+# within 2 lr plus one ulp of its one-device value (AdamW's first step
+# moves an entry by about lr at most)
 SHARDED_MESH = (2, 2)
-SHARDED_NORM_RTOL, SHARDED_STATE_RTOL = 1e-6, 1e-5
+SHARDED_LOSS_RTOL, SHARDED_NORM_RTOL = 1e-3, 1e-2
+SHARDED_MOMENT_REL = 1e-2
 
 
-def sharded_vs_one_device(state, kept) -> dict:
-    """Each leaf of the sharded ``state``'s parameters and optimizer
-    state, gathered on the card, against ``kept`` (the host copy of the
-    one-device step's): -> the count of leaves equal bit for bit and the
-    keys of those outside the rule."""
+def sharded_vs_one_device(state, kept, lr: float) -> dict:
+    """Each leaf of the sharded ``state``, gathered on the card, against
+    ``kept`` (the host copy of the one-device step's): each first
+    moment's relative Frobenius error, the largest and its leaf, the
+    largest parameter difference in units of lr and its leaf, and the
+    keys of the leaves outside the rule."""
     from repro_torch import tree
-    bitwise, outside = 0, []
-    for path, s in tree.items({k: state[k] for k in ("params", "opt")}):
+    out = dict(moment_rel_err=0.0, moment_leaf=None, param_err_lr=0.0,
+               param_leaf=None, moment_rel_errs={}, outside=[])
+    for path, s in tree.items(state["opt"]["m"]):
+        a = on_card(s).float()
+        b = tree.get(kept["opt"]["m"], path).to(a.device).float()
+        rel = float((a - b).norm()) / max(float(b.norm()), 1e-30)
+        out["moment_rel_errs"][tree.key_of(path)] = rel
+        if rel > out["moment_rel_err"]:
+            out.update(moment_rel_err=rel, moment_leaf=tree.key_of(path))
+        if not rel <= SHARDED_MOMENT_REL:
+            out["outside"].append("opt/m/" + tree.key_of(path))
+    for path, s in tree.items(state["params"]):
         a = on_card(s)
-        b = tree.get(kept, path).to(a.device)
-        if bits_equal(a, b):
-            bitwise += 1
-            continue
-        if a.dtype == torch.bfloat16:
-            ok = int((a.view(torch.int16).int()
-                      - b.view(torch.int16).int()).abs().max()) <= 1
-        elif a.is_floating_point():
-            leaf = path[1:] if path[0] == "params" else path[2:]
-            m = tree.get(kept["opt"]["m"], leaf).to(a.device).abs()
-            ok = bool((torch.isclose(a, b, rtol=SHARDED_STATE_RTOL, atol=0.0)
-                       | (m < 1e-4 * m.max())).all())
-        else:
-            ok = False
-        if not ok:
-            outside.append(tree.key_of(path))
-    return dict(bitwise_leaves=bitwise, outside=outside)
+        b = tree.get(kept["params"], path).to(a.device)
+        big = torch.maximum(a.abs(), b.abs())   # one ulp at the larger
+        ulp = torch.nextafter(big, torch.full_like(big, float("inf"))
+                              ).float() - big.float()
+        diff = (a.float() - b.float()).abs()
+        err = float(diff.max()) / lr
+        if err > out["param_err_lr"]:
+            out.update(param_err_lr=err, param_leaf=tree.key_of(path))
+        if not bool((diff <= 2 * lr + ulp).all()):
+            out["outside"].append("params/" + tree.key_of(path))
+    return out
+
+
+def position_blocks(cfg, n_model: int) -> tuple[int, int]:
+    """(the bytes of one llama layer's column and row blocks a "model"
+    position computes with, those of its vocab block of the head): wq, wo
+    h dh / M, wk, wv the kv heads of its h / M query heads, w1, w3, w2
+    d_ff / M, in bf16."""
+    d, h, kv, dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.dh
+    hm = h // n_model
+    kvm = max(1, hm * kv // h)
+    layer = 2 * d * hm * dh + 2 * d * kvm * dh + 3 * d * cfg.d_ff // n_model
+    return 2 * layer, 2 * d * cfg.padded_vocab // n_model
 
 
 def train_sharded(baseline: dict):
@@ -3039,15 +3065,19 @@ def train_sharded(baseline: dict):
     each position's blocks of the parameters, the gradient accumulator
     and the optimizer state are held once on the one card (no device
     holds less here; the 1/W saving shows only in the byte counts).
-    ``Trainer.init_state`` from seed 0 a leaf at a time; one step on the
-    one-device step's batch, held against ``baseline`` (from
-    :func:`train_one_device`: the loss bit for bit, the norm and the
-    state under :func:`sharded_vs_one_device`'s rule); each position's
-    bytes against ``sharding.shard_bytes``; the step's gathers, wall,
-    peak and a profiled repeat; then one compressed sharded step (the
-    hook once, on the gradient gathered whole: 12 x 9 Lloyd launches).
-    No checkpoint.  -> (the emitted fields, the compressed step's
-    head-gradient sample as (1, 4096, 1))."""
+    Each data shard computes attention, the FFN and the head over its two
+    "model" positions.  ``Trainer.init_state`` from seed 0 a leaf at a
+    time; one step on the one-device step's batch, held against
+    ``baseline`` (from :func:`train_one_device`) under the rule above
+    ``SHARDED_MESH``; each position's bytes against
+    ``sharding.shard_bytes``; each position's gathers (its column and row
+    blocks of a layer, its vocab block of the head,
+    :func:`position_blocks`), wall and peak; a warm step's wall and a
+    profiled repeat (the idle share is the warm step's); then one
+    compressed sharded step (the hook once, on the gradient gathered
+    whole: 12 x 9 Lloyd launches).  No checkpoint.  -> (the emitted
+    fields, the compressed step's head-gradient sample as (1, 4096,
+    1))."""
     import gc
     from repro_torch import tree
     from repro_torch.configs import ShapeConfig, get_config
@@ -3089,39 +3119,62 @@ def train_sharded(baseline: dict):
                                         device="meta"), state["params"]),
         sh.grad_specs(state["params"], mesh), mesh)
     bytes_ok = all(bool((held[k] == want[k]).all()) for k in want)
-    loss_ok = bits_equal(met["loss"].cpu(), baseline["loss"])
-    norm_ok = bool(np.isclose(float(met["grad_norm"]),
-                              float(baseline["grad_norm"]),
-                              rtol=SHARDED_NORM_RTOL, atol=0.0))
-    rule = sharded_vs_one_device(state, baseline["state"])
+    loss_err = abs(float(met["loss"]) - float(baseline["loss"])) / abs(
+        float(baseline["loss"]))
+    norm_err = abs(float(met["grad_norm"]) - float(baseline["grad_norm"])
+                   ) / abs(float(baseline["grad_norm"]))
+    rule = sharded_vs_one_device(state, baseline["state"], baseline["lr"])
+    rule_ok = (loss_err <= SHARDED_LOSS_RTOL and norm_err <= SHARDED_NORM_RTOL
+               and not rule["outside"])
+    layer_block, head_block = position_blocks(cfg, mesh.shape["model"])
+    positions = stats.pop("positions")
+    per_position_ok = all(
+        set(p["layer_bytes"].values()) == {layer_block}
+        and p["once_bytes"] == head_block
+        and p["gathers"] == 2 * TRAIN_LAYERS * p["micro_batches"]
+        and p["max_live_layers"] == 1 and p["live_after"] == 0
+        for p in positions)
     fields = dict(
         arch=cfg.name, layers=TRAIN_LAYERS, of_layers=32, mesh=repr(mesh),
         data_shards=len(sh.batch_devices(mesh)),
+        model_ways=mesh.shape["model"],
         plan=dataclasses.asdict(plan), batch=[TRAIN_BATCH, TRAIN_SEQ],
         loss=float(met["loss"]), loss_one_device=float(baseline["loss"]),
-        loss_bitwise=loss_ok, grad_norm=float(met["grad_norm"]),
+        loss_rel_err=loss_err, grad_norm=float(met["grad_norm"]),
         grad_norm_one_device=float(baseline["grad_norm"]),
-        state=rule, bytes_per_position={
+        grad_norm_rel_err=norm_err, state=rule, rule=dict(
+            loss_rtol=SHARDED_LOSS_RTOL, norm_rtol=SHARDED_NORM_RTOL,
+            moment_rel=SHARDED_MOMENT_REL, param="2 lr + 1 ulp"),
+        bytes_per_position={
             k: dict(held=held[k].tolist(), shard_bytes=int(want[k]))
             for k in want},
-        bytes_equal_shard_bytes=bytes_ok, gather=stats, init_s=init_s,
+        bytes_equal_shard_bytes=bytes_ok, gather=stats,
+        positions=[dict(p, layer_bytes=sorted(set(p["layer_bytes"].values())))
+                   for p in positions],
+        position_layer_block_bytes=layer_block,
+        position_head_block_bytes=head_block,
+        per_position_ok=per_position_ok, init_s=init_s,
         init_peak_gb=init_peak_gb, step_wall_s=step_s,
         tokens_per_s=TRAIN_BATCH * TRAIN_SEQ / step_s, peak_gb=peak_gb)
-    if not (bytes_ok and loss_ok and norm_ok and not rule["outside"]
-            and stats["max_live_layers"] == 1 and stats["live_after"] == 0):
+    if not (bytes_ok and rule_ok and per_position_ok):
         emit("train_sharded_failed", **fields)
     check(bytes_ok, f"sharded: bytes a position holds {held}, "
           f"shard_bytes {want}")
-    check(loss_ok and norm_ok and not rule["outside"],
-          f"sharded: loss {float(met['loss'])} against "
+    check(rule_ok, f"sharded: loss {float(met['loss'])} against "
           f"{float(baseline['loss'])}, norm {float(met['grad_norm'])} "
-          f"against {float(baseline['grad_norm'])}, leaves outside the "
-          f"rule {rule['outside']}")
-    check(stats["max_live_layers"] == 1 and stats["live_after"] == 0,
-          f"sharded: gathered layers alive at once {stats}")
+          f"against {float(baseline['grad_norm'])}, state {rule}")
+    check(per_position_ok, f"sharded: a position's gathers are not its "
+          f"blocks ({layer_block} B a layer, {head_block} B of head), or "
+          f"gathered layers outlived their use: {fields['positions']}")
+    # the first step is the first call of the positions' GEMM shapes; a
+    # second, unprofiled, is the warm step the idle share is taken from
+    warm_s, (state, met) = timed_s(lambda: tr.train_step(state, batch))
     (state, met), prof = profiled_once(lambda: tr.train_step(state, batch))
     fields["step_profile"] = prof
-    fields["idle_share"] = max(0.0, 1.0 - prof["device_busy_s"] / step_s)
+    fields["warm_step_wall_s"] = warm_s
+    fields["idle_share"] = max(0.0, 1.0 - prof["device_busy_s"] / warm_s)
+    fields["first_step_idle_share"] = max(
+        0.0, 1.0 - prof["device_busy_s"] / step_s)
 
     comp = make_grad_compressor(levels=COMPRESS_LEVELS)
     seen = dict(calls=0)

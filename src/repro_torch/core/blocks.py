@@ -189,45 +189,64 @@ def zeros(shape, dtype: torch.dtype, spec, mesh) -> Sharded:
     return Sharded(shape, dtype, parts, positions, blocks, mesh)
 
 
-def _read(s: Sharded, region: tuple, device) -> torch.Tensor:
-    """A new tensor on ``device`` of ``region`` of ``s``, copied from the
-    blocks it overlaps."""
+def _read(s: Sharded, region: tuple, device, index: tuple = ()
+          ) -> torch.Tensor:
+    """A new tensor on ``device`` of ``region`` of ``s`` (of its member
+    at ``index`` along the leading dims), copied from the blocks it
+    overlaps."""
+    k = len(index)
     out = torch.empty([r.stop - r.start for r in region], dtype=s.dtype,
                       device=device)
     for key in s.keys():
-        src = s.region(key)
+        src = s.region(key)[k:]
         ov = _overlap(src, region)
         if ov is not None:
-            out[_within(ov, region)].copy_(s.block(key, device)[
+            out[_within(ov, region)].copy_(s.block(key, device)[index][
                 _within(ov, src)])
     return out
 
 
-def gather(s: Sharded, device, index: tuple = ()) -> torch.Tensor:
+def gather(s: Sharded, device, index: tuple = (), region=None
+           ) -> torch.Tensor:
     """The leaf whole on ``device``, or its member at ``index`` along its
-    leading (stacking) dims, which no spec splits: its blocks copied into
-    place, no arithmetic, so it is exact.  A leaf of one block held on
-    ``device`` gives that block (a view at ``index``), not a copy."""
+    leading (stacking) dims, which no spec splits; with ``region`` (slices
+    of that member) only that part of it (a "model" position's columns or
+    rows, read over the blocks of every "data" position): its blocks
+    copied into place, no arithmetic, so it is exact.  Where one block
+    held on ``device`` is all of it (a leaf of one block, or a region
+    that is one block), that block is given (a view at ``index``), not a
+    copy."""
     device = torch.device(device)
     keys = s.keys()
-    if len(keys) == 1 and (keys[0], device) in s.blocks:
-        return s.blocks[(keys[0], device)][index]
     k = len(index)
     if any(p != 1 for p in s.parts[:k]):
         raise ValueError(f"gather: {s} is split along a stacking dim")
-    out = torch.empty(s.shape[k:], dtype=s.dtype, device=device)
+    if region is None:
+        if len(keys) == 1 and (keys[0], device) in s.blocks:
+            return s.blocks[(keys[0], device)][index]
+        region = tuple(slice(0, n) for n in s.shape[k:])
     for key in keys:
-        out[s.region(key)[k:]].copy_(s.block(key, device)[index])
-    return out
+        if s.region(key)[k:] == region and (key, device) in s.blocks:
+            return s.blocks[(key, device)][index]
+    return _read(s, region, device, index)
 
 
-def add_into(s: Sharded, g: torch.Tensor, index: tuple = ()) -> None:
-    """Add ``g`` (the whole leaf, or its member at ``index``) into each
-    stored block of ``s``, the block's region of it, on the block's
-    device: the owners' adds of a gradient into the accumulator."""
+def add_into(s: Sharded, g: torch.Tensor, index: tuple = (), region=None
+             ) -> None:
+    """Add ``g`` (the whole leaf, or its member at ``index``; with
+    ``region``, that part of it) into each stored block of ``s``, the
+    part of it the block holds, on the block's device: the owners' adds
+    of a gradient into the accumulator."""
     k = len(index)
+    if region is None:
+        for key, dev, t in s.units():
+            t[index].add_(g[s.region(key)[k:]].to(dev))
+        return
     for key, dev, t in s.units():
-        t[index].add_(g[s.region(key)[k:]].to(dev))
+        src = s.region(key)[k:]
+        ov = _overlap(src, region)
+        if ov is not None:
+            t[index][_within(ov, src)].add_(g[_within(ov, region)].to(dev))
 
 
 def relayout(s: Sharded, like: Sharded) -> Sharded:

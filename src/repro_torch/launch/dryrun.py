@@ -20,8 +20,9 @@ Each cell's record holds the bytes one device would hold under the
 reference's partition rules (:mod:`repro_torch.train.sharding`) on the
 production mesh (16 x 16, or 2 x 16 x 16), the bytes the port's layout
 holds (a training cell's: the sharded trainer's blocks under those rules
-plus the largest layer its step gathers and the leaves it gathers once a
-step; serving's: its model whole), the bytes of every tree whole,
+plus the largest layer a "model" position gathers and the leaves it
+gathers once a step; serving's: its model whole), the bytes of every
+tree whole,
 ``fits`` against the visible card's memory (``null`` with no card), and,
 on the single-pod mesh unless ``--no-ab``, the FLOPs
 of ``torch.utils.flop_counter.FlopCounterMode`` assembled by the
@@ -54,6 +55,7 @@ from repro_torch import tree
 from repro_torch.configs import (ARCH_IDS, SHAPES, ArchConfig, ShapeConfig,
                                  get_config, shape_applicable)
 from repro_torch.convert import stacked_params
+from repro_torch.core.blocks import ways
 from repro_torch.launch.mesh import production_mesh_shape
 from repro_torch.models.registry import build_model, cache_kind, input_specs
 from repro_torch.optim import get_optimizer
@@ -63,7 +65,7 @@ from repro_torch.train.sharding import (P, batch_specs, cache_specs, dp_size,
                                         shard_bytes)
 from repro_torch.train.step import (TrainPlan, default_plan,
                                     make_prefill_step, make_serve_step,
-                                    make_train_step)
+                                    make_train_step, position_members)
 
 ART = pathlib.Path(__file__).resolve().parents[3] / "build" / "dryrun"
 
@@ -184,27 +186,41 @@ def build_decode_program(cfg, shape, mesh):
 # the record
 # ---------------------------------------------------------------------------
 
-# the stacked groups, whose leaves the sharded step gathers a layer at a
-# time (every other leaf once a step)
-_STACKED = ("g_blocks", "g_super", "enc", "dec")
+def _gathered_bytes(cfg, params, p_specs, mesh) -> tuple[int, int]:
+    """What the sharded step copies onto a "model" position beside its
+    blocks, at the position that copies most (a data shard's first, which
+    also computes what is left whole): (the largest layer's copies, the
+    once-a-step leaves' copies).  A weight computed over "model" is read
+    in the position's region, its column or row block gathered over
+    "data" (:func:`~repro_torch.train.step.position_members`); one
+    computed whole is read whole; a read that one block of the leaf's
+    spec holds (a replicated leaf) is made in place, with no copy."""
+    n_model = mesh.shape.get("model", 1)
+    layers, outside = position_members(build_model(cfg, device="meta"),
+                                       n_model)
+    leaves, specs = dict(tree.items(params)), dict(tree.items(p_specs))
 
+    def copied(path, idx, region) -> int:
+        leaf, spec = leaves[path], list(specs[path])
+        shape = leaf.shape[len(idx):]
+        spec = (spec + [None] * leaf.dim())[len(idx):leaf.dim()]
+        region = region or tuple(slice(0, n) for n in shape)
+        parts = [1 if ax is None else ways(ax, mesh) for ax in spec]
+        if all(r.stop - r.start == n // k and r.start % (n // k) == 0
+               for r, n, k in zip(region, shape, parts)):
+            return 0
+        return math.prod(r.stop - r.start for r in region) * \
+            leaf.element_size()
 
-def _gathered_bytes(params, p_specs) -> tuple[int, int]:
-    """What the sharded step gathers onto a computing device beside its
-    blocks: (the largest layer's copies, the once-a-step leaves' copies).
-    A leaf its spec splits is copied whole; a replicated one is read in
-    place (no copy)."""
-    layer: dict = {}
-    once = 0
-    for (path, leaf), spec in zip(tree.items(params), tree.leaves(p_specs)):
-        if all(ax is None for ax in spec):
-            continue
-        nbytes = leaf.numel() * leaf.element_size()
-        if path[0] in _STACKED:
-            layer[path[0]] = layer.get(path[0], 0) + nbytes // leaf.shape[0]
-        else:
-            once += nbytes
-    return max(layer.values(), default=0), once
+    layer = [max((sum(copied(path, idx, region)
+                      for _, path, idx, region in members[m])
+                  for members in layers.values()), default=0)
+             for m in range(n_model)]
+    once = [sum(copied(path, (), (regions or [None] * n_model)[m])
+                for _, path, regions in outside
+                if regions is not None or m == 0)
+            for m in range(n_model)]
+    return max(layer), max(once)
 
 
 def _memory(cfg, shape, mesh, kind: str, args, plan) -> dict:
@@ -213,8 +229,8 @@ def _memory(cfg, shape, mesh, kind: str, args, plan) -> dict:
     whole (``whole``); arguments only, not activations.  A training
     cell's ``port`` is the sharded trainer's: its blocks under the rules
     (parameters, optimizer state, the gradient accumulator in
-    ``grad_dtype``), the largest layer its step gathers and the leaves it
-    gathers once a step (:func:`_gathered_bytes`).  Serving holds its
+    ``grad_dtype``), the largest layer a "model" position gathers and the
+    leaves it gathers once a step (:func:`_gathered_bytes`).  Serving holds its
     model whole on one device, so a prefill or decode cell's ``port`` is
     ``whole``; ``whole`` of a training cell also counts the f32 gradient
     sum."""
@@ -254,7 +270,7 @@ def _memory(cfg, shape, mesh, kind: str, args, plan) -> dict:
     if kind == "train":
         port = dict(sharded)
         port["gathered_layer"], port["gathered_once"] = _gathered_bytes(
-            params, p_specs)
+            cfg, params, p_specs, mesh)
     else:
         port = dict(whole)
     for part in (sharded, whole, port):

@@ -62,21 +62,45 @@ def _largest_divisor(s: int, chunk: int) -> int:
 def attention(p, x: torch.Tensor, dims: AttnDims, ctx: dict, *,
               window: int = 0, causal: bool = True, kv_override=None,
               use_rope: bool = True) -> torch.Tensor:
-    """x: (B, S, d) -> (B, S, d).  ``kv_override=(k, v)``, each (B, Skv, kv,
-    dh), attends to those keys and values instead of x's (cross
-    attention); ``window > 0`` masks keys ``window`` or more positions
-    back.  The reference's arithmetic: logits in f32 from the activations'
-    type, masked entries at ``NEG``, softmax in f32, the probabilities cast
-    to the activations' type before the value product.  Queries go in
-    chunks of ``ctx["q_chunk"]`` (the largest divisor of S at most it), so
-    one (chunk, Skv) score block is alive at a time; GQA is a grouped
-    product, each kv head serving its ``h // kv`` query heads."""
-    b, s, _ = x.shape
+    """x: (B, S, d) -> (B, S, d): :func:`attend_projected` of x's
+    projections by ``wq``, ``wk`` and ``wv``, then the output projection
+    ``wo``."""
+    out = attend_projected(dot(x, p["wq"]), dot(x, p["wk"]),
+                           dot(x, p["wv"]), dims, ctx, window=window,
+                           causal=causal, kv_override=kv_override,
+                           use_rope=use_rope)
+    return dot(out, p["wo"])
+
+
+def attend_projected(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     dims: AttnDims, ctx: dict, *, window: int = 0,
+                     causal: bool = True, kv_override=None,
+                     use_rope: bool = True) -> torch.Tensor:
+    """The queries (B, S, h dh), keys and values (B, S, kv dh) -> the
+    heads' outputs (B, S, h dh) in their type.  ``kv_override=(k, v)``,
+    each (B, Skv, kv, dh), attends to those keys and values instead
+    (cross attention); ``window > 0`` masks keys ``window`` or more
+    positions back.  The reference's arithmetic: logits in f32 from the
+    activations' type, masked entries at ``NEG``, softmax in f32, the
+    probabilities cast to the activations' type before the value product.
+    Queries go in chunks of ``ctx["q_chunk"]`` (the largest divisor of S
+    at most it), so one (chunk, Skv) score block is alive at a time; GQA
+    is a grouped product, each kv head serving its ``h // kv`` query
+    heads.  ``dims`` may be a "model" position's part of a layer (its
+    query heads and the kv heads they read); the RoPE tables are read on
+    the queries' device."""
+    b, s, _ = q.shape
     h, kv, dh = dims
     g = h // kv
     scale = dh ** -0.5
-    cos, sin = ctx["rope"]
-    q, k, v = _qkv(p, x, dims, cos, sin, use_rope)
+    x = q                       # the activations' type and device
+    q = q.reshape(b, s, h, dh)
+    k = k.reshape(b, s, kv, dh)
+    v = v.reshape(b, s, kv, dh)
+    if use_rope:
+        cos, sin = (t.to(x.device) for t in ctx["rope"])
+        q = apply_rope(q, cos, sin)
+        k = apply_rope(k, cos, sin)
     if kv_override is not None:
         k, v = kv_override
     skv = k.shape[1]
@@ -98,7 +122,7 @@ def attention(p, x: torch.Tensor, dims: AttnDims, ctx: dict, *,
         del logits
         oc = torch.einsum("bkgqs,bskd->bqkgd", probs, vf)
         out[:, qs:qs + chunk] = oc.reshape(b, chunk, h * dh).to(x.dtype)
-    return dot(out, p["wo"])
+    return out
 
 
 # ---------------------------------------------------------------------------

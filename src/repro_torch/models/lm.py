@@ -32,6 +32,34 @@ trainer turns gradients on for the ones it trains
 superblock) runs under ``torch.utils.checkpoint``, the counterpart of the
 reference's ``jax.checkpoint(..., nothing_saveable)``: its activations
 are recomputed in the backward pass.
+
+Over a "model" axis of M positions (a sharded train step's
+``ctx["model_split"]``, :class:`repro_torch.core.model_axis.ModelSplit`;
+:meth:`DecoderLM.split_regions` says which weights split), the norms,
+the residual stream and everything computed whole stay on the data
+shard's first position, and:
+
+* attention (every :class:`AttnBlock`, when M divides ``n_heads`` and a
+  position's heads hold whole GQA groups or lie inside one,
+  :func:`head_split`): position m holds the columns of ``attn.wq`` of its
+  query heads ``[m h/M, (m+1) h/M)``, the columns of ``attn.wk`` and
+  ``attn.wv`` of the kv heads they read, and the rows of ``attn.wo`` of
+  its query heads; it computes those heads and its f32 partial product
+  by its rows of ``wo``, and the partials are added in mesh order;
+* the dense SwiGLU FFN (when M divides ``d_ff``): position m holds the
+  columns ``[m d_ff/M, (m+1) d_ff/M)`` of ``w1`` and ``w3`` and those rows
+  of ``w2``; it computes those hidden columns and its f32 partial by its
+  rows of ``w2``, added as above;
+* an untied head (when M divides the padded vocabulary): position m
+  holds and computes the logits of the columns ``[m Vp/M, (m+1) Vp/M)``,
+  and the loss is combined over the positions
+  (:func:`~repro_torch.models.layers.vocab_parallel_cross_entropy`)
+  without forming whole logits.
+
+Each position's input arrives as an f32 copy (``to_model``), so its
+gradient reaches the positions' add unrounded, and the sum is rounded
+once, where the one-device product rounds; the partials are added in f32
+and rounded once (``from_model``).
 """
 from __future__ import annotations
 
@@ -46,39 +74,18 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.configs import ArchConfig, ShapeConfig
 from repro_torch.core.device import derive_seed, resolve_device, seed_of
 
-from .attention import (AttnDims, attention, attention_decode,
+from .attention import (AttnDims, attend_projected, attention,
+                        attention_decode,
                         attention_decode_clustered, attention_decode_window,
                         init_clustered_cache, init_kv_cache,
                         init_window_cache)
-from .layers import (cross_entropy, dot, ninit_, param, rms_norm, rope_tables,
-                     swiglu)
+from .layers import (cross_entropy, dot, dot_column, dot_f32, dot_partial,
+                     ninit_, param, rms_norm, rope_tables, swiglu,
+                     swiglu_gate, vocab_parallel_cross_entropy)
 from .moe import moe_ffn, moe_ffn_decode
 from .ssm import Mamba2Block, MLSTMBlock, SLSTMBlock
 
 CACHE_KINDS = ("full", "clustered")
-
-
-class _HeadProduct(torch.autograd.Function):
-    """``x @ w`` of two low-precision CUDA matrices as an f32 product
-    (``torch.mm(..., out_dtype=f32)``, which has no derivative of its
-    own).  The backward is the reference's transpose of
-    ``dot_general(..., preferred_element_type=f32)``: the f32 cotangent
-    times the other operand in f32, rounded to the operand's type."""
-
-    @staticmethod
-    def forward(ctx, x, w):
-        ctx.save_for_backward(x, w)
-        return torch.mm(x, w, out_dtype=torch.float32)
-
-    @staticmethod
-    def backward(ctx, g):
-        x, w = ctx.saved_tensors
-        dx = dw = None
-        if ctx.needs_input_grad[0]:
-            dx = (g @ w.float().T).to(x.dtype)
-        if ctx.needs_input_grad[1]:
-            dw = (x.float().T @ g).to(w.dtype)
-        return dx, dw
 
 
 def attn_params(d: int, dims: AttnDims, dtype: torch.dtype, device
@@ -97,17 +104,8 @@ def vocab_logits(x: torch.Tensor, final_ln: torch.Tensor, w: torch.Tensor,
                  eps: float) -> torch.Tensor:
     """Final norm and the vocabulary projection by ``w`` (d, Vp): f32
     logits computed from the activations and ``w`` in their own type, with
-    no rounding of the product to that type (the reference's
-    ``dot_general(..., preferred_element_type=f32)``).  On CUDA the
-    product reads ``w`` once and writes f32 (:class:`_HeadProduct`, which
-    gives it a backward); on the CPU it is the f32 product."""
-    xn = rms_norm(x, final_ln, eps)
-    x2 = xn.reshape(-1, xn.shape[-1])
-    if x2.device.type == "cuda" and x2.dtype != torch.float32:
-        logits = _HeadProduct.apply(x2, w)
-    else:
-        logits = x2.float() @ w.float()
-    return logits.reshape(*xn.shape[:-1], w.shape[-1])
+    no rounding of the product to that type (:func:`dot_f32`)."""
+    return dot_f32(rms_norm(x, final_ln, eps), w)
 
 
 def weight_draws(embed: torch.Tensor, projections: list) -> list:
@@ -143,11 +141,72 @@ def initial_fill(model: nn.Module, name: str) -> float:
 
 
 def gathered_call(layer: nn.Module, gather, name: str, *args):
-    """``layer(*args)`` computing with the weights ``gather(name)`` gives
-    (``{name within the layer: tensor}``): a sharded train step's
-    per-layer gather, which the caller puts inside the checkpointed call
-    so the backward's recompute gathers again."""
-    return functional_call(layer, gather(name), args)
+    """``layer(*args)`` computing with the weights ``gather(name)`` gives:
+    a sharded train step's per-layer gather, which the caller puts inside
+    the checkpointed call so the backward's recompute gathers again.
+    ``gather(name)`` -> (``{name within the layer: tensor}``, the weights
+    the layer computes whole with on the data shard's device; and, where
+    the layer computes over "model", one such dict a position of the
+    weights split there, else ``None``).  The split weights reach each
+    :class:`AttnBlock` of the layer through the ``model_split`` of the
+    context, ``args``' last entry."""
+    params, parts = gather(name)
+    if parts is not None:
+        weights = {}
+        for prefix, blk in layer.named_modules():
+            if not isinstance(blk, AttnBlock):
+                continue
+            prefix = prefix + "." if prefix else ""
+            own = [{k[len(prefix):]: t for k, t in part.items()
+                    if k.startswith(prefix)} for part in parts]
+            if own[0]:
+                weights[blk] = own
+        ctx = args[-1]
+        args = args[:-1] + (dict(ctx, model_split=ctx[
+            "model_split"].with_weights(weights)),)
+    return functional_call(layer, params, args)
+
+
+def over_columns(split, x: torch.Tensor, ws: list, out_f32: bool = False
+                 ) -> list:
+    """``x @ w_m`` on each "model" position m of ``split``, by its columns
+    ``ws[m]`` of a column-split weight (:func:`dot_column`): x goes to
+    every position as an f32 copy (``to_model``), so the positions' input
+    gradients are added unrounded and the sum is rounded once, by the
+    copy's cast, as the whole product's gradient is."""
+    return [dot_column(xm, w, out_f32)
+            for xm, w in zip(split.to_model(x.float()), ws)]
+
+
+def over_rows(split, xs: list, ws: list) -> torch.Tensor:
+    """The sum over the "model" positions of ``xs[m] @ ws[m]``, position
+    m's rows of a row-split weight: f32 partials (:func:`dot_partial`)
+    added in mesh order and rounded once to the activations' type
+    (``from_model``), on the first position's device."""
+    return split.from_model([dot_partial(xm, w) for xm, w in zip(xs, ws)],
+                            xs[0].dtype)[0]
+
+
+def head_split(dims: AttnDims, n_model: int):
+    """The query heads and the kv heads each of ``n_model`` positions
+    computes, ``[((q0, q1), (k0, k1))]`` in position order, or ``None``
+    where the layer's attention is computed whole: a position takes
+    ``h / M`` consecutive query heads and reads the kv heads they use,
+    which needs M to divide h and the position's heads to hold whole GQA
+    groups (M divides kv) or to lie inside one (the group holds them; its
+    kv head is then read by several positions)."""
+    h, kv, _ = dims
+    if n_model == 1 or h % n_model:
+        return None
+    hm, g = h // n_model, h // kv
+    if hm % g == 0:
+        km = hm // g
+        return [((m * hm, (m + 1) * hm), (m * km, (m + 1) * km))
+                for m in range(n_model)]
+    if g % hm == 0:
+        return [((m * hm, (m + 1) * hm), (m * hm // g, m * hm // g + 1))
+                for m in range(n_model)]
+    return None
 
 
 def _index(tree, i):
@@ -198,19 +257,75 @@ class AttnBlock(nn.Module):
                else [self.w1, self.w3, self.w2])
         return [*self.attn.values(), *ffn]
 
+    def split_regions(self, n_model: int) -> dict:
+        """``{name within the block: [region of the weight (slices) that
+        each of n_model "model" positions computes with]}`` for the
+        weights this block computes over "model": with the attention
+        split (:func:`head_split`), position m's query heads' columns of
+        ``attn.wq`` and rows of ``attn.wo``, and the columns of its kv
+        heads in ``attn.wk`` and ``attn.wv``; with a dense FFN whose
+        ``d_ff`` M divides, its ``d_ff / M`` hidden columns of ``w1`` and
+        ``w3`` and rows of ``w2``.  Empty at M = 1; an MoE layer's FFN
+        is computed whole."""
+        out: dict = {}
+        d, dh = self.cfg.d_model, self.dims.dh
+        rows = slice(0, d)
+        for (q0, q1), (k0, k1) in head_split(self.dims, n_model) or ():
+            q, k = slice(q0 * dh, q1 * dh), slice(k0 * dh, k1 * dh)
+            for name, region in (("attn.wq", (rows, q)),
+                                 ("attn.wk", (rows, k)),
+                                 ("attn.wv", (rows, k)),
+                                 ("attn.wo", (q, rows))):
+                out.setdefault(name, []).append(region)
+        f = self.cfg.d_ff
+        if self.moe is None and n_model > 1 and f % n_model == 0:
+            for m in range(n_model):
+                cols = slice(m * f // n_model, (m + 1) * f // n_model)
+                for name, region in (("w1", (rows, cols)),
+                                     ("w3", (rows, cols)),
+                                     ("w2", (cols, rows))):
+                    out.setdefault(name, []).append(region)
+        return out
+
     def forward(self, x: torch.Tensor, aux: torch.Tensor, ctx: dict
                 ) -> tuple[torch.Tensor, torch.Tensor]:
         """The forward over a whole (B, S, d) sequence -> (x, aux plus
         this layer's MoE load-balance loss); the reference's ``apply``
-        (``nn.Module.apply`` keeps its own meaning)."""
-        h = x + attention(self.attn, rms_norm(x, self.ln1, self.eps),
-                          self.dims, ctx, window=self.window)
+        (``nn.Module.apply`` keeps its own meaning).  Where
+        ``ctx["model_split"]`` holds this block's per-position weights
+        (:meth:`split_regions`), the attention and the FFN are computed
+        over "model": the normed input goes to every position
+        (``to_model``), each computes its heads (its hidden columns) and
+        its f32 partial product by its rows of ``wo`` (``w2``), and the
+        partials are added in mesh order (``from_model``); the norms and
+        the residual stay on the data shard's device."""
+        split = ctx.get("model_split")
+        parts = split.parts(self) if split is not None else None
+        xn = rms_norm(x, self.ln1, self.eps)
+        if parts is not None and "attn.wq" in parts[0]:
+            q, k, v = (over_columns(split, xn, [p["attn." + n] for p in parts])
+                       for n in ("wq", "wk", "wv"))
+            dh, outs = self.dims.dh, []
+            for qm, km, vm in zip(q, k, v):
+                dims = AttnDims(qm.shape[-1] // dh, km.shape[-1] // dh, dh)
+                outs.append(attend_projected(qm, km, vm, dims, ctx,
+                                             window=self.window))
+            h = x + over_rows(split, outs, [p["attn.wo"] for p in parts])
+        else:
+            h = x + attention(self.attn, xn, self.dims, ctx,
+                              window=self.window)
         hn = rms_norm(h, self.ln2, self.eps)
         if self.moe is not None:
             y, a = moe_ffn(self.moe, hn, n_experts=self.cfg.n_experts,
                            top_k=self.cfg.experts_per_token,
                            capacity_factor=self.cfg.expert_capacity_factor)
             return h + y, aux + a
+        if parts is not None and "w1" in parts[0]:
+            u, v = (over_columns(split, hn, [p[n] for p in parts])
+                    for n in ("w1", "w3"))
+            return h + over_rows(split, [swiglu_gate(um, vm) for um, vm
+                                         in zip(u, v)],
+                                 [p["w2"] for p in parts]), aux
         return h + swiglu(hn, self.w1, self.w3, self.w2), aux
 
     def decode(self, cache_l: dict, x: torch.Tensor, ctx: dict
@@ -540,8 +655,40 @@ class DecoderLM(nn.Module):
         step, outside the gradient; ``rest`` holds the batch's other
         leaves (``labels``)."""
         x, aux = self.run_groups(x, ctx, remat=remat)
-        return self._text_loss(self.head_out(x), rest["labels"], aux,
-                               aux_weight)
+        split = ctx.get("model_split")
+        heads = split.parts(self) if split is not None else None
+        if heads is None:
+            return self._text_loss(self.head_out(x), rest["labels"], aux,
+                                   aux_weight)
+        # the vocab-parallel head: position m's f32 logits of its columns
+        xn = rms_norm(x, self.final_ln, self.cfg.norm_eps)
+        blocks = over_columns(split, xn, [p["head"] for p in heads],
+                              out_f32=True)
+        blocks = [b[:, self.cfg.n_patches:] for b in blocks]
+        return (vocab_parallel_cross_entropy(blocks, rest["labels"])
+                + aux_weight * aux)
+
+    def split_regions(self, n_model: int) -> dict:
+        """``{parameter name: [region each of n_model "model" positions
+        computes with]}``: every attention block's
+        (:meth:`AttnBlock.split_regions`) and, for an untied head whose
+        padded vocabulary M divides, position m's ``Vp / M`` columns of
+        ``head`` (the vocab-parallel loss).  Everything else (the norms,
+        the embedding, a tied head, the MoE experts and router, the
+        recurrent blocks, ``patch_proj``) is computed whole on the data
+        shard's device.  Empty at M = 1."""
+        out: dict = {}
+        cfg = self.cfg
+        vp = cfg.padded_vocab
+        if n_model > 1 and not cfg.tie_embeddings and vp % n_model == 0:
+            out["head"] = [(slice(0, cfg.d_model),
+                            slice(m * vp // n_model, (m + 1) * vp // n_model))
+                           for m in range(n_model)]
+        for name, blk in self.named_modules():
+            if isinstance(blk, AttnBlock):
+                for rel, regions in blk.split_regions(n_model).items():
+                    out[f"{name}.{rel}"] = regions
+        return out
 
     def _text_loss(self, logits, labels, aux, aux_weight):
         if self.cfg.n_patches:

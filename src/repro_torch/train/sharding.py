@@ -21,10 +21,17 @@ and the step's one gradient accumulator (:func:`grad_accumulator`); the
 bytes each position holds equal :func:`shard_bytes` for the parameters,
 the accumulator and the optimizer state.  The sharded step
 (:mod:`repro_torch.train.step`) gathers each layer's weights inside its
-checkpointed call and adds its gradient back into the owners' blocks;
-the computing stays on the data shards' devices, so the positions of a
-"model" axis past its first entry hold their blocks and run nothing
-(tensor-parallel compute is not ported).  The specs are the reference's,
+checkpointed call and adds its gradient back into the owners' blocks.
+Each data shard computes on its positions along "model"
+(:func:`model_positions`): attention by heads, the dense FFN by hidden
+columns and an untied head by vocab columns, each position reading over
+"data" only its column block of ``attn/w[qkv]``, ``w1``, ``w3`` and
+``head`` and its row block of ``attn/wo`` and ``w2`` (the kv heads its
+query heads read, where M does not divide the kv heads); what M does not
+split (attention whose heads M does not divide, the MoE experts and
+router, the recurrent blocks, whisper's blocks, ``patch_proj``, a tied
+head) is gathered whole and computed on the shard's first position.
+The specs are the reference's,
 computed over the port's trees (the stacked tree of
 :func:`repro_torch.convert.stacked_like`, the port's optimizer states,
 ``models.input_specs`` and ``init_caches``); the dry run reads
@@ -201,6 +208,22 @@ def batch_devices(mesh) -> list:
     axes = axes_of(batch_axis(mesh))
     pick = tuple(slice(None) if a in axes else 0 for a in mesh.axis_names)
     return list(np.asarray(mesh.devices[pick]).reshape(-1))
+
+
+def model_positions(mesh) -> list:
+    """For each data shard (in :func:`batch_devices`' order), its
+    positions along "model" in mesh order, ``[(flat mesh index,
+    device)]``, the mesh's other axes at index 0; one position a shard
+    where the mesh has no "model" axis."""
+    axes = axes_of(batch_axis(mesh))
+    shards: dict = {}
+    for flat, idx in enumerate(np.ndindex(*mesh.devices.shape)):
+        at = dict(zip(mesh.axis_names, idx))
+        if any(i for a, i in at.items() if a not in axes and a != "model"):
+            continue
+        shards.setdefault(tuple(at[a] for a in axes), []).append(
+            (flat, mesh.devices[idx]))
+    return [shards[k] for k in sorted(shards)]
 
 
 def batch_specs(batch_like, mesh):

@@ -30,10 +30,11 @@ from repro_torch.convert import bind_stacked, stack_path
 from repro_torch.core.blocks import (Sharded, add_into, assign, gather,
                                      is_sharded, position_bytes, relayout,
                                      shard)
+from repro_torch.core.model_axis import ModelSplit
 from repro_torch.launch.mesh import check_mesh
 from repro_torch.models.registry import build_model
 from repro_torch.train.sharding import (batch_devices, grad_accumulator,
-                                        grad_specs)
+                                        grad_specs, model_positions)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -115,80 +116,144 @@ def _accumulate(model, params, ctx, plan: TrainPlan, micros) -> tuple:
 
 
 class _LayerGather(torch.autograd.Function):
-    """One layer's weights on the computing device: the forward gathers
-    each from its blocks (:func:`~repro_torch.core.blocks.gather`);
-    the backward cuts each weight's gradient into blocks and adds them
-    into the accumulator's (:func:`~repro_torch.core.blocks.add_into`)
-    and passes nothing on.  ``anchor``, a 0-d tensor that requires a
-    gradient, puts the node on the loss's backward path."""
+    """One layer's weights on its "model" positions' devices: the forward
+    gathers each position's members (:meth:`_Gatherer.fetch`); the
+    backward, position after position in mesh order, cuts each weight's
+    gradient into blocks and adds them into the accumulator's
+    (:meth:`_Gatherer.give`) and passes nothing on.  ``anchor``, a 0-d
+    tensor that requires a gradient, puts the node on the loss's backward
+    path."""
 
     @staticmethod
-    def forward(ctx, anchor, gatherer, members):
+    def forward(ctx, anchor, gatherers, members):
         ctx.set_materialize_grads(False)
-        ctx.gatherer, ctx.members = gatherer, members
-        return tuple(gatherer.fetch(m) for m in members)
+        ctx.gatherers, ctx.members = gatherers, members
+        return tuple(g.fetch(m) for g, ms in zip(gatherers, members)
+                     for m in ms)
 
     @staticmethod
     def backward(ctx, *grads):
-        for m, g in zip(ctx.members, grads):
-            if g is not None:
-                ctx.gatherer.give(m, g)
+        it = iter(grads)
+        for g, ms in zip(ctx.gatherers, ctx.members):
+            for m in ms:
+                grad = next(it)
+                if grad is not None:
+                    g.give(m, grad)
         return None, None, None
 
 
+def _position_stats(flat: int, device) -> dict:
+    return dict(position=flat, device=str(device), micro_batches=0,
+                gathers=0, gathered_bytes=0, layer_bytes={}, once_bytes=0,
+                max_live_layers=0, live_after=0)
+
+
 class _Gatherer:
-    """A sharded step's ``ctx["gather"]`` on one computing device:
-    ``gatherer(layer name)`` -> ``{name within the layer: weight}``,
-    through :class:`_LayerGather`.  ``stats`` counts the gathers and the
-    bytes they copied, and the most layers whose copies were alive at
-    once (1 where each layer's copies die with its forward and its
-    backward)."""
+    """One "model" position's gathers on its device: a member ``(name
+    within the layer, leaf path, index, region)`` is read from the leaf's
+    blocks (its ``region`` only, where the position computes a part of
+    it) and its gradient added back into the accumulator's.  ``stats``
+    and ``live`` are the counts and the live copies of the mesh position
+    it serves (the step points them at each data shard's in turn):
+    gathers, the bytes they copied (``layer_bytes``: one gather of each
+    layer), and the most layers whose copies were alive at once (1 where
+    each layer's copies die with its forward and its backward)."""
 
-    def __init__(self, params, acc, device, gdtype, layers: dict, stats,
-                 live: list):
+    def __init__(self, params, acc, device, gdtype):
         self.params, self.acc, self.device = params, acc, device
-        self.gdtype, self.layers = gdtype, layers
-        self.stats, self.live = stats, live
-        self.anchor = torch.zeros((), device=device, requires_grad=True)
+        self.gdtype = gdtype
+        self.stats: dict = {}
+        self.live: list = []
+        self.layer = None
 
-    def __call__(self, name: str) -> dict:
-        members = self.layers[name]
+    def begin(self, name: str) -> None:
         alive = {n for r, n in self.live if r() is not None}
         self.live[:] = [(r, n) for r, n in self.live if r() is not None]
         self.stats["gathers"] += 1
         self.stats["max_live_layers"] = max(self.stats["max_live_layers"],
                                             len(alive | {name}))
-        outs = _LayerGather.apply(self.anchor, self, members)
-        for t in outs:
+        self.stats["layer_bytes"][name] = 0
+        self.layer = name
+
+    def track(self, name: str, tensors) -> None:
+        for t in tensors:
             if t._base is None:           # a copy, not a block's view
                 self.live.append((weakref.ref(t), name))
-        return {rel: t for (rel, _, _), t in zip(members, outs)}
 
     def fetch(self, member) -> torch.Tensor:
-        _, path, idx = member
-        t = gather(tree.get(self.params, path), self.device, idx)
+        _, path, idx, region = member
+        t = gather(tree.get(self.params, path), self.device, idx, region)
         if t._base is None:
-            self.stats["gathered_bytes"] += t.numel() * t.element_size()
+            n = t.numel() * t.element_size()
+            self.stats["gathered_bytes"] += n
+            self.stats["layer_bytes"][self.layer] += n
         return t
 
     def give(self, member, g: torch.Tensor) -> None:
-        _, path, idx = member
-        add_into(tree.get(self.acc, path), g.to(self.gdtype), idx)
+        _, path, idx, region = member
+        add_into(tree.get(self.acc, path), g.to(self.gdtype), idx, region)
 
 
-def _layer_members(model) -> tuple[dict, list]:
-    """{layer name (``g.i``): [(name within it, leaf path, index)]} for
-    each layer of the model's stacked groups, and the model's unstacked
-    parameters [(name, leaf path)]: the leaves gathered once a step."""
+class _ShardGather:
+    """A data shard's ``ctx["gather"]``: ``gather(layer name)`` ->
+    (``{name within the layer: weight}`` that the shard's first position
+    computes whole with, and one ``{name: part}`` a position of the
+    weights it computes over "model", or ``None`` where none is), all
+    positions' through one :class:`_LayerGather`."""
+
+    def __init__(self, gatherers: list, layers: dict, device):
+        self.gatherers, self.layers = gatherers, layers
+        self.anchor = torch.zeros((), device=device, requires_grad=True)
+
+    def __call__(self, name: str):
+        members = self.layers[name]
+        for g, ms in zip(self.gatherers, members):
+            if ms:
+                g.begin(name)
+        outs = iter(_LayerGather.apply(self.anchor, self.gatherers, members))
+        got = [[(m, next(outs)) for m in ms] for ms in members]
+        for g, pairs in zip(self.gatherers, got):
+            g.track(name, [t for _, t in pairs])
+        whole = {m[0]: t for m, t in got[0] if m[3] is None}
+        parts = [{m[0]: t for m, t in pairs if m[3] is not None}
+                 for pairs in got]
+        return whole, (parts if parts[0] else None)
+
+
+def position_members(model, n_model: int) -> tuple[dict, list]:
+    """What each of a data shard's ``n_model`` "model" positions gathers:
+    ``{layer name (g.i): [[(name within it, leaf path, index, region)]
+    a position]}`` for each layer of the model's stacked groups, and
+    ``[(name, leaf path, [region a position] or None)]`` for its
+    unstacked parameters (gathered once a step).  A weight the model
+    computes over "model" (``model.split_regions``) is read by every
+    position, each its region; any other goes whole (region ``None``) to
+    the first position alone."""
+    split = getattr(model, "split_regions", lambda n: {})(n_model)
     layers, outside = {}, []
     for name, _ in model.named_parameters():
         path, idx = stack_path(name)
+        regions = split.get(name)
         if not idx:
-            outside.append((name, path))
+            outside.append((name, path, regions))
             continue
         group, i, rel = name.split(".", 2)
-        layers.setdefault(f"{group}.{i}", []).append((rel, path, idx))
+        per = layers.setdefault(f"{group}.{i}", [[] for _ in range(n_model)])
+        for m, region in enumerate(regions or [None]):
+            per[m].append((rel, path, idx, region))
     return layers, outside
+
+
+def _split_owner(model, name: str) -> tuple:
+    """(the module a split unstacked parameter belongs to, its name
+    within it): the attention block it is in (zamba2's ``shared``), else
+    the model (``head``)."""
+    from repro_torch.models.lm import AttnBlock
+    for prefix, blk in model.named_modules():
+        if prefix and isinstance(blk, AttnBlock) and name.startswith(
+                prefix + "."):
+            return blk, name[len(prefix) + 1:]
+    return model, name
 
 
 def _bind(model, name: str, t: torch.Tensor) -> nn.Parameter:
@@ -233,17 +298,26 @@ def make_train_step(model, optimizer, cfg: ArchConfig, shape: ShapeConfig,
     ``[j n_micro / W, (j + 1) n_micro / W)`` (the rows ``batch_specs``
     gives it) on its device, so an MoE layer's capacity and load-balance
     loss are taken over a whole micro-batch, as in the reference;
-    ``n_micro % W != 0`` raises ``ValueError``.  Each layer's weights are
-    gathered onto the computing device inside its checkpointed call
+    ``n_micro % W != 0`` raises ``ValueError``.  Each shard computes on
+    its M positions along "model" (:func:`position_members`: the weights
+    ``model.split_regions`` splits, attention by heads, the dense FFN by
+    hidden columns and an untied head by vocab columns, each position its
+    region; every other weight whole on the shard's first position,
+    whose device holds the activations).  Each layer's weights are
+    gathered onto the positions' devices inside its checkpointed call
     (:func:`~repro_torch.models.lm.gathered_call`), so the backward's
-    recompute gathers again and no whole layer outlives its forward or
+    recompute gathers again and no layer's copies outlive its forward or
     its backward; the unstacked leaves (``embed``, ``head``,
     ``final_ln``, ``patch_proj``, zamba2's ``shared``) are gathered once a
-    step on each computing device.  There is one accumulator: each
-    gradient is cut into its blocks and each owner adds its block,
-    micro-batch after micro-batch in order, and the losses are summed in
-    that order too, so loss and global gradient are the one-device step's
-    bit for bit for any ``n_micro`` that W divides.  The accumulator is in
+    step, the split ones a region on each position.  There is one
+    accumulator: each gradient is cut into its blocks and each owner adds
+    its block, micro-batch after micro-batch and position after position
+    in mesh order, and the losses are summed in that order too.  With a
+    "model" axis of 1 the loss and global gradient are therefore the
+    one-device step's bit for bit for any ``n_micro`` that W divides;
+    over "model" the partial products of ``wo``, ``w2`` and the head are
+    added in another order (:mod:`repro_torch.core.model_axis`), as the
+    reference's GSPMD step adds them in its own.  The accumulator is in
     the blocks of ``grad_specs`` for a state in blocks (``embed``'s
     sharded although the table is replicated); a state of whole tensors
     is read as one block a leaf, so its accumulator and its update are
@@ -254,9 +328,15 @@ def make_train_step(model, optimizer, cfg: ArchConfig, shape: ShapeConfig,
     its owner's device (``embed`` in its state's blocks, then gathered
     back onto every device that holds the replicated table).
     ``train_step.stats`` holds the last call's accumulator bytes at each
-    mesh position (``accumulator_bytes``, for a state in blocks), its
-    gathers, gathered bytes, the most layers whose copies were alive at
-    once and the copies alive after the backward (``live_after``)."""
+    mesh position (``accumulator_bytes``, for a state in blocks); for
+    each mesh position (``positions``, in mesh order) its micro-batches,
+    gathers, gathered bytes, the bytes of one gather of each layer
+    (``layer_bytes``) and of its once-a-step leaves (``once_bytes``), the
+    most layers whose copies were alive at once and the copies alive
+    after the backward (``live_after``); the positions' totals (their
+    maximum for ``max_live_layers``, the bytes copied on each distinct
+    device for ``gathered_bytes``); and ``from_model``'s calls and bytes
+    (:class:`~repro_torch.core.model_axis.ModelSplit`)."""
     devices = [model.device] if mesh is None else batch_devices(
         check_mesh(mesh))
     if plan.n_micro % len(devices):
@@ -314,20 +394,22 @@ def _micro(x, i: int, n_micro: int, dev):
 
 
 def _mesh_step(optimizer, cfg, shape, plan, compress_fn, mesh, stats,
-                  state, batch):
+               state, batch):
     """One data-parallel step (:func:`make_train_step`) on a state in
     blocks, or of whole tensors read as one block a leaf."""
     params, n_micro = state["params"], plan.n_micro
     blocked = is_sharded(params)
     mesh = mesh if mesh is not None else tree.leaves(params)[0].mesh
-    devices = batch_devices(mesh)
-    if n_micro % len(devices):
+    shards = model_positions(mesh)
+    if n_micro % len(shards):
         raise ValueError(f"make_train_step: n_micro={n_micro} on the "
-                         f"{len(devices)} data shards of {mesh}")
-    first, per_shard = devices[0], n_micro // len(devices)
+                         f"{len(shards)} data shards of {mesh}")
+    first, per_shard = shards[0][0][1], n_micro // len(shards)
+    n_model = len(shards[0])
     gdtype = getattr(torch, plan.grad_dtype)
     stats.clear()
-    stats.update(gathers=0, gathered_bytes=0, max_live_layers=0)
+    stats.update(gathers=0, gathered_bytes=0, max_live_layers=0,
+                 live_after=0, from_model_adds=0, from_model_bytes=0)
     if blocked:
         acc = grad_accumulator(params, mesh, gdtype)
         stats["accumulator_bytes"] = position_bytes(acc, mesh)
@@ -335,46 +417,88 @@ def _mesh_step(optimizer, cfg, shape, plan, compress_fn, mesh, stats,
         acc = tree.map_(lambda p: Sharded.whole(torch.zeros(
             p.shape, dtype=gdtype, device=p.device)), params)
         params = tree.map_(Sharded.whole, params)
-    live: list = []
+    positions = {flat: _position_stats(flat, dev)
+                 for row in shards for flat, dev in row}
+    lives = {flat: [] for flat in positions}
 
-    # on each distinct device: a model on meta whose unstacked parameters
-    # are that device's whole copies, and its per-layer gatherer
-    on_dev = {}
-    for dev in dict.fromkeys(devices):
+    # for each distinct tuple of a shard's position devices: a model on
+    # meta whose unstacked parameters are its first device's whole
+    # copies, the parts of the split ones on each position's device, and
+    # a gatherer a position
+    setups = {}
+    for row in shards:
+        devs = tuple(dev for _, dev in row)
+        if devs in setups:
+            continue
         m = build_model(cfg, device="meta")
-        layers, outside = _layer_members(m)
-        bound = []
-        for name, path in outside:
-            t = gather(tree.get(params, path), dev)
-            if t._base is None:
-                stats["gathered_bytes"] += t.numel() * t.element_size()
-            bound.append((path, _bind(m, name, t)))
-        g = _Gatherer(params, acc, dev, gdtype, layers, stats, live)
+        layers, outside = position_members(m, n_model)
+        bound, parts, weights = [], [], {}
+        once = [0] * n_model
+        for name, path, regions in outside:
+            leaf = tree.get(params, path)
+            if regions is None:
+                t = gather(leaf, devs[0])
+                if t._base is None:
+                    once[0] += t.numel() * t.element_size()
+                bound.append((path, _bind(m, name, t)))
+                continue
+            owner, rel = _split_owner(m, name)
+            per = weights.setdefault(owner, [{} for _ in devs])
+            for k, (dev, region) in enumerate(zip(devs, regions)):
+                t = gather(leaf, dev, (), region)
+                if t._base is None:
+                    once[k] += t.numel() * t.element_size()
+                t = t.detach().requires_grad_(True)
+                per[k][rel] = t
+                parts.append((path, region, t))
+        stats["gathered_bytes"] += sum(once)
+        gatherers = [_Gatherer(params, acc, dev, gdtype) for dev in devs]
+        g = _ShardGather(gatherers, layers, devs[0])
         ctx = _ctx(m, cfg, shape, plan.q_chunk)
         ctx["gather"] = g
-        on_dev[dev] = (m, bound, g, ctx)
+        ctx["model_split"] = ModelSplit(devs, weights, stats)
+        setups[devs] = (m, bound, parts, g, ctx, once)
 
     batch = _on(batch, first)
     with torch.no_grad():
-        x_all = on_dev[first][0].embed_in(batch)
+        x_all = setups[tuple(d for _, d in shards[0])][0].embed_in(batch)
     rest = {k: v for k, v in batch.items() if k not in ("tokens", "patches")}
     lsum = torch.zeros((), device=first)
-    for j, dev in enumerate(devices):
-        m, bound, g, ctx = on_dev[dev]
+    for j, row in enumerate(shards):
+        dev = row[0][1]
+        m, bound, parts, g, ctx, once = setups[tuple(d for _, d in row)]
+        for gath, (flat, _), nbytes in zip(g.gatherers, row, once):
+            gath.stats, gath.live = positions[flat], lives[flat]
+            positions[flat]["micro_batches"] += per_shard
+            positions[flat]["once_bytes"] = nbytes
+            positions[flat]["gathered_bytes"] += nbytes
+        leaves = [g.anchor] + [p for _, p in bound] + [t for *_, t in parts]
         for i in range(j * per_shard, (j + 1) * per_shard):
             loss = m.loss_embedded(
                 _micro(x_all, i, n_micro, dev),
                 {k: _micro(v, i, n_micro, dev) for k, v in rest.items()},
                 ctx, remat=plan.remat, aux_weight=plan.aux_weight)
-            gs = torch.autograd.grad(loss, [g.anchor] + [p for _, p in bound],
-                                     allow_unused=True)
-            for (path, _), gp in zip(bound, gs[1:]):
+            gs = torch.autograd.grad(loss, leaves, allow_unused=True)
+            gs = iter(gs[1:])
+            for path, _ in bound:
+                gp = next(gs)
                 if gp is not None:
                     add_into(tree.get(acc, path), gp.to(gdtype))
+            for path, region, _ in parts:   # leaf after leaf, mesh order
+                gp = next(gs)
+                if gp is not None:
+                    add_into(tree.get(acc, path), gp.to(gdtype), (), region)
             lsum += loss.detach().to(first)
             del loss, gs
-    del on_dev, x_all
-    stats["live_after"] = sum(r() is not None for r, _ in live)
+    del setups, x_all
+    for flat, p in positions.items():
+        p["live_after"] = sum(r() is not None for r, _ in lives[flat])
+        stats["gathers"] += p["gathers"]
+        stats["gathered_bytes"] += p["gathered_bytes"] - p["once_bytes"]
+        stats["max_live_layers"] = max(stats["max_live_layers"],
+                                       p["max_live_layers"])
+        stats["live_after"] += p["live_after"]
+    stats["positions"] = [positions[flat] for flat in sorted(positions)]
 
     grads = tree.map_(lambda a: a.map(
         lambda t: t.div_(n_micro).to(torch.float32)), acc)

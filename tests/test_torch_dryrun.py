@@ -99,23 +99,50 @@ def test_full_configs_byte_accounting_for_every_cell(mesh_name):
 
 def test_a_training_cells_port_figure_is_the_sharded_trainers():
     """llama3-8b at train_4k on 16 x 16: the port holds the rules' blocks
-    plus one gathered layer (at most a whole layer's bytes) and the head
-    (the one split leaf outside the layers: ``embed`` and ``final_ln`` are
-    replicated, read in place), far below every tree whole."""
+    plus what a "model" position gathers over "data": one layer's column
+    and row blocks (its 2 query heads' columns of wq and rows of wo, the
+    one kv head they read in wk and wv, its d_ff / 16 columns of w1, w3
+    and rows of w2) and the head's Vp / 16 columns (``embed`` and
+    ``final_ln`` are replicated, read in place), far below every tree
+    whole and within 1.75 GB."""
     cfg = get_config("llama3-8b")
     mem = dryrun.account(cfg, SHAPES["train_4k"],
                          production_mesh_shape())["memory"]
     sharded, port = mem["sharded_per_device"], mem["port_per_device"]
     whole = mem["whole_per_device"]
-    d, f, kv = cfg.d_model, cfg.d_ff, cfg.n_kv_heads * cfg.dh
-    layer = 2 * (2 * d * d + 2 * d * kv + 3 * d * f + 2 * d)
-    head = 2 * d * cfg.padded_vocab
+    d, f, dh, m = cfg.d_model, cfg.d_ff, cfg.dh, 16
+    layer = 2 * (2 * d * cfg.n_heads * dh // m + 2 * d * dh + 3 * d * f // m)
+    head = 2 * d * cfg.padded_vocab // m
     assert port["gathered_once"] == head
-    assert 0 < port["gathered_layer"] <= layer
-    assert sharded["total"] < port["total"] <= sharded["total"] + layer + head
+    assert port["gathered_layer"] == layer
+    assert port["total"] == sharded["total"] + layer + head
+    assert port["total"] <= 1.75e9
     assert port["total"] < whole["total"] / 50
     for part in ("params", "opt", "grad_accumulator", "batch"):
         assert port[part] == sharded[part], part
+
+
+@pytest.mark.parametrize("arch,split", [("llama4-maverick-400b-a17b", False),
+                                        ("whisper-base", False),
+                                        ("gemma3-12b", True)])
+def test_what_a_training_cell_leaves_whole_is_gathered_whole(arch, split):
+    """llama4's 40 heads on a "model" axis of 16 compute their attention
+    whole, and whisper's blocks and head wait for their slice: a
+    position's largest layer holds those leaves whole.  gemma3's 16 heads
+    split (one query head and its kv head a position), its tied head is
+    the replicated table, so nothing is gathered once a step."""
+    cfg = get_config(arch)
+    mem = dryrun.account(cfg, SHAPES["train_4k"],
+                         production_mesh_shape())["memory"]
+    port = mem["port_per_device"]
+    d, dh = cfg.d_model, cfg.dh
+    attn = 2 * (2 * d * cfg.n_heads * dh + 2 * d * cfg.n_kv_heads * dh)
+    if split:     # a superblock of local_per_global + 1 such blocks
+        block = 2 * (2 * d * dh + 2 * d * dh + 3 * d * cfg.d_ff // 16)
+        assert port["gathered_layer"] == (cfg.local_per_global + 1) * block
+        assert port["gathered_once"] == 0
+    else:
+        assert port["gathered_layer"] >= attn
 
 
 def test_the_meta_branch_gives_the_plain_versions_shapes():

@@ -1,0 +1,179 @@
+"""How far the train step computed over the "model" axis parts from the
+one-device step in bf16, and why: a diagnostic for the card.
+
+At ``chip_smoke.py``'s training configuration (llama3-8b at full width,
+2 of its 32 layers, bf16 from seed 0, AdamW, 8 x 512 tokens) it runs the
+one-device step (``chip_smoke.train_one_device``) and then measures each
+leaf's AdamW first moment (the step's gradient times 1 - beta1) by its
+relative Frobenius distance to the one-device step's, for:
+
+* ``f32``: the one-device step in f32 from the same bf16 weights (each
+  bf16 step's own distance from it);
+* ``one_ulp``: the one-device step with one weight entry moved by one
+  bf16 ulp (how far any change of rounding carries);
+* ``full``: the sharded step on the 2 x 2 mesh (``chip_smoke.train_sharded``),
+  and the same step with only the head, only the attention or only the
+  FFN split over "model", with the row-split products (``wo``, ``w2``)
+  or the column-split ones computed as one product over all positions'
+  weights (``rows_whole``, ``cols_whole``), and with both and the head
+  whole (``products_whole``: what is left is the collectives and the
+  per-position attention).
+
+Run it on the card (about 3 minutes)::
+
+    python3 tools/model_axis_noise.py [OUT]
+
+It prints one JSON line a case and writes them all to ``OUT`` (default
+``build/model_axis_noise.json``).
+"""
+import dataclasses
+import json
+import subprocess
+import sys
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[1]
+sys.path.insert(0, str(ROOT))
+sys.path.insert(0, str(ROOT / "src"))
+import torch  # noqa: E402
+
+import chip_smoke as cs  # noqa: E402
+
+
+def moments_against(m, kept) -> dict:
+    """Each leaf's relative Frobenius distance of first moments ``m``
+    (on the card, or sharded) to ``kept``'s (on the host)."""
+    from repro_torch import tree
+    out = {}
+    for path, s in tree.items(m):
+        a = cs.on_card(s).float()
+        b = tree.get(kept, path).to(a.device).float()
+        if float(b.norm()):
+            out[tree.key_of(path)] = float((a - b).norm() / b.norm())
+    return out
+
+
+def one_device_m(cfg, dtype: str, nudge: bool) -> dict:
+    """The first moments of the one-device step from the seed-0 bf16
+    weights, computed in ``dtype``; ``nudge`` moves one entry of the
+    first layer's ``wq`` by one bf16 ulp first."""
+    from repro_torch import tree
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.data import token_stream
+    from repro_torch.models.registry import build_model
+    from repro_torch.optim import AdamW
+    from repro_torch.train.step import TrainPlan, make_train_step
+    opt = AdamW(master_weights=True)
+    model, state = cs.whole_train_state(cfg, opt)
+    if nudge:
+        state["params"]["g_blocks"]["attn"]["wq"].view(torch.int16)[
+            0, 3, 5] += 1
+    if dtype != cfg.dtype:
+        cfg = dataclasses.replace(cfg, dtype=dtype)
+        params = tree.map_(lambda t: t.to(getattr(torch, dtype)),
+                           state["params"])
+        del model, state
+        state = {"params": params, "opt": opt.init(params),
+                 "step": torch.zeros((), dtype=torch.int32, device="cuda")}
+        model = build_model(cfg, device="meta").to_empty(device="cuda")
+    step = make_train_step(model, opt, cfg,
+                           ShapeConfig("t", cs.TRAIN_SEQ, cs.TRAIN_BATCH,
+                                       "train"),
+                           TrainPlan(n_micro=cs.TRAIN_MICRO, q_chunk=512))
+    state, _ = step(state, token_stream(0, cs.TRAIN_BATCH, cs.TRAIN_SEQ,
+                                        cfg.vocab, seed=0))
+    m = state["opt"]["m"]
+    del state, model, step
+    return m
+
+
+def main(argv=None):
+    argv = sys.argv[1:] if argv is None else argv
+    out = Path(argv[0] if argv else ROOT / "build" / "model_axis_noise.json")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import build
+    from repro_torch.models import lm
+    from repro_torch.models.layers import dot
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True).stdout.strip()
+    print("card:", smi, flush=True)
+    build.build(["lloyd", "assign", "centroid"])
+    failed = []
+    cs.check = lambda cond, what: cond or failed.append(what[:400])
+    _, base = cs.train_one_device()
+    kept = base["state"]["opt"]["m"]
+    cfg = dataclasses.replace(get_config("llama3-8b"),
+                              n_layers=cs.TRAIN_LAYERS)
+    cases = []
+
+    def record(name, rows):
+        cases.append(dict(case=name, max=max(rows.values()),
+                          leaf=max(rows, key=rows.get), rows=rows))
+        print(json.dumps(cases[-1]), flush=True)
+
+    record("f32", moments_against(one_device_m(cfg, "float32", False), kept))
+    torch.cuda.empty_cache()
+    record("one_ulp", moments_against(one_device_m(cfg, cfg.dtype, True),
+                                      kept))
+    torch.cuda.empty_cache()
+
+    regions = lm.DecoderLM.split_regions, lm.AttnBlock.split_regions
+    products = lm.over_rows, lm.over_columns
+
+    def rows_whole(split, xs, ws):
+        return dot(torch.cat(xs, -1), torch.cat(ws, 0))
+
+    def cols_whole(split, x, ws, out_f32=False):
+        if out_f32:
+            return products[1](split, x, ws, out_f32)
+        y = dot(x, torch.cat(ws, 1))
+        return list(y.split([w.shape[1] for w in ws], -1))
+
+    def no_head(self, n):
+        return {k: v for k, v in regions[0](self, n).items() if k != "head"}
+
+    def block_only(attn: bool):
+        return lambda self, n: {k: v for k, v in regions[1](self, n).items()
+                                if k.startswith("attn.") == attn}
+
+    variants = {
+        "full": {},
+        "head_only": {"block": lambda self, n: {}},
+        "attn_only": {"model": no_head, "block": block_only(True)},
+        "ffn_only": {"model": no_head, "block": block_only(False)},
+        "rows_whole": {"rows": rows_whole},
+        "cols_whole": {"cols": cols_whole},
+        "products_whole": {"model": no_head, "rows": rows_whole,
+                           "cols": cols_whole},
+    }
+    seen = {}
+    real = cs.sharded_vs_one_device
+
+    def capture(state, kept_state, lr):
+        seen["rows"] = moments_against(state["opt"]["m"],
+                                       kept_state["opt"]["m"])
+        return real(state, kept_state, lr)
+
+    cs.sharded_vs_one_device = capture
+    try:
+        for name, v in variants.items():
+            lm.DecoderLM.split_regions = v.get("model", regions[0])
+            lm.AttnBlock.split_regions = v.get("block", regions[1])
+            lm.over_rows = v.get("rows", products[0])
+            lm.over_columns = v.get("cols", products[1])
+            cs.train_sharded(base)
+            record(name, seen["rows"])
+    finally:
+        lm.DecoderLM.split_regions, lm.AttnBlock.split_regions = regions
+        lm.over_rows, lm.over_columns = products
+        cs.sharded_vs_one_device = real
+    out.parent.mkdir(parents=True, exist_ok=True)
+    out.write_text(json.dumps(
+        dict(card=smi, cases=cases, full_phase_failures=failed), indent=1))
+
+
+if __name__ == "__main__":
+    main()
