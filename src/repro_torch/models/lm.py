@@ -49,7 +49,14 @@ shard's first position, and:
 * the dense SwiGLU FFN (when M divides ``d_ff``): position m holds the
   columns ``[m d_ff/M, (m+1) d_ff/M)`` of ``w1`` and ``w3`` and those rows
   of ``w2``; it computes those hidden columns and its f32 partial by its
-  rows of ``w2``, added as above;
+  rows of ``w2``, added as above; llama4's shared expert (``moe.w1``,
+  ``moe.w3``, ``moe.w2``) likewise;
+* the MoE experts (when M divides ``n_experts``): position m holds
+  experts ``[m E/M, (m+1) E/M)`` of ``moe.we1``, ``moe.we3`` and
+  ``moe.we2``, whole along d and d_ff, and computes their SwiGLU on its
+  slice of the dispatch block; the router, the routing, the dispatch and
+  the combine stay on the first position
+  (:func:`~repro_torch.models.moe.moe_ffn`);
 * an untied head (when M divides the padded vocabulary): position m
   holds and computes the logits of the columns ``[m Vp/M, (m+1) Vp/M)``,
   and the loss is combined over the positions
@@ -59,7 +66,9 @@ shard's first position, and:
 Each position's input arrives as an f32 copy (``to_model``), so its
 gradient reaches the positions' add unrounded, and the sum is rounded
 once, where the one-device product rounds; the partials are added in f32
-and rounded once (``from_model``).
+and rounded once (``from_model``).  The experts split no sum: their
+dispatch block is cut along E (``split_model``) and their outputs put
+back together (``concat_model``).
 """
 from __future__ import annotations
 
@@ -187,6 +196,18 @@ def over_rows(split, xs: list, ws: list) -> torch.Tensor:
                             xs[0].dtype)[0]
 
 
+def swiglu_over_model(split, x: torch.Tensor, parts: list, prefix: str
+                      ) -> torch.Tensor:
+    """The SwiGLU FFN by the weights ``prefix + "w1"``, ``"w3"``, ``"w2"``
+    of ``parts`` over "model": each position's hidden columns
+    (:func:`over_columns`), the f32 partials by its rows of ``w2`` added
+    in mesh order (:func:`over_rows`)."""
+    u, v = (over_columns(split, x, [p[prefix + n] for p in parts])
+            for n in ("w1", "w3"))
+    return over_rows(split, [swiglu_gate(um, vm) for um, vm in zip(u, v)],
+                     [p[prefix + "w2"] for p in parts])
+
+
 def head_split(dims: AttnDims, n_model: int):
     """The query heads and the kv heads each of ``n_model`` positions
     computes, ``[((q0, q1), (k0, k1))]`` in position order, or ``None``
@@ -263,10 +284,13 @@ class AttnBlock(nn.Module):
         weights this block computes over "model": with the attention
         split (:func:`head_split`), position m's query heads' columns of
         ``attn.wq`` and rows of ``attn.wo``, and the columns of its kv
-        heads in ``attn.wk`` and ``attn.wv``; with a dense FFN whose
-        ``d_ff`` M divides, its ``d_ff / M`` hidden columns of ``w1`` and
-        ``w3`` and rows of ``w2``.  Empty at M = 1; an MoE layer's FFN
-        is computed whole."""
+        heads in ``attn.wk`` and ``attn.wv``; with a dense FFN (llama4's
+        shared expert) whose ``d_ff`` M divides, its ``d_ff / M`` hidden
+        columns of ``w1`` and ``w3`` and rows of ``w2`` (``moe.w1`` ...);
+        with MoE experts that M divides, its ``E / M`` experts of
+        ``moe.we1``, ``moe.we3`` and ``moe.we2``, whole along d and
+        d_ff.  Empty at M = 1; what M does not divide is computed whole
+        (the router always)."""
         out: dict = {}
         d, dh = self.cfg.d_model, self.dims.dh
         rows = slice(0, d)
@@ -277,13 +301,24 @@ class AttnBlock(nn.Module):
                                  ("attn.wv", (rows, k)),
                                  ("attn.wo", (q, rows))):
                 out.setdefault(name, []).append(region)
-        f = self.cfg.d_ff
-        if self.moe is None and n_model > 1 and f % n_model == 0:
+        if n_model == 1:
+            return out
+        f, e = self.cfg.d_ff, self.cfg.n_experts
+        ffn = "" if self.moe is None else "moe." if "w1" in self.moe else None
+        if ffn is not None and f % n_model == 0:
             for m in range(n_model):
                 cols = slice(m * f // n_model, (m + 1) * f // n_model)
                 for name, region in (("w1", (rows, cols)),
                                      ("w3", (rows, cols)),
                                      ("w2", (cols, rows))):
+                    out.setdefault(ffn + name, []).append(region)
+        if self.moe is not None and e % n_model == 0:
+            hidden = slice(0, f)
+            for m in range(n_model):
+                ex = slice(m * e // n_model, (m + 1) * e // n_model)
+                for name, region in (("moe.we1", (ex, rows, hidden)),
+                                     ("moe.we3", (ex, rows, hidden)),
+                                     ("moe.we2", (ex, hidden, rows))):
                     out.setdefault(name, []).append(region)
         return out
 
@@ -297,8 +332,10 @@ class AttnBlock(nn.Module):
         over "model": the normed input goes to every position
         (``to_model``), each computes its heads (its hidden columns) and
         its f32 partial product by its rows of ``wo`` (``w2``), and the
-        partials are added in mesh order (``from_model``); the norms and
-        the residual stay on the data shard's device."""
+        partials are added in mesh order (``from_model``); an MoE FFN's
+        experts are computed expert-parallel and its shared expert by
+        hidden columns; the norms and the residual stay on the data
+        shard's device."""
         split = ctx.get("model_split")
         parts = split.parts(self) if split is not None else None
         xn = rms_norm(x, self.ln1, self.eps)
@@ -316,17 +353,29 @@ class AttnBlock(nn.Module):
                               window=self.window)
         hn = rms_norm(h, self.ln2, self.eps)
         if self.moe is not None:
-            y, a = moe_ffn(self.moe, hn, n_experts=self.cfg.n_experts,
-                           top_k=self.cfg.experts_per_token,
-                           capacity_factor=self.cfg.expert_capacity_factor)
-            return h + y, aux + a
+            return self._moe(split, parts, h, hn, aux)
         if parts is not None and "w1" in parts[0]:
-            u, v = (over_columns(split, hn, [p[n] for p in parts])
-                    for n in ("w1", "w3"))
-            return h + over_rows(split, [swiglu_gate(um, vm) for um, vm
-                                         in zip(u, v)],
-                                 [p["w2"] for p in parts]), aux
+            return h + swiglu_over_model(split, hn, parts, ""), aux
         return h + swiglu(hn, self.w1, self.w3, self.w2), aux
+
+    def _moe(self, split, parts, h, hn, aux):
+        """The MoE FFN's residual update and aux loss; over "model" where
+        ``parts`` holds the experts (``moe.we1`` ...) or the shared
+        expert's columns (``moe.w1`` ...)."""
+        split_experts = parts is not None and "moe.we1" in parts[0]
+        split_shared = parts is not None and "moe.w1" in parts[0]
+        p = {n: w for n, w in self.moe.items()
+             if not (split_experts and n.startswith("we")
+                     or split_shared and n in ("w1", "w3", "w2"))}
+        experts = ([{n: q["moe." + n] for n in ("we1", "we3", "we2")}
+                    for q in parts] if split_experts else None)
+        y, a = moe_ffn(p, hn, n_experts=self.cfg.n_experts,
+                       top_k=self.cfg.experts_per_token,
+                       capacity_factor=self.cfg.expert_capacity_factor,
+                       split=split, experts=experts)
+        if split_shared:
+            y = y + swiglu_over_model(split, hn, parts, "moe.")
+        return h + y, aux + a
 
     def decode(self, cache_l: dict, x: torch.Tensor, ctx: dict
                ) -> tuple[torch.Tensor, dict]:
@@ -674,9 +723,9 @@ class DecoderLM(nn.Module):
         (:meth:`AttnBlock.split_regions`) and, for an untied head whose
         padded vocabulary M divides, position m's ``Vp / M`` columns of
         ``head`` (the vocab-parallel loss).  Everything else (the norms,
-        the embedding, a tied head, the MoE experts and router, the
-        recurrent blocks, ``patch_proj``) is computed whole on the data
-        shard's device.  Empty at M = 1."""
+        the embedding, a tied head, the MoE router, the recurrent blocks,
+        ``patch_proj``) is computed whole on the data shard's device.
+        Empty at M = 1."""
         out: dict = {}
         cfg = self.cfg
         vp = cfg.padded_vocab

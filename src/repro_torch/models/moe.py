@@ -10,9 +10,21 @@ gate, and gathered back per choice.  No (T, E, C) one-hot is built.
 Entries ranked at or past C are dropped: they add nothing to the output.
 
 Decode routes the (B, 1) token batch across the sequences with a capacity
-floor, so a single request is never dropped.  The reference's expert
-parallelism (``expert_spec``, a sharding hint) is not ported: the port's
-MoE runs on one device.
+floor, so a single request is never dropped.
+
+Over a "model" axis of M positions (a sharded train step's, the
+reference's ``expert_spec``), :func:`moe_ffn` given the positions'
+expert weights computes the experts expert-parallel: the router, the
+top-k, the sort, the capacity ranks, the gates, the aux loss, the
+dispatch gather and the combine stay on the data shard's first
+position, so the kept and dropped entries are the one-device layer's;
+the (B, E, C, d) dispatch block and the slots' gates are cut along E to
+the positions (``split_model``), position m runs the SwiGLU of its
+experts ``[m E/M, (m+1) E/M)`` and scales by its gates, and the
+positions' outputs are concatenated along E on the first position
+(``concat_model``).  No sum is split, so the layer is the whole layer's
+arithmetic, expert by expert.  Decode and serving compute every MoE
+layer whole.
 """
 from __future__ import annotations
 
@@ -85,12 +97,29 @@ def capacity(t: int, n_experts: int, capacity_factor: float,
                t)
 
 
+def _expert_swiglu(xe: torch.Tensor, we1: torch.Tensor, we3: torch.Tensor,
+                   we2: torch.Tensor, gates: torch.Tensor) -> torch.Tensor:
+    """Each expert's SwiGLU of its dispatch block ``xe`` (B, E', C, d) by
+    its weights ``we1``/``we3`` (E', d, d_ff) and ``we2`` (E', d_ff, d),
+    scaled by each slot's gate (``gates`` (B, E', C, 1), in x's type)."""
+    h1 = torch.einsum("becd,edf->becf", xe, we1)
+    h3 = torch.einsum("becd,edf->becf", xe, we3)
+    hh = (F.silu(h1.float()) * h3.float()).to(xe.dtype)
+    del h1, h3
+    return torch.einsum("becf,efd->becd", hh, we2) * gates
+
+
 def moe_ffn(p: Mapping[str, torch.Tensor], x: torch.Tensor, *,
             n_experts: int, top_k: int, capacity_factor: float,
-            min_capacity: int = 4) -> tuple[torch.Tensor, torch.Tensor]:
+            min_capacity: int = 4, split=None, experts=None
+            ) -> tuple[torch.Tensor, torch.Tensor]:
     """x: (B, S, d) -> (y (B, S, d), aux loss).  ``p``: ``router`` (d, E)
     f32, ``we1``/``we3`` (E, d, d_ff), ``we2`` (E, d_ff, d) and, for a
-    shared expert, ``w1``/``w3``/``w2``."""
+    shared expert, ``w1``/``w3``/``w2``.  With ``split`` (a
+    :class:`~repro_torch.core.model_axis.ModelSplit` of M positions) and
+    ``experts`` (one ``{we1, we3, we2}`` a position, its E/M experts, on
+    its device) the experts are computed over "model" and ``p`` needs no
+    expert weights (see the module docstring)."""
     b, s, d = x.shape
     e, k = n_experts, top_k
     t = s * k
@@ -108,13 +137,15 @@ def moe_ffn(p: Mapping[str, torch.Tensor], x: torch.Tensor, *,
     bidx = torch.arange(b, device=x.device)[:, None]
     xp = torch.cat([x, x.new_zeros((b, 1, d))], 1)
     xe = xp[bidx, tok].reshape(b, e, c, d)
+    gates = gslot.reshape(b, e, c, 1).to(x.dtype)
 
-    h1 = torch.einsum("becd,edf->becf", xe, p["we1"])
-    h3 = torch.einsum("becd,edf->becf", xe, p["we3"])
-    hh = (F.silu(h1.float()) * h3.float()).to(x.dtype)
-    del h1, h3
-    ye = torch.einsum("becf,efd->becd", hh, p["we2"])
-    ye = ye * gslot.reshape(b, e, c, 1).to(x.dtype)
+    if experts is None:
+        ye = _expert_swiglu(xe, p["we1"], p["we3"], p["we2"], gates)
+    else:                                   # expert-parallel over "model"
+        ye = split.concat_model(
+            [_expert_swiglu(xm, w["we1"], w["we3"], w["we2"], gm)
+             for xm, gm, w in zip(split.split_model(xe, 1),
+                                  split.split_model(gates, 1), experts)], 1)
 
     # combine by gather: each entry's slot (the sentinel row of zeros for
     # a dropped one), then each of the K choices of every token

@@ -23,14 +23,16 @@ the accumulator and the optimizer state.  The sharded step
 (:mod:`repro_torch.train.step`) gathers each layer's weights inside its
 checkpointed call and adds its gradient back into the owners' blocks.
 Each data shard computes on its positions along "model"
-(:func:`model_positions`): attention by heads, the dense FFN by hidden
-columns and an untied head by vocab columns, each position reading over
-"data" only its column block of ``attn/w[qkv]``, ``w1``, ``w3`` and
-``head`` and its row block of ``attn/wo`` and ``w2`` (the kv heads its
-query heads read, where M does not divide the kv heads); what M does not
-split (attention whose heads M does not divide, the MoE experts and
-router, the recurrent blocks, whisper's blocks, ``patch_proj``, a tied
-head) is gathered whole and computed on the shard's first position.
+(:func:`model_positions`): attention by heads, the dense FFN (and
+llama4's shared expert) by hidden columns, the MoE experts by expert and
+an untied head by vocab columns, each position reading over "data" only
+its column block of ``attn/w[qkv]``, ``w1``, ``w3`` and ``head``, its
+row block of ``attn/wo`` and ``w2`` (the kv heads its query heads read,
+where M does not divide the kv heads) and its experts' block of
+``moe/we[123]``; what M does not split (attention whose heads M does not
+divide, experts M does not divide, the MoE router, the recurrent blocks,
+whisper's blocks, ``patch_proj``, a tied head) is gathered whole and
+computed on the shard's first position.
 The specs are the reference's,
 computed over the port's trees (the stacked tree of
 :func:`repro_torch.convert.stacked_like`, the port's optimizer states,

@@ -30,6 +30,7 @@ from repro_torch.convert import bind_stacked, stack_path
 from repro_torch.core.blocks import (Sharded, add_into, assign, gather,
                                      is_sharded, position_bytes, relayout,
                                      shard)
+from repro_torch.core.model_axis import COUNTS as MODEL_AXIS_COUNTS
 from repro_torch.core.model_axis import ModelSplit
 from repro_torch.launch.mesh import check_mesh
 from repro_torch.models.registry import build_model
@@ -300,10 +301,11 @@ def make_train_step(model, optimizer, cfg: ArchConfig, shape: ShapeConfig,
     loss are taken over a whole micro-batch, as in the reference;
     ``n_micro % W != 0`` raises ``ValueError``.  Each shard computes on
     its M positions along "model" (:func:`position_members`: the weights
-    ``model.split_regions`` splits, attention by heads, the dense FFN by
-    hidden columns and an untied head by vocab columns, each position its
-    region; every other weight whole on the shard's first position,
-    whose device holds the activations).  Each layer's weights are
+    ``model.split_regions`` splits, attention by heads, the dense FFN and
+    llama4's shared expert by hidden columns, the MoE experts by expert
+    and an untied head by vocab columns, each position its region; every
+    other weight whole on the shard's first position, whose device holds
+    the activations).  Each layer's weights are
     gathered onto the positions' devices inside its checkpointed call
     (:func:`~repro_torch.models.lm.gathered_call`), so the backward's
     recompute gathers again and no layer's copies outlive its forward or
@@ -335,7 +337,8 @@ def make_train_step(model, optimizer, cfg: ArchConfig, shape: ShapeConfig,
     most layers whose copies were alive at once and the copies alive
     after the backward (``live_after``); the positions' totals (their
     maximum for ``max_live_layers``, the bytes copied on each distinct
-    device for ``gathered_bytes``); and ``from_model``'s calls and bytes
+    device for ``gathered_bytes``); and the calls and bytes of
+    ``from_model``, ``split_model`` and ``concat_model``
     (:class:`~repro_torch.core.model_axis.ModelSplit`)."""
     devices = [model.device] if mesh is None else batch_devices(
         check_mesh(mesh))
@@ -409,7 +412,7 @@ def _mesh_step(optimizer, cfg, shape, plan, compress_fn, mesh, stats,
     gdtype = getattr(torch, plan.grad_dtype)
     stats.clear()
     stats.update(gathers=0, gathered_bytes=0, max_live_layers=0,
-                 live_after=0, from_model_adds=0, from_model_bytes=0)
+                 live_after=0, **dict.fromkeys(MODEL_AXIS_COUNTS, 0))
     if blocked:
         acc = grad_accumulator(params, mesh, gdtype)
         stats["accumulator_bytes"] = position_bytes(acc, mesh)

@@ -127,8 +127,9 @@ def test_a_training_cells_port_figure_is_the_sharded_trainers():
                                         ("gemma3-12b", True)])
 def test_what_a_training_cell_leaves_whole_is_gathered_whole(arch, split):
     """llama4's 40 heads on a "model" axis of 16 compute their attention
-    whole, and whisper's blocks and head wait for their slice: a
-    position's largest layer holds those leaves whole.  gemma3's 16 heads
+    whole (its experts split, 8 a position), and whisper's blocks and
+    head wait for their slice: a position's largest layer holds those
+    leaves whole.  gemma3's 16 heads
     split (one query head and its kv head a position), its tied head is
     the replicated table, so nothing is gathered once a step."""
     cfg = get_config(arch)
@@ -143,6 +144,32 @@ def test_what_a_training_cell_leaves_whole_is_gathered_whole(arch, split):
         assert port["gathered_once"] == 0
     else:
         assert port["gathered_layer"] >= attn
+
+
+@pytest.mark.parametrize("arch", ["dbrx-132b", "llama4-maverick-400b-a17b"])
+def test_a_training_cells_gathered_moe_layer_holds_its_experts(arch):
+    """dbrx-132b and llama4 at train_4k on 16 x 16: a data shard's first
+    "model" position copies, for its largest layer, its E / 16 experts of
+    ``moe.we1``, ``moe.we3``, ``moe.we2`` (bf16, whole along d and d_ff),
+    its attention (dbrx: 3 query heads and the one kv head they read;
+    llama4's 40 heads whole), llama4's shared expert's d_ff / 16 columns
+    and the f32 router (d, E) whole; the head's Vp / 16 columns once a
+    step."""
+    cfg = get_config(arch)
+    mem = dryrun.account(cfg, SHAPES["train_4k"],
+                         production_mesh_shape())["memory"]
+    port, sharded = mem["port_per_device"], mem["sharded_per_device"]
+    d, f, e, dh, m = (cfg.d_model, cfg.d_ff, cfg.n_experts, cfg.dh, 16)
+    h, kv = cfg.n_heads, cfg.n_kv_heads
+    if h % m == 0:
+        attn = 2 * d * (h // m) * dh + 2 * d * max(1, h // m * kv // h) * dh
+    else:
+        attn = 2 * d * h * dh + 2 * d * kv * dh
+    shared = 3 * d * f // m if arch.startswith("llama4") else 0
+    layer = 2 * (attn + 3 * (e // m) * d * f + shared) + 4 * d * e
+    assert port["gathered_layer"] == layer
+    assert port["gathered_once"] == 2 * d * cfg.padded_vocab // m
+    assert port["total"] == sharded["total"] + layer + port["gathered_once"]
 
 
 def test_the_meta_branch_gives_the_plain_versions_shapes():

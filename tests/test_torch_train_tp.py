@@ -1,7 +1,9 @@
 """The sharded train step's compute over the "model" axis, on the CPU in
-f32: attention by heads, the dense SwiGLU FFN by hidden columns (their
-output projections' partial products added in mesh order) and the
-vocab-parallel head and loss.
+f32: attention by heads, the dense SwiGLU FFN and llama4's shared expert
+by hidden columns (their output projections' partial products added in
+mesh order), the MoE experts by expert (each position its E/M experts
+on its slice of the dispatch block) and the vocab-parallel head and
+loss.
 
 The oracle is the JAX package's own GSPMD step: its jitted train step on
 a 2 x 2 ("data", "model") mesh of 4 host devices, in one subprocess for
@@ -11,7 +13,9 @@ that state carried across is held at ``test_torch_train_dp.py``'s
 Adafactor rule (loss rtol 1e-6; parameters rtol 1e-5, atol 1e-6;
 factored moments rtol 1e-4).  The cases the reference's configs do not
 reach (kv heads read across blocks, heads the axis does not divide) are
-held against the port's one-device step at the same rule."""
+held against the port's one-device step at the same rule, as are
+experts the axis does not divide (computed whole) beside llama4's
+shared expert split by columns."""
 import dataclasses
 import os
 import pickle
@@ -40,7 +44,7 @@ from test_torch_train import LR, _compare_step
 
 ROOT = Path(__file__).resolve().parents[1]
 SEQ, BATCH, N_MICRO, CHUNK = 16, 8, 4, 8
-REF_ARCHS = ["llama3-8b", "dbrx-132b"]
+REF_ARCHS = ["llama3-8b", "dbrx-132b", "llama4-maverick-400b-a17b"]
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -155,6 +159,40 @@ def test_the_model_axis_step_matches_the_reference_gspmd_step(gspmd, arch):
         before, device="cpu"), mesh), batch)
     assert step.stats["from_model_adds"] > 0
     _compare_step("adafactor", before, after, met, _gathered(got), gmet)
+    if cfg.family == "moe":     # the experts really split: E/M a position
+        _assert_moe_positions(cfg, step.stats, 2)
+        assert step.stats["split_model_calls"] > 0
+        assert step.stats["concat_model_calls"] > 0
+
+
+def _moe_layer_bytes(cfg, ways: int, experts_split: bool = True) -> tuple:
+    """(the f32 bytes a "model" position copies of one reduced MoE layer,
+    its data shard's first position's extra): its heads' columns and rows
+    of the attention, its E/M experts (all E on the first position where
+    they compute whole), llama4's shared expert's d_ff/M columns of
+    ``moe.w1``, ``moe.w3`` and rows of ``moe.w2``; the first position
+    also copies the router (d, E), split over "data"."""
+    d, f, e, dh = cfg.d_model, cfg.d_ff, cfg.n_experts, cfg.dh
+    hm = cfg.n_heads // ways
+    kvm = max(1, hm * cfg.n_kv_heads // cfg.n_heads)
+    layer = 2 * d * hm * dh + 2 * d * kvm * dh
+    expert = 3 * d * f
+    if cfg.name.startswith("llama4"):
+        layer += expert // ways
+    first = d * e
+    if experts_split:
+        layer += e // ways * expert
+    else:
+        first += e * expert
+    return 4 * layer, 4 * first
+
+
+def _assert_moe_positions(cfg, stats, ways: int, experts_split=True):
+    layer, first = _moe_layer_bytes(cfg, ways, experts_split)
+    for p in stats["positions"]:
+        extra = first if p["position"] % ways == 0 else 0
+        assert _layer_bytes(p) == {layer + extra}, p
+        assert p["max_live_layers"] == 1 and p["live_after"] == 0
 
 
 # ---------------------------------------------------------------------------
@@ -259,6 +297,22 @@ def test_heads_the_model_axis_does_not_divide_are_computed_whole():
     for p in stats["positions"]:
         first = p["position"] % 2 == 0
         assert _layer_bytes(p) == {ffn + attn if first else ffn}, p
+
+
+@pytest.mark.parametrize("arch", ["dbrx-132b", "llama4-maverick-400b-a17b"])
+def test_experts_the_model_axis_does_not_divide_are_computed_whole(arch):
+    """Three experts on a "model" axis of 2: the experts are gathered
+    whole and computed on each data shard's first position, with no
+    ``split_model`` or ``concat_model``; attention, the head and
+    llama4's shared expert (by its hidden columns, at the dense FFN's
+    rule) still split."""
+    cfg = dataclasses.replace(get_config(arch).reduced(), n_experts=3)
+    assert "moe.we1" not in lm.AttnBlock(cfg, torch.float32, "meta",
+                                         moe=True).split_regions(2)
+    stats = _against_one_device(cfg, make_host_mesh(2, 2, device="cpu"))
+    _assert_moe_positions(cfg, stats, 2, experts_split=False)
+    assert stats["split_model_calls"] == stats["concat_model_calls"] == 0
+    assert stats["from_model_adds"] > 0
 
 
 def test_head_split_reads_the_kv_heads_of_its_queries():

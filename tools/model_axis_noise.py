@@ -19,9 +19,24 @@ relative Frobenius distance to the one-device step's, for:
   whole (``products_whole``: what is left is the collectives and the
   per-position attention).
 
-Run it on the card (about 3 minutes)::
+At ``chip_smoke.py``'s MoE configuration (dbrx-132b at full width, 1
+of its 40 layers, bf16 from seed 0, Adafactor with bf16 gradients, 8 x
+512 tokens; ``chip_smoke.train_moe_one_device``) it measures each leaf's
+Adafactor second moments (``vr``, ``vc``, ``v``: the squared gradient's
+row and column means after the first step) by their relative Frobenius
+distance to the one-device step's, and the largest parameter difference
+in units of lr, for:
 
-    python3 tools/model_axis_noise.py [OUT]
+* ``dbrx_one_ulp``: the one-device step with one ``attn.wq`` entry moved
+  by one bf16 ulp;
+* ``dbrx_experts_only``: the sharded step on the 2 x 2 mesh with only the
+  experts split over "model" (``chip_smoke.train_moe_sharded``);
+* ``dbrx_full``: the same step with the experts, attention and the head
+  split.
+
+Run it on the card (about 3 minutes for llama, 2 for dbrx)::
+
+    python3 tools/model_axis_noise.py [--only llama|dbrx] [OUT]
 
 It prints one JSON line a case and writes them all to ``OUT`` (default
 ``build/model_axis_noise.json``).
@@ -87,8 +102,54 @@ def one_device_m(cfg, dtype: str, nudge: bool) -> dict:
     return m
 
 
+def dbrx_cases(record) -> None:
+    """The MoE configuration's cases (the module docstring), each
+    recorded as its second moments' distances and its largest parameter
+    difference in lr."""
+    _, base = cs.train_moe_one_device()
+    torch.cuda.empty_cache()
+    _, nudged = cs.train_moe_one_device(nudge=True)
+    nudged_drops = nudged["drops"]
+    torch.cuda.empty_cache()
+    rows = cs.moe_sharded_vs_one_device(
+        {k: tree_on_card(nudged["state"][k]) for k in ("params", "opt")},
+        base["state"], base["lr"])
+    del nudged
+    record("dbrx_one_ulp", rows["moment_rel_errs"],
+           param_err_lr=rows["param_err_lr"], param_leaf=rows["param_leaf"],
+           drops=nudged_drops, drops_one_device=base["drops"])
+    seen = {}
+    real = cs.moe_sharded_vs_one_device
+
+    def capture(state, kept_state, lr, *limits):
+        seen.update(real(state, kept_state, lr, *limits))
+        return seen
+
+    cs.moe_sharded_vs_one_device = capture
+    try:
+        for name, experts_only in (("dbrx_experts_only", True),
+                                   ("dbrx_full", False)):
+            fields = cs.train_moe_sharded(base, experts_only=experts_only)
+            record(name, dict(seen["moment_rel_errs"]),
+                   param_err_lr=seen["param_err_lr"],
+                   param_leaf=seen["param_leaf"],
+                   drops=fields["drops"], drops_one_device=base["drops"])
+            torch.cuda.empty_cache()
+    finally:
+        cs.moe_sharded_vs_one_device = real
+
+
+def tree_on_card(t):
+    """A host tree of tensors copied onto the card."""
+    from repro_torch import tree
+    return tree.map_(lambda x: x.to("cuda"), t)
+
+
 def main(argv=None):
     argv = sys.argv[1:] if argv is None else argv
+    only = None
+    if argv[:1] == ["--only"]:
+        only, argv = argv[1], argv[2:]
     out = Path(argv[0] if argv else ROOT / "build" / "model_axis_noise.json")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -100,19 +161,31 @@ def main(argv=None):
                           "--format=csv,noheader"], capture_output=True,
                          text=True).stdout.strip()
     print("card:", smi, flush=True)
-    build.build(["lloyd", "assign", "centroid"])
     failed = []
     cs.check = lambda cond, what: cond or failed.append(what[:400])
+    cases = []
+
+    def record(name, rows, **more):
+        cases.append(dict(case=name, max=max(rows.values()),
+                          leaf=max(rows, key=rows.get), **more, rows=rows))
+        print(json.dumps(cases[-1]), flush=True)
+
+    def write():
+        out.parent.mkdir(parents=True, exist_ok=True)
+        out.write_text(json.dumps(
+            dict(card=smi, cases=cases, full_phase_failures=failed),
+            indent=1))
+
+    if only != "llama":
+        dbrx_cases(record)
+        write()
+        if only == "dbrx":
+            return
+    build.build(["lloyd", "assign", "centroid"])
     _, base = cs.train_one_device()
     kept = base["state"]["opt"]["m"]
     cfg = dataclasses.replace(get_config("llama3-8b"),
                               n_layers=cs.TRAIN_LAYERS)
-    cases = []
-
-    def record(name, rows):
-        cases.append(dict(case=name, max=max(rows.values()),
-                          leaf=max(rows, key=rows.get), rows=rows))
-        print(json.dumps(cases[-1]), flush=True)
 
     record("f32", moments_against(one_device_m(cfg, "float32", False), kept))
     torch.cuda.empty_cache()
@@ -170,9 +243,7 @@ def main(argv=None):
         lm.DecoderLM.split_regions, lm.AttnBlock.split_regions = regions
         lm.over_rows, lm.over_columns = products
         cs.sharded_vs_one_device = real
-    out.parent.mkdir(parents=True, exist_ok=True)
-    out.write_text(json.dumps(
-        dict(card=smi, cases=cases, full_phase_failures=failed), indent=1))
+    write()
 
 
 if __name__ == "__main__":
