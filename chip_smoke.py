@@ -3041,12 +3041,14 @@ SHARDED_LOSS_RTOL, SHARDED_NORM_RTOL = 1e-3, 1e-2
 SHARDED_MOMENT_REL = 1e-2
 
 
-def sharded_vs_one_device(state, kept, lr: float) -> dict:
+def sharded_vs_one_device(state, kept, lr: float,
+                          moment_rel: float = SHARDED_MOMENT_REL) -> dict:
     """Each leaf of the sharded ``state``, gathered on the card, against
     ``kept`` (the host copy of the one-device step's): each first
     moment's relative Frobenius error, the largest and its leaf, the
     largest parameter difference in units of lr and its leaf, and the
-    keys of the leaves outside the rule."""
+    keys of the leaves outside the rule (the moments within
+    ``moment_rel``, the parameters within 2 lr plus one ulp)."""
     from repro_torch import tree
     out = dict(moment_rel_err=0.0, moment_leaf=None, param_err_lr=0.0,
                param_leaf=None, moment_rel_errs={}, outside=[])
@@ -3057,7 +3059,7 @@ def sharded_vs_one_device(state, kept, lr: float) -> dict:
         out["moment_rel_errs"][tree.key_of(path)] = rel
         if rel > out["moment_rel_err"]:
             out.update(moment_rel_err=rel, moment_leaf=tree.key_of(path))
-        if not rel <= SHARDED_MOMENT_REL:
+        if not rel <= moment_rel:
             out["outside"].append("opt/m/" + tree.key_of(path))
     for path, s in tree.items(state["params"]):
         a = on_card(s)
@@ -3688,6 +3690,294 @@ def train_moe_phase() -> dict:
                   seconds=time.perf_counter() - t0)
     emit("train_moe_sharded", **fields)
     return fields
+
+
+# xlstm-1.3b (arXiv:2405.04517: d 2048, 4 heads, mLSTM heads of 1024 on di
+# 4096 and sLSTM heads of 512, vocab 50,304 padded to 50,432) with one of
+# its 6 superblocks (7 mLSTM and 1 sLSTM, 8 of its 48 layers) and
+# zamba2-2.7b (arXiv:2411.15242: d 2560, Mamba2 blocks of 80 heads of 64
+# with a 64-wide state, the shared attention block of 32 heads of 80 and
+# d_ff 10,240, vocab 32,000) with one of its 6 superblocks (9 Mamba2
+# layers and the shared block): from seed 0, AdamW with f32 master
+# weights (the reference's plan for both), 8 x 512 tokens in 2
+# micro-batches with remat, in bf16 (the models' type) and again in f32
+# (the same seed-0 draws).  The depth is cut for the script's time: the
+# sLSTM is a loop of 512 steps a micro-batch, run once on each position
+# that holds its heads.  On the 2 x 2 mesh each data shard computes the
+# recurrent blocks by heads over its two "model" positions (xlstm: 2 of 4
+# heads a position in each mLSTM and the sLSTM; zamba2: 40 of 80 Mamba2
+# heads), the shared attention by heads, the FFN and the head by columns
+RECURRENT_TRAIN_LAYERS = {"xlstm-1.3b": 8, "zamba2-2.7b": 9}
+# each type and whether its steps are profiled and timed (the f32 steps
+# are a check only)
+RECURRENT_TRAIN_DTYPES = {"bfloat16": True, "float32": False}
+# The 2 x 2 step against the one-device step in the same type: the loss
+# and the gradient norm at relative errors ``loss`` and ``norm``, each
+# leaf's AdamW first moment (the gradient times 1 - beta1) within a
+# relative Frobenius error ``moment``, each parameter within 2 lr plus
+# one ulp (AdamW's first step moves an entry by about lr, so a flipped
+# sign of a near-zero gradient moves it 2 lr).  Each limit is twice what
+# tools/model_axis_noise.py measured for the same step on an H100
+# (NVIDIA H100 80GB HBM3, 700 W; PERF.md section 6), rounded up, and
+# no less than 1e-6 (some f32 ulps) where the reading was 0.  In bf16
+# these random-weight recurrent models carry any change of rounding far
+# into their gradients (one bf16 ulp of one mLSTM wq entry moved xlstm's
+# first moments 8.9%, one Mamba2 in_proj entry zamba2's 2.0%; the step
+# read loss 9.2e-5 and 2.3e-5, norm 1.8e-3 and 1.8e-5, moments 12.3% and
+# 2.8%), so the bf16 step is the smoke and the f32 step the discriminating
+# check (loss 8.4e-8 and 0, norm 1.6e-6 and 0, moments 0.21% and 0.0022%)
+REC_LIMITS = {
+    ("xlstm-1.3b", "bfloat16"): dict(loss=2e-4, norm=4e-3, moment=0.25),
+    ("zamba2-2.7b", "bfloat16"): dict(loss=5e-5, norm=4e-5, moment=0.06),
+    ("xlstm-1.3b", "float32"): dict(loss=1e-6, norm=4e-6, moment=5e-3),
+    ("zamba2-2.7b", "float32"): dict(loss=1e-6, norm=1e-6, moment=5e-5),
+}
+
+
+def recurrent_train_setup(arch: str, dtype: str):
+    """(config, shape, plan, batch) of the recurrent training phase for
+    ``arch`` in ``dtype``."""
+    from repro_torch.configs import ShapeConfig, get_config
+    from repro_torch.data import token_stream
+    from repro_torch.train.step import TrainPlan
+    cfg = dataclasses.replace(get_config(arch), dtype=dtype,
+                              n_layers=RECURRENT_TRAIN_LAYERS[arch])
+    shape = ShapeConfig("train_8x512", TRAIN_SEQ, TRAIN_BATCH, "train")
+    plan = TrainPlan(optimizer="adamw", n_micro=TRAIN_MICRO, q_chunk=512,
+                     remat=True)
+    return cfg, shape, plan, token_stream(0, TRAIN_BATCH, TRAIN_SEQ,
+                                          cfg.vocab, seed=0)
+
+
+def recurrent_step(fn, profile: bool):
+    """(``fn()``, the first step's fields): with ``profile`` its profile
+    (:func:`profiled_once`), else only its wall seconds."""
+    if profile:
+        out, prof = profiled_once(fn)
+        return out, dict(first_step_s=prof["profiled_wall_s"],
+                         device_busy_s=prof["device_busy_s"],
+                         device_launches=prof["device_launches"],
+                         step_profile=prof)
+    wall, out = timed_s(fn)
+    return out, dict(first_step_s=wall)
+
+
+def warm_fields(first: dict, warm_s: float) -> dict:
+    """The warm step's fields: its seconds, the idle share of the first
+    step's busy time in it, tokens/s."""
+    return dict(warm_step_s=warm_s,
+                idle_share=max(0.0, 1.0 - first["device_busy_s"] / warm_s),
+                tokens_per_s=TRAIN_BATCH * TRAIN_SEQ / warm_s)
+
+
+def train_recurrent_one_device(arch: str, dtype: str, profile: bool):
+    """The one-device AdamW step of the recurrent phase for ``arch`` in
+    ``dtype`` on a whole seed-0 state: a first step (with ``profile``
+    profiled, then a warm step timed) whose loss, norm and state are kept
+    on the host; the card freed.  -> (the emitted fields, the baseline
+    :func:`train_recurrent_sharded` is held against)."""
+    import gc
+    from repro_torch import tree
+    from repro_torch.optim import AdamW
+    from repro_torch.train.step import make_train_step
+
+    cfg, shape, plan, batch = recurrent_train_setup(arch, dtype)
+    opt = AdamW(master_weights=True)
+    model, state = whole_train_state(cfg, opt)
+    one = make_train_step(model, opt, cfg, shape, plan)
+    torch.cuda.reset_peak_memory_stats()
+    (state, met), first = recurrent_step(lambda: one(state, batch), profile)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    check(np.isfinite(float(met["loss"])), f"{arch} one device: loss")
+    baseline = dict(loss=met["loss"].cpu(), grad_norm=met["grad_norm"].cpu(),
+                    lr=opt.lr, state=tree.map_(host_copy, state))
+    fields = dict(
+        arch=cfg.name, dtype=dtype, layers=cfg.n_layers,
+        n_params=sum(t.numel() for t in tree.leaves(state["params"])),
+        plan=dataclasses.asdict(plan), batch=[TRAIN_BATCH, TRAIN_SEQ],
+        loss=float(baseline["loss"]), grad_norm=float(baseline["grad_norm"]),
+        peak_gb=peak_gb, **first)
+    if profile:
+        warm_s, (state, met) = timed_s(lambda: one(state, batch))
+        check(np.isfinite(float(met["loss"])),
+              f"{arch} one device: warm loss")
+        fields.update(warm_fields(first, warm_s))
+    del state, met, model, one
+    gc.collect()
+    torch.cuda.empty_cache()
+    return fields, baseline
+
+
+def recurrent_position_blocks(cfg, n_model: int) -> tuple[int, int, int]:
+    """(the bytes a "model" position copies of one superblock's recurrent
+    layers, the extra its data shard's first position copies, the bytes
+    a position copies once a step), from the shapes, with M dividing the
+    heads; ``w`` bytes an entry of the model's type, 4 of an f32 leaf.
+    xlstm: each mLSTM's H / M heads' columns of ``wq``, ``wk``, ``wv``,
+    ``up2`` (w), ``wi``, ``wf`` (f32) and their rows of ``down``, the
+    sLSTM's heads' columns of ``wz`` ... ``wo``, slices of ``rz`` ...
+    ``ro`` and rows of ``down``; the first position also each mLSTM's
+    ``up1``.  zamba2: each Mamba2's nh / M heads' z, x and dt columns and
+    all of B and C of ``in_proj``, their x channels and B, C of ``conv``
+    (f32), their entries of ``A_log``, ``dt_bias``, ``D`` (f32) and rows
+    of ``out_proj``; once a step the shared attention's heads' columns
+    and rows and its FFN's d_ff / M columns and rows.  Both: the head's
+    Vp / M columns once a step."""
+    w = getattr(torch, cfg.dtype).itemsize
+    d, di, vp = cfg.d_model, 2 * cfg.d_model, cfg.padded_vocab
+    head = w * d * vp // n_model
+    if cfg.family == "ssm":
+        h = cfg.n_heads
+        cm, sd = di // n_model, d // n_model
+        mlstm = w * (3 * di * cm + 2 * d * cm) + 4 * 2 * di * (h // n_model)
+        slstm = w * (4 * d * sd + 4 * (h // n_model) * (d // h) ** 2
+                     + sd * d)
+        return (cfg.mlstm_per_slstm * mlstm + slstm,
+                cfg.mlstm_per_slstm * w * d * di, head)
+    ds, hm = cfg.ssm_state, di // 64 // n_model
+    xm = 64 * hm
+    mamba = (w * d * (2 * xm + 2 * ds + hm) + 4 * 4 * (xm + 2 * ds)
+             + 4 * 3 * hm + w * xm * d)
+    cols = cfg.n_heads // n_model * cfg.dh
+    shared = w * (4 * d * cols + 3 * d * cfg.d_ff // n_model)
+    return cfg.mamba_per_attn * mamba, 0, shared + head
+
+
+def train_recurrent_sharded(arch: str, dtype: str, baseline: dict,
+                            profile: bool) -> dict:
+    """The sharded trainer at the recurrent phase's configuration for
+    ``arch`` in ``dtype`` on ``make_host_mesh(2, 2, device="cuda")``
+    (``cuda:0`` four times).  ``Trainer.init_state`` from seed 0, one step
+    on the one-device step's batch held against ``baseline``
+    (:func:`train_recurrent_one_device`) under ``REC_LIMITS``; each
+    position's bytes against ``sharding.shard_bytes``; each position's
+    gathered layer against :func:`recurrent_position_blocks`, none alive
+    after the step; the recurrent blocks' row products among
+    ``from_model_adds``.  With ``profile`` the first step is profiled
+    (its device-busy time and launches), then a warm step timed.  -> the
+    fields."""
+    import gc
+    from repro_torch import tree
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.optim import AdamW
+    from repro_torch.train import sharding as sh
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+
+    what = f"{arch} {dtype} sharded"
+    limits = REC_LIMITS[arch, dtype]
+    cfg, shape, plan, batch = recurrent_train_setup(arch, dtype)
+    tc = TrainerConfig(steps=1, ckpt_dir=str(ROOT / "build" / "unused"),
+                       seed=0)
+    mesh = make_host_mesh(*SHARDED_MESH, device="cuda")
+    tr = Trainer(cfg, shape, mesh, tc, plan=plan)
+    opt = tr.optimizer
+    check(isinstance(opt, AdamW) and opt.master_weights
+          and opt.lr == baseline["lr"], f"{what}: not the one-device "
+          f"step's AdamW")
+    state = tr.init_state()
+    specs = tr.specs()
+    held = tr.position_bytes(state)
+    want = {k: sh.shard_bytes(state[k], specs[k], mesh)
+            for k in ("params", "opt")}
+    torch.cuda.reset_peak_memory_stats()
+    (state, met), first = recurrent_step(lambda: tr.train_step(state, batch),
+                                         profile)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    stats = dict(tr.train_step.stats)
+    gdtype = getattr(torch, plan.grad_dtype)
+    held["grad_accumulator"] = stats.pop("accumulator_bytes")
+    want["grad_accumulator"] = sh.shard_bytes(
+        tree.map_(lambda p: torch.empty(p.shape, dtype=gdtype,
+                                        device="meta"), state["params"]),
+        sh.grad_specs(state["params"], mesh), mesh)
+    bytes_ok = all(bool((held[k] == want[k]).all()) for k in want)
+    loss_err = abs(float(met["loss"]) - float(baseline["loss"])) / abs(
+        float(baseline["loss"]))
+    norm_err = abs(float(met["grad_norm"]) - float(baseline["grad_norm"])
+                   ) / abs(float(baseline["grad_norm"]))
+    rule = sharded_vs_one_device(state, baseline["state"], baseline["lr"],
+                                 limits["moment"])
+    rule_ok = (loss_err <= limits["loss"] and norm_err <= limits["norm"]
+               and not rule["outside"])
+    n_model = mesh.shape["model"]
+    layer, first_extra, once = recurrent_position_blocks(cfg, n_model)
+    firsts = {row[0][0] for row in sh.model_positions(mesh)}
+    positions = stats.pop("positions")
+    per_position_ok = all(
+        set(p["layer_bytes"].values())
+        == {layer + (first_extra if p["position"] in firsts else 0)}
+        and p["once_bytes"] == once
+        and p["gathers"] == 2 * p["micro_batches"]     # one superblock
+        and p["max_live_layers"] == 1 and p["live_after"] == 0
+        for p in positions)
+    # each recurrent block's row product in each micro-batch's forward and
+    # again in most of the remat recomputes (which stop after the last
+    # saved tensor they need)
+    n_blocks = (cfg.mlstm_per_slstm + 1 if cfg.family == "ssm"
+                else cfg.mamba_per_attn)
+    adds = stats["from_model_adds"]
+    adds_ok = adds >= TRAIN_MICRO * n_blocks
+    fields = dict(
+        arch=cfg.name, dtype=dtype, layers=cfg.n_layers, mesh=repr(mesh),
+        data_shards=len(sh.batch_devices(mesh)), model_ways=n_model,
+        plan=dataclasses.asdict(plan), batch=[TRAIN_BATCH, TRAIN_SEQ],
+        loss=float(met["loss"]), loss_one_device=float(baseline["loss"]),
+        loss_rel_err=loss_err, grad_norm=float(met["grad_norm"]),
+        grad_norm_one_device=float(baseline["grad_norm"]),
+        grad_norm_rel_err=norm_err, state=rule,
+        rule=dict(limits, param="2 lr + 1 ulp"),
+        bytes_per_position={
+            k: dict(held=held[k].tolist(), shard_bytes=int(want[k]))
+            for k in want},
+        bytes_equal_shard_bytes=bytes_ok, gather=stats,
+        positions=[dict(p, layer_bytes=sorted(set(
+            p["layer_bytes"].values()))) for p in positions],
+        position_layer_bytes=layer, first_position_extra=first_extra,
+        position_once_bytes=once, per_position_ok=per_position_ok,
+        recurrent_row_products=TRAIN_MICRO * n_blocks, adds_ok=adds_ok,
+        peak_gb=peak_gb, **first)
+    if not (bytes_ok and rule_ok and per_position_ok and adds_ok):
+        emit("train_recurrent_sharded_failed", **fields)
+    check(bytes_ok, f"{what}: bytes a position holds {held}, "
+          f"shard_bytes {want}")
+    check(rule_ok, f"{what}: loss {float(met['loss'])} against "
+          f"{float(baseline['loss'])}, norm {float(met['grad_norm'])} "
+          f"against {float(baseline['grad_norm'])}, limits {limits}, "
+          f"state {rule}")
+    check(per_position_ok, f"{what}: a position's gathers are not its "
+          f"regions ({layer} B a layer, {first_extra} B more on a shard's "
+          f"first, {once} B once), or gathered layers outlived their use: "
+          f"{fields['positions']}")
+    check(adds_ok, f"{what}: {adds} row-product adds, want at least "
+          f"{TRAIN_MICRO * n_blocks}")
+    if profile:
+        warm_s, (state, met) = timed_s(lambda: tr.train_step(state, batch))
+        check(np.isfinite(float(met["loss"])), f"{what}: warm loss")
+        fields.update(warm_fields(first, warm_s))
+    del state, met, tr
+    gc.collect()
+    torch.cuda.empty_cache()
+    return fields
+
+
+def train_recurrent_phase() -> dict:
+    """``train_recurrent_sharded``'s line: for xlstm-1.3b and zamba2-2.7b,
+    in bf16 and in f32, the one-device step and the 2 x 2 step against
+    it, and their seconds; the phase's seconds."""
+    t0 = time.perf_counter()
+    out = {}
+    for arch in RECURRENT_TRAIN_LAYERS:
+        for dtype, profile in RECURRENT_TRAIN_DTYPES.items():
+            t1 = time.perf_counter()
+            one, baseline = train_recurrent_one_device(arch, dtype, profile)
+            fields = train_recurrent_sharded(arch, dtype, baseline, profile)
+            del baseline
+            out.setdefault(arch, {})[dtype] = dict(
+                one_device=one, sharded=fields,
+                seconds=time.perf_counter() - t1)
+    emit("train_recurrent_sharded", **out,
+         seconds=time.perf_counter() - t0)
+    return out
 
 
 # whisper-base (arXiv:2212.04356) at full width and depth: 6 encoder and 6
@@ -4853,6 +5143,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     # dbrx-132b (1 of 40 layers): the experts over "model" (no kernel)
     train_moe_phase()
+    # xlstm-1.3b and zamba2-2.7b (one superblock each): the recurrent
+    # blocks over "model" (no kernel)
+    train_recurrent_phase()
     comp_w = torch.ones(comp_x.shape[:2], device=comp_x.device)
     comp_c = landmark_init(comp_x, comp_w, COMPRESS_LEVELS)
     train_cases = [lloyd_parity("lloyd_compressor_head", comp_x, comp_w,

@@ -14,7 +14,12 @@ a mesh names ``cuda:0`` several times.  :func:`shard` cuts a whole leaf
 into its blocks, :func:`gather` puts one back together on a device by
 copies alone (exact), :func:`add_into` adds a whole gradient into a
 layout's blocks on their devices, and :func:`position_bytes` counts what
-each position holds.  A mesh here is a
+each position holds.  A *region* of a leaf (what a "model" position
+reads of it) has one entry a dim: a slice, or a tuple of slices, the
+ranges of that dim taken in order and concatenated (Mamba2's
+``in_proj``: its heads' ``z`` columns, their ``x`` columns, ``B``,
+``C`` and their ``dt`` columns); :func:`gather` and :func:`add_into`
+read and cut a region the same way.  A mesh here is a
 :class:`~repro_torch.launch.mesh.Mesh` (``axis_names``, a ``shape``
 dict and a ``devices`` array).
 """
@@ -54,6 +59,32 @@ def _overlap(a: tuple, b: tuple):
             return None
         out.append(slice(lo, hi))
     return tuple(out)
+
+
+def _ranges(entry) -> tuple:
+    """The ranges (slices) of one region entry, in order."""
+    return entry if isinstance(entry, tuple) else (entry,)
+
+
+def region_shape(region: tuple) -> list:
+    """The shape of a region gathered: each dim the sum of its ranges."""
+    return [sum(r.stop - r.start for r in _ranges(e)) for e in region]
+
+
+def _pieces(region: tuple) -> list:
+    """(a part of the leaf, of plain slices; where it lies in the region
+    gathered) for each combination of the region's ranges (one, of no
+    slices, for a 0-d leaf)."""
+    pieces = [((), ())]
+    for entry in region:
+        at, grown = 0, []
+        for r in _ranges(entry):
+            where = slice(at, at + r.stop - r.start)
+            grown += [(part + (r,), within + (where,))
+                      for part, within in pieces]
+            at = where.stop
+        pieces = grown
+    return pieces
 
 
 def _within(sub: tuple, region: tuple) -> tuple:
@@ -195,22 +226,22 @@ def _read(s: Sharded, region: tuple, device, index: tuple = ()
     at ``index`` along the leading dims), copied from the blocks it
     overlaps."""
     k = len(index)
-    out = torch.empty([r.stop - r.start for r in region], dtype=s.dtype,
-                      device=device)
-    for key in s.keys():
-        src = s.region(key)[k:]
-        ov = _overlap(src, region)
-        if ov is not None:
-            out[_within(ov, region)].copy_(s.block(key, device)[index][
-                _within(ov, src)])
+    out = torch.empty(region_shape(region), dtype=s.dtype, device=device)
+    for part, at in _pieces(region):
+        for key in s.keys():
+            src = s.region(key)[k:]
+            ov = _overlap(src, part)
+            if ov is not None:
+                out[at][_within(ov, part)].copy_(s.block(key, device)[index][
+                    _within(ov, src)])
     return out
 
 
 def gather(s: Sharded, device, index: tuple = (), region=None
            ) -> torch.Tensor:
     """The leaf whole on ``device``, or its member at ``index`` along its
-    leading (stacking) dims, which no spec splits; with ``region`` (slices
-    of that member) only that part of it (a "model" position's columns or
+    leading (stacking) dims, which no spec splits; with ``region`` (of
+    that member) only that part of it (a "model" position's columns or
     rows, read over the blocks of every "data" position): its blocks
     copied into place, no arithmetic, so it is exact.  Where one block
     held on ``device`` is all of it (a leaf of one block, or a region
@@ -234,19 +265,22 @@ def gather(s: Sharded, device, index: tuple = (), region=None
 def add_into(s: Sharded, g: torch.Tensor, index: tuple = (), region=None
              ) -> None:
     """Add ``g`` (the whole leaf, or its member at ``index``; with
-    ``region``, that part of it) into each stored block of ``s``, the
-    part of it the block holds, on the block's device: the owners' adds
-    of a gradient into the accumulator."""
+    ``region``, that part of it, cut as :func:`gather` puts it together)
+    into each stored block of ``s``, the part of it the block holds, on
+    the block's device: the owners' adds of a gradient into the
+    accumulator."""
     k = len(index)
     if region is None:
         for key, dev, t in s.units():
             t[index].add_(g[s.region(key)[k:]].to(dev))
         return
-    for key, dev, t in s.units():
-        src = s.region(key)[k:]
-        ov = _overlap(src, region)
-        if ov is not None:
-            t[index][_within(ov, src)].add_(g[_within(ov, region)].to(dev))
+    for part, at in _pieces(region):
+        for key, dev, t in s.units():
+            src = s.region(key)[k:]
+            ov = _overlap(src, part)
+            if ov is not None:
+                t[index][_within(ov, src)].add_(
+                    g[at][_within(ov, part)].to(dev))
 
 
 def relayout(s: Sharded, like: Sharded) -> Sharded:

@@ -55,7 +55,7 @@ from repro_torch import tree
 from repro_torch.configs import (ARCH_IDS, SHAPES, ArchConfig, ShapeConfig,
                                  get_config, shape_applicable)
 from repro_torch.convert import stacked_params
-from repro_torch.core.blocks import ways
+from repro_torch.core.blocks import region_shape, ways
 from repro_torch.launch.mesh import production_mesh_shape
 from repro_torch.models.registry import build_model, cache_kind, input_specs
 from repro_torch.optim import get_optimizer
@@ -191,7 +191,7 @@ def _gathered_bytes(cfg, params, p_specs, mesh) -> tuple[int, int]:
     blocks, at the position that copies most (a data shard's first, which
     also computes what is left whole): (the largest layer's copies, the
     once-a-step leaves' copies).  A weight computed over "model" is read
-    in the position's region, its column or row block gathered over
+    in the position's region (its column or row ranges) gathered over
     "data" (:func:`~repro_torch.train.step.position_members`); one
     computed whole is read whole; a read that one block of the leaf's
     spec holds (a replicated leaf) is made in place, with no copy."""
@@ -206,11 +206,11 @@ def _gathered_bytes(cfg, params, p_specs, mesh) -> tuple[int, int]:
         spec = (spec + [None] * leaf.dim())[len(idx):leaf.dim()]
         region = region or tuple(slice(0, n) for n in shape)
         parts = [1 if ax is None else ways(ax, mesh) for ax in spec]
-        if all(r.stop - r.start == n // k and r.start % (n // k) == 0
+        if all(isinstance(r, slice) and r.stop - r.start == n // k
+               and r.start % (n // k) == 0
                for r, n, k in zip(region, shape, parts)):
             return 0
-        return math.prod(r.stop - r.start for r in region) * \
-            leaf.element_size()
+        return math.prod(region_shape(region)) * leaf.element_size()
 
     layer = [max((sum(copied(path, idx, region)
                       for _, path, idx, region in members[m])

@@ -117,6 +117,26 @@ def dot_column(x32: torch.Tensor, w: torch.Tensor,
     return _product(x32, w, out_f32)
 
 
+def over_columns(split, x: torch.Tensor, ws: list, out_f32: bool = False
+                 ) -> list:
+    """``x @ w_m`` on each "model" position m of ``split``, by its columns
+    ``ws[m]`` of a column-split weight (:func:`dot_column`): x goes to
+    every position as an f32 copy (``to_model``), so the positions' input
+    gradients are added unrounded and the sum is rounded once, by the
+    copy's cast, as the whole product's gradient is."""
+    return [dot_column(xm, w, out_f32)
+            for xm, w in zip(split.to_model(x.float()), ws)]
+
+
+def over_rows(split, xs: list, ws: list) -> torch.Tensor:
+    """The sum over the "model" positions of ``xs[m] @ ws[m]``, position
+    m's rows of a row-split weight: f32 partials (:func:`dot_partial`)
+    added in mesh order and rounded once to the activations' type
+    (``from_model``), on the first position's device."""
+    return split.from_model([dot_partial(xm, w) for xm, w in zip(xs, ws)],
+                            xs[0].dtype)[0]
+
+
 def rms_norm(x: torch.Tensor, scale: torch.Tensor,
              eps: float = 1e-5) -> torch.Tensor:
     """RMS norm in f32 with the ``1 + scale`` gain (zero-initialised

@@ -61,7 +61,11 @@ shard's first position, and:
   holds and computes the logits of the columns ``[m Vp/M, (m+1) Vp/M)``,
   and the loss is combined over the positions
   (:func:`~repro_torch.models.layers.vocab_parallel_cross_entropy`)
-  without forming whole logits.
+  without forming whole logits;
+* the recurrent blocks (:mod:`~repro_torch.models.ssm`): the mLSTM by
+  heads (by value columns of a head where the heads divide M), the sLSTM
+  by heads, Mamba2 by its 64-wide heads, each where M divides, its
+  output projection's f32 partials added as above.
 
 Each position's input arrives as an f32 copy (``to_model``), so its
 gradient reaches the positions' add unrounded, and the sum is rounded
@@ -88,8 +92,8 @@ from .attention import (AttnDims, attend_projected, attention,
                         attention_decode_clustered, attention_decode_window,
                         init_clustered_cache, init_kv_cache,
                         init_window_cache)
-from .layers import (cross_entropy, dot, dot_column, dot_f32, dot_partial,
-                     ninit_, param, rms_norm, rope_tables, swiglu,
+from .layers import (cross_entropy, dot, dot_f32, ninit_, over_columns,
+                     over_rows, param, rms_norm, rope_tables, swiglu,
                      swiglu_gate, vocab_parallel_cross_entropy)
 from .moe import moe_ffn, moe_ffn_decode
 from .ssm import Mamba2Block, MLSTMBlock, SLSTMBlock
@@ -157,13 +161,14 @@ def gathered_call(layer: nn.Module, gather, name: str, *args):
     the layer computes whole with on the data shard's device; and, where
     the layer computes over "model", one such dict a position of the
     weights split there, else ``None``).  The split weights reach each
-    :class:`AttnBlock` of the layer through the ``model_split`` of the
-    context, ``args``' last entry."""
+    block of the layer that names regions (``split_regions``: an
+    :class:`AttnBlock`, an mLSTM, sLSTM or Mamba2 block) through the
+    ``model_split`` of the context, ``args``' last entry."""
     params, parts = gather(name)
     if parts is not None:
         weights = {}
         for prefix, blk in layer.named_modules():
-            if not isinstance(blk, AttnBlock):
+            if not hasattr(blk, "split_regions"):
                 continue
             prefix = prefix + "." if prefix else ""
             own = [{k[len(prefix):]: t for k, t in part.items()
@@ -174,26 +179,6 @@ def gathered_call(layer: nn.Module, gather, name: str, *args):
         args = args[:-1] + (dict(ctx, model_split=ctx[
             "model_split"].with_weights(weights)),)
     return functional_call(layer, params, args)
-
-
-def over_columns(split, x: torch.Tensor, ws: list, out_f32: bool = False
-                 ) -> list:
-    """``x @ w_m`` on each "model" position m of ``split``, by its columns
-    ``ws[m]`` of a column-split weight (:func:`dot_column`): x goes to
-    every position as an f32 copy (``to_model``), so the positions' input
-    gradients are added unrounded and the sum is rounded once, by the
-    copy's cast, as the whole product's gradient is."""
-    return [dot_column(xm, w, out_f32)
-            for xm, w in zip(split.to_model(x.float()), ws)]
-
-
-def over_rows(split, xs: list, ws: list) -> torch.Tensor:
-    """The sum over the "model" positions of ``xs[m] @ ws[m]``, position
-    m's rows of a row-split weight: f32 partials (:func:`dot_partial`)
-    added in mesh order and rounded once to the activations' type
-    (``from_model``), on the first position's device."""
-    return split.from_model([dot_partial(xm, w) for xm, w in zip(xs, ws)],
-                            xs[0].dtype)[0]
 
 
 def swiglu_over_model(split, x: torch.Tensor, parts: list, prefix: str
@@ -719,13 +704,14 @@ class DecoderLM(nn.Module):
 
     def split_regions(self, n_model: int) -> dict:
         """``{parameter name: [region each of n_model "model" positions
-        computes with]}``: every attention block's
-        (:meth:`AttnBlock.split_regions`) and, for an untied head whose
-        padded vocabulary M divides, position m's ``Vp / M`` columns of
-        ``head`` (the vocab-parallel loss).  Everything else (the norms,
-        the embedding, a tied head, the MoE router, the recurrent blocks,
-        ``patch_proj``) is computed whole on the data shard's device.
-        Empty at M = 1."""
+        computes with]}``: every block's that names regions (an
+        attention block's, :meth:`AttnBlock.split_regions`; an mLSTM's,
+        an sLSTM's and a Mamba2's, :mod:`~repro_torch.models.ssm`) and,
+        for an untied head whose padded vocabulary M divides, position
+        m's ``Vp / M`` columns of ``head`` (the vocab-parallel loss).
+        Everything else (the norms, the embedding, a tied head, the MoE
+        router, the mLSTM's ``up1``, ``patch_proj``) is computed whole on
+        the data shard's device.  Empty at M = 1."""
         out: dict = {}
         cfg = self.cfg
         vp = cfg.padded_vocab
@@ -734,7 +720,7 @@ class DecoderLM(nn.Module):
                             slice(m * vp // n_model, (m + 1) * vp // n_model))
                            for m in range(n_model)]
         for name, blk in self.named_modules():
-            if isinstance(blk, AttnBlock):
+            if name and hasattr(blk, "split_regions"):
                 for rel, regions in blk.split_regions(n_model).items():
                     out[f"{name}.{rel}"] = regions
         return out

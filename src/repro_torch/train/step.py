@@ -247,11 +247,10 @@ def position_members(model, n_model: int) -> tuple[dict, list]:
 
 def _split_owner(model, name: str) -> tuple:
     """(the module a split unstacked parameter belongs to, its name
-    within it): the attention block it is in (zamba2's ``shared``), else
-    the model (``head``)."""
-    from repro_torch.models.lm import AttnBlock
+    within it): the block that names its region (zamba2's ``shared``),
+    else the model (``head``)."""
     for prefix, blk in model.named_modules():
-        if prefix and isinstance(blk, AttnBlock) and name.startswith(
+        if prefix and hasattr(blk, "split_regions") and name.startswith(
                 prefix + "."):
             return blk, name[len(prefix) + 1:]
     return model, name
@@ -302,8 +301,9 @@ def make_train_step(model, optimizer, cfg: ArchConfig, shape: ShapeConfig,
     ``n_micro % W != 0`` raises ``ValueError``.  Each shard computes on
     its M positions along "model" (:func:`position_members`: the weights
     ``model.split_regions`` splits, attention by heads, the dense FFN and
-    llama4's shared expert by hidden columns, the MoE experts by expert
-    and an untied head by vocab columns, each position its region; every
+    llama4's shared expert by hidden columns, the MoE experts by expert,
+    the mLSTM, sLSTM and Mamba2 blocks by heads and an untied head by
+    vocab columns, each position its region; every
     other weight whole on the shard's first position, whose device holds
     the activations).  Each layer's weights are
     gathered onto the positions' devices inside its checkpointed call
@@ -317,8 +317,9 @@ def make_train_step(model, optimizer, cfg: ArchConfig, shape: ShapeConfig,
     in mesh order, and the losses are summed in that order too.  With a
     "model" axis of 1 the loss and global gradient are therefore the
     one-device step's bit for bit for any ``n_micro`` that W divides;
-    over "model" the partial products of ``wo``, ``w2`` and the head are
-    added in another order (:mod:`repro_torch.core.model_axis`), as the
+    over "model" the partial products of the row-split weights (``wo``,
+    ``w2``, the recurrent blocks' ``down`` and ``out_proj``) and the
+    head are added in another order (:mod:`repro_torch.core.model_axis`), as the
     reference's GSPMD step adds them in its own.  The accumulator is in
     the blocks of ``grad_specs`` for a state in blocks (``embed``'s
     sharded although the table is replicated); a state of whole tensors

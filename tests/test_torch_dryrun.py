@@ -172,6 +172,39 @@ def test_a_training_cells_gathered_moe_layer_holds_its_experts(arch):
     assert port["total"] == sharded["total"] + layer + port["gathered_once"]
 
 
+def test_a_training_cells_gathered_recurrent_layer_holds_its_regions():
+    """xlstm-1.3b and zamba2-2.7b at train_4k on 16 x 16, from the shapes
+    (bf16 weights, f32 gates and conv).  zamba2: each of a superblock's 9
+    Mamba2 layers, its 5 of 80 heads: 773 columns of ``in_proj`` (their
+    z, x and dt columns, all of B and C), 448 rows of ``conv``, 5 entries
+    of ``A_log``, ``dt_bias``, ``D``, 320 rows of ``out_proj``.  xlstm (4
+    heads of 1024 on 16 positions: 256 value columns a position): each
+    of 7 mLSTMs, its head's whole 1024 columns of ``wq``, ``wk`` and
+    column of ``wi``, ``wf``, its own 256 columns of ``wv``, ``up2`` and
+    rows of ``down``, and on a data shard's first position ``up1``
+    whole; the sLSTM (4 heads on 16) whole there."""
+    for arch in ("zamba2-2.7b", "xlstm-1.3b"):
+        cfg = get_config(arch)
+        mem = dryrun.account(cfg, SHAPES["train_4k"],
+                             production_mesh_shape())["memory"]
+        port, sharded = mem["port_per_device"], mem["sharded_per_device"]
+        d, di = cfg.d_model, 2 * cfg.d_model
+        if arch.startswith("zamba2"):
+            mamba = 2 * (d * 773 + 320 * d) + 4 * (448 * 4 + 3 * 5)
+            layer = cfg.mamba_per_attn * mamba
+            assert layer == 50_430_492
+        else:
+            dh = di // cfg.n_heads
+            mlstm = (2 * (2 * di * dh + di * 256 + 2 * d * 256 + d * di)
+                     + 4 * 2 * di)
+            slstm = 2 * (4 * d * d + 4 * d * d // cfg.n_heads + d * d)
+            layer = cfg.mlstm_per_slstm * mlstm + slstm
+            assert layer == 314_802_176
+        assert port["gathered_layer"] == layer, arch
+        assert port["total"] == (sharded["total"] + layer
+                                 + port["gathered_once"])
+
+
 def test_the_meta_branch_gives_the_plain_versions_shapes():
     """Empty f32 ``meta`` outputs of the plain version's shapes, with no
     launch counted; the CPU still runs the plain version."""

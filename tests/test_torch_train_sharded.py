@@ -311,9 +311,9 @@ def test_sharded_step_is_the_one_device_step(arch, mesh_name):
     position no gathered layer outlives its forward or its backward: at
     every gather (forward and remat recompute) no other layer's copies
     are alive, and none after the step; a position gathers each layer
-    twice a micro-batch where it computes a part of it (every position of
-    the attention families, the first of each data shard where nothing
-    is split: xlstm's recurrent layers, zamba2's Mamba2 layers)."""
+    twice a micro-batch where it computes a part of it (every position:
+    the attention families' layers split by heads, xlstm's mLSTM and
+    sLSTM and zamba2's Mamba2 layers by heads too)."""
     cfg, mesh = _cfg(arch), _mesh(mesh_name)
     w, ways = sh.dp_size(mesh), _model_ways(mesh)
     for n_micro, clip in ((w, 0.0), (2 * w, 1.0)):
@@ -334,13 +334,11 @@ def test_sharded_step_is_the_one_device_step(arch, mesh_name):
                                {k: want[k] for k in ("params", "opt")}) == []
         assert int(got["step"]) == 1
         n_layers = len(build_model(cfg, device="meta").layers())
-        splits = arch not in ("xlstm-1.3b", "zamba2-2.7b")
         assert len(stats["positions"]) == mesh.devices.size
         for p in stats["positions"]:
-            lead = p["position"] % ways == 0
             gathers = 2 * n_layers * p["micro_batches"]     # remat
             assert p["micro_batches"] == n_micro // w
-            assert p["gathers"] == (gathers if lead or splits else 0), p
+            assert p["gathers"] == gathers, p
             assert p["max_live_layers"] == (1 if p["gathers"] else 0), p
             assert p["live_after"] == 0, p
         assert stats["max_live_layers"] == 1 and stats["live_after"] == 0

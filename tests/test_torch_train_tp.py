@@ -2,7 +2,8 @@
 f32: attention by heads, the dense SwiGLU FFN and llama4's shared expert
 by hidden columns (their output projections' partial products added in
 mesh order), the MoE experts by expert (each position its E/M experts
-on its slice of the dispatch block) and the vocab-parallel head and
+on its slice of the dispatch block), the recurrent blocks (xlstm's mLSTM
+and sLSTM, zamba2's Mamba2) by heads and the vocab-parallel head and
 loss.
 
 The oracle is the JAX package's own GSPMD step: its jitted train step on
@@ -44,7 +45,8 @@ from test_torch_train import LR, _compare_step
 
 ROOT = Path(__file__).resolve().parents[1]
 SEQ, BATCH, N_MICRO, CHUNK = 16, 8, 4, 8
-REF_ARCHS = ["llama3-8b", "dbrx-132b", "llama4-maverick-400b-a17b"]
+REF_ARCHS = ["llama3-8b", "dbrx-132b", "llama4-maverick-400b-a17b",
+             "xlstm-1.3b", "zamba2-2.7b"]
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -163,6 +165,11 @@ def test_the_model_axis_step_matches_the_reference_gspmd_step(gspmd, arch):
         _assert_moe_positions(cfg, step.stats, 2)
         assert step.stats["split_model_calls"] > 0
         assert step.stats["concat_model_calls"] > 0
+    if cfg.family in ("ssm", "hybrid"):     # every position computes a
+        for p in step.stats["positions"]:   # part of each recurrent layer
+            assert len(p["layer_bytes"]) == len(build_model(
+                cfg, device="meta").layers()), p
+            assert min(p["layer_bytes"].values()) > 0, p
 
 
 def _moe_layer_bytes(cfg, ways: int, experts_split: bool = True) -> tuple:

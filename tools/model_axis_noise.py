@@ -34,13 +34,40 @@ in units of lr, for:
 * ``dbrx_full``: the same step with the experts, attention and the head
   split.
 
-Run it on the card (about 3 minutes for llama, 2 for dbrx)::
+At ``chip_smoke.py``'s recurrent configurations (xlstm-1.3b and
+zamba2-2.7b at full width, one superblock each, bf16 from seed 0, AdamW
+with f32 master weights, 8 x 512 tokens;
+``chip_smoke.train_recurrent_one_device``) it measures each leaf's AdamW
+first moment against the one-device step's, the loss and gradient norm
+relative errors and the largest parameter difference in units of lr,
+for:
 
-    python3 tools/model_axis_noise.py [--only llama|dbrx] [OUT]
+* ``xlstm_one_ulp`` / ``zamba2_one_ulp``: the one-device step with one
+  entry of the first mLSTM's ``wq`` (the first Mamba2's ``in_proj``)
+  moved by one bf16 ulp;
+* ``xlstm_recurrent_only`` / ``zamba2_recurrent_only``: the sharded step
+  on the 2 x 2 mesh with only the recurrent blocks split over "model"
+  (``chip_smoke.train_recurrent_sharded`` with zamba2's shared attention
+  and the head computed whole, so its per-position byte check fails by
+  design and is listed under ``full_phase_failures``);
+* ``xlstm_full`` / ``zamba2_full``: the same step with the recurrent
+  blocks, zamba2's shared attention and the head split;
+* ``xlstm_full_f32`` / ``zamba2_full_f32``: that step and the one-device
+  step it is held against both in f32 (the weights the same seed-0 draws
+  in f32): how far the split carries where no bf16 rounding moves.
+
+``chip_smoke.REC_LIMITS`` are twice the ``*_full`` and ``*_full_f32``
+readings.
+
+Run it on the card (about 3 minutes for llama, 2 for dbrx, 2.5 for xlstm
+or zamba2)::
+
+    python3 tools/model_axis_noise.py [--only llama|dbrx|xlstm|zamba2] [OUT]
 
 It prints one JSON line a case and writes them all to ``OUT`` (default
 ``build/model_axis_noise.json``).
 """
+import contextlib
 import dataclasses
 import json
 import subprocess
@@ -53,6 +80,8 @@ sys.path.insert(0, str(ROOT / "src"))
 import torch  # noqa: E402
 
 import chip_smoke as cs  # noqa: E402
+
+REAL_WHOLE_TRAIN_STATE = cs.whole_train_state
 
 
 def moments_against(m, kept) -> dict:
@@ -139,6 +168,107 @@ def dbrx_cases(record) -> None:
         cs.moe_sharded_vs_one_device = real
 
 
+@contextlib.contextmanager
+def patched(obj, name: str, value):
+    """Within ``with``: ``obj.name`` is ``value``."""
+    real = getattr(obj, name)
+    setattr(obj, name, value)
+    try:
+        yield
+    finally:
+        setattr(obj, name, real)
+
+
+def recurrent_nudge(params) -> None:
+    """Move one entry of the first recurrent block's first product (the
+    mLSTM's ``wq``, the Mamba2's ``in_proj``), which every token's path
+    crosses, by one bf16 ulp."""
+    group = params["g_super"]
+    w = group["mlstm"]["wq"] if "mlstm" in group else group["mamba"][
+        "in_proj"]
+    w.view(torch.int16)[0, 0, 3, 5] += 1
+
+
+def nudged_state(cfg, opt):
+    """``chip_smoke.whole_train_state`` with :func:`recurrent_nudge`
+    applied to its parameters."""
+    model, state = REAL_WHOLE_TRAIN_STATE(cfg, opt)
+    recurrent_nudge(state["params"])
+    return model, state
+
+
+def recurrent_only_regions():
+    """Within ``with``: the models split only the recurrent blocks over
+    "model" (zamba2's shared attention and the head computed whole on
+    each data shard's first position)."""
+    from repro_torch.models import lm
+    regions = lm.DecoderLM.split_regions
+
+    def recurrent(self, n):
+        return {k: v for k, v in regions(self, n).items()
+                if any(b in k for b in (".mlstm.", ".slstm.", ".mamba."))}
+
+    stack = contextlib.ExitStack()
+    stack.enter_context(patched(lm.DecoderLM, "split_regions", recurrent))
+    stack.enter_context(patched(lm.AttnBlock, "split_regions",
+                                lambda self, n: {}))
+    return stack
+
+
+def recurrent_cases(arch: str, record, stage: list) -> None:
+    """The recurrent configuration's cases for ``arch`` (the module
+    docstring), each recorded as its first moments' distances, the loss
+    and norm errors and its largest parameter difference in lr; ``stage``
+    names the case being run."""
+    name = arch.split("-")[0]
+    bf16 = "bfloat16"
+    stage[:] = [f"{name}_one_device"]
+    _, base = cs.train_recurrent_one_device(arch, bf16, False)
+    torch.cuda.empty_cache()
+    stage[:] = [f"{name}_one_ulp"]
+    with patched(cs, "whole_train_state", nudged_state):
+        _, nudged = cs.train_recurrent_one_device(arch, bf16, False)
+    torch.cuda.empty_cache()
+    rows = cs.sharded_vs_one_device(
+        {k: tree_on_card(nudged["state"][k]) for k in ("params", "opt")},
+        base["state"], base["lr"])
+    record(f"{name}_one_ulp", rows["moment_rel_errs"],
+           param_err_lr=rows["param_err_lr"], param_leaf=rows["param_leaf"],
+           loss_rel_err=rel_err(nudged["loss"], base["loss"]),
+           grad_norm_rel_err=rel_err(nudged["grad_norm"], base["grad_norm"]))
+    del nudged
+    torch.cuda.empty_cache()
+    stage[:] = [f"{name}_recurrent_only"]
+    with recurrent_only_regions():
+        record_sharded(stage[0], cs.train_recurrent_sharded(
+            arch, bf16, base, False), record)
+    stage[:] = [f"{name}_full"]
+    record_sharded(stage[0], cs.train_recurrent_sharded(arch, bf16, base,
+                                                        False), record)
+    del base
+    torch.cuda.empty_cache()
+    stage[:] = [f"{name}_full_f32"]
+    _, base = cs.train_recurrent_one_device(arch, "float32", False)
+    torch.cuda.empty_cache()
+    record_sharded(stage[0], cs.train_recurrent_sharded(arch, "float32",
+                                                        base, False), record)
+
+
+def record_sharded(name: str, fields: dict, record) -> None:
+    """Record a recurrent sharded step's distances from its baseline."""
+    record(name, fields["state"]["moment_rel_errs"],
+           param_err_lr=fields["state"]["param_err_lr"],
+           param_leaf=fields["state"]["param_leaf"],
+           loss_rel_err=fields["loss_rel_err"],
+           grad_norm_rel_err=fields["grad_norm_rel_err"],
+           from_model_adds=fields["gather"]["from_model_adds"])
+    torch.cuda.empty_cache()
+
+
+def rel_err(a, b) -> float:
+    return abs(float(a) - float(b)) / abs(float(b))
+
+
 def tree_on_card(t):
     """A host tree of tensors copied onto the card."""
     from repro_torch import tree
@@ -161,8 +291,9 @@ def main(argv=None):
                           "--format=csv,noheader"], capture_output=True,
                          text=True).stdout.strip()
     print("card:", smi, flush=True)
-    failed = []
-    cs.check = lambda cond, what: cond or failed.append(what[:400])
+    failed, stage = [], ["dbrx"]
+    cs.check = lambda cond, what: cond or failed.append(
+        f"{stage[0]}: {what[:400]}")
     cases = []
 
     def record(name, rows, **more):
@@ -176,11 +307,16 @@ def main(argv=None):
             dict(card=smi, cases=cases, full_phase_failures=failed),
             indent=1))
 
-    if only != "llama":
+    if only in (None, "dbrx"):
         dbrx_cases(record)
         write()
-        if only == "dbrx":
-            return
+    for arch in ("xlstm-1.3b", "zamba2-2.7b"):
+        if only in (None, arch.split("-")[0]):
+            recurrent_cases(arch, record, stage)
+            write()
+    if only not in (None, "llama"):
+        return
+    stage[:] = ["llama"]
     build.build(["lloyd", "assign", "centroid"])
     _, base = cs.train_one_device()
     kept = base["state"]["opt"]["m"]
