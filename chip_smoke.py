@@ -49,13 +49,13 @@ after:
     and a forward with its capacity drops counted); internvl2-2b's forward
     and loss over 256 patches; and the kernels at the shapes only these
     models launch;
-  * the recurrent families at full width and depth: zamba2-2.7b served
-    the same way (one 256-token request; its shared attention on the
-    clustered cache at dh = 80, the refresh on 192 tensor-core lanes) and
-    xlstm-1.3b on its O(1) recurrent state (one 256-token request), each
-    one's forward over 2048 tokens, and its forward's logits against its
-    decode's (gated on an f32 copy), on a sound run and on a planted
-    fault;
+  * the recurrent families at full width: zamba2-2.7b at full depth
+    served the same way (one 256-token request; its shared attention on
+    the clustered cache at dh = 80, the refresh on 192 tensor-core lanes)
+    and xlstm-1.3b with 1 of its 6 superblocks on its O(1) recurrent state
+    (one 256-token request), each one's forward over 2048 tokens, and its
+    forward's logits against its decode's (gated on an f32 copy), on a
+    sound run and on a planted fault;
   * training: llama3-8b at full width with 2 of its 32 layers (bf16 from
     seed 0, AdamW with f32 master weights, 8 x 512 tokens in 2
     micro-batches with remat) through ``Trainer.run`` for 2 steps into a
@@ -2206,6 +2206,7 @@ GEMMA_FAULT_WINDOW = GEMMA_PARITY_WINDOW - 1
 MOE_LAYERS = 4
 MOE_FORWARD_LEN = 2048
 VLM_TEXT_LEN = 1024           # text tokens after the 256 patches
+VLM_PATCH_BATCH = 8           # the patch projection over "model"
 
 
 @contextlib.contextmanager
@@ -2436,24 +2437,59 @@ def vlm_forward():
     check(abs(float(loss) - float(text)) <= 1e-4 * abs(float(text)),
           f"the loss {float(loss)} is not the text positions' "
           f"{float(text)}")
+    patch_proj = vlm_patch_proj_over_model(model, g)
     emit("vlm_forward", arch=cfg.name,
          n_params=sum(p.numel() for p in model.parameters()),
          patches=cfg.n_patches, text_tokens=VLM_TEXT_LEN, batch=2,
          forward_s=fwd_s, tokens_per_s=2 * s_all / fwd_s, loss_s=loss_s,
-         loss=float(loss), log_vocab=float(np.log(cfg.vocab)))
+         loss=float(loss), log_vocab=float(np.log(cfg.vocab)),
+         patch_proj_over_model=patch_proj)
 
 
-# zamba2-2.7b (arXiv:2411.15242) and xlstm-1.3b (arXiv:2405.04517) at full
-# width and depth, weights from SERVE_SEED: one long_500k request each,
-# zamba2's shared attention on the clustered cache (dh = 80, one query head
-# a kv head), xlstm on its O(1) recurrent state
+def vlm_patch_proj_over_model(model, g) -> dict:
+    """internvl2-2b's patch embedding (``VLM_PATCH_BATCH`` x 256 patches,
+    d 2048, bf16) through ``embed_in`` with a 2-position ``ModelSplit`` on
+    the card (each position projects by its 1024 columns of
+    ``patch_proj``, the train step's regions), against ``embed_in``
+    whole: bit equality and the largest difference in bf16 ulps, held
+    within one ulp."""
+    from repro_torch.core.model_axis import ModelSplit
+    cfg = model.cfg
+    batch = {"tokens": torch.randint(0, cfg.vocab, (VLM_PATCH_BATCH, 16),
+                                     generator=g, device="cuda"),
+             "patches": torch.randn((VLM_PATCH_BATCH, cfg.n_patches,
+                                     cfg.d_model), generator=g,
+                                    device="cuda").bfloat16()}
+    regions = model.split_regions(2)["patch_proj"]
+    split = ModelSplit(["cuda:0"] * 2, {model: [
+        {"patch_proj": model.patch_proj[r].contiguous()} for r in regions]})
+    with torch.no_grad():
+        whole = model.embed_in(batch)
+        over = model.embed_in(batch, {"model_split": split})
+    out = dict(batch=VLM_PATCH_BATCH, columns_a_position=[
+        r[1].stop - r[1].start for r in regions],
+               bits_equal=bits_equal(over, whole),
+               max_ulp=ulp_gap(over, whole),
+               concat_model_calls=split.counts["concat_model_calls"])
+    check(out["max_ulp"] <= 1.0 and out["concat_model_calls"] == 1,
+          f"VLM patch_proj over 'model' against whole: {out}")
+    return out
+
+
+# zamba2-2.7b (arXiv:2411.15242) at full width and depth and xlstm-1.3b
+# (arXiv:2405.04517) at full width with XLSTM_SERVE_SUPERBLOCKS of its 6
+# superblocks (cut for the script's time: at 6 its request and forward
+# took 35.1 s on the H100), weights from SERVE_SEED: one long_500k request
+# each, zamba2's shared attention on the clustered cache (dh = 80, one
+# query head a kv head), xlstm on its O(1) recurrent state
+XLSTM_SERVE_SUPERBLOCKS = 1
 SSM_PROMPT_LEN = 256          # tokens per request (prefill by decode steps)
 SSM_FORWARD_LEN = 2048        # the timed forward's tokens (B = 1)
 SSM_PARITY_LEN = 64           # forward against decode, every position
 SSM_PARITY_CHUNK = 16         # the parity forward's recurrence chunk (4)
-# forward against decode at full width and depth, each position's largest
-# logit difference over its largest logit, gated in f32 (the same draws
-# from SERVE_SEED, unrounded): on the H100 the sound runs read at most
+# forward against decode, each position's largest logit difference over
+# its largest logit, gated in f32 (the same draws from SERVE_SEED,
+# unrounded): on the H100 at full depth the sound runs read at most
 # 5.6e-4 (xlstm) and 4.0e-6 (zamba2), the planted faults 0.51-1.29 at
 # every position after the first.  In bf16 the check cannot gate xlstm:
 # its forward and decode round their bf16 products differently (a 64-row
@@ -2517,20 +2553,23 @@ def serve_zamba_long_500k():
 
 
 def serve_xlstm_long_500k():
-    """xlstm-1.3b at full width and depth (6 superblocks of 7 mLSTM + 1
-    sLSTM blocks), bf16 from ``SERVE_SEED``, at ``long_500k`` on its O(1)
-    recurrent state (no attention cache, no refresh): one request of 256 +
-    32 tokens.  -> (requests, the model)."""
+    """xlstm-1.3b at full width with ``XLSTM_SERVE_SUPERBLOCKS`` of its 6
+    superblocks (7 mLSTM + 1 sLSTM blocks each), bf16 from
+    ``SERVE_SEED``, at ``long_500k`` on its O(1) recurrent state (no
+    attention cache, no refresh): one request of 256 + 32 tokens.  ->
+    (requests, the model)."""
     from repro_torch.configs import SHAPES, get_config
     from repro_torch.models import build_model, cache_kind
 
     cfg, shape = get_config("xlstm-1.3b"), SHAPES["long_500k"]
     check(cache_kind(cfg, shape) == "full", "xlstm's cache kind")
+    cfg = dataclasses.replace(cfg, n_layers=XLSTM_SERVE_SUPERBLOCKS * (
+        cfg.mlstm_per_slstm + 1))
     init_s, model = timed_s(lambda: build_model(cfg).init_params(SERVE_SEED))
     check(model.embed.dtype == torch.bfloat16, "weights are not bf16")
     n_super = len(model.layers())
-    check(n_super == 6 and all(len(sb.mlstm) == 7
-                               for sb in model.layers()),
+    check(n_super == XLSTM_SERVE_SUPERBLOCKS
+          and all(len(sb.mlstm) == 7 for sb in model.layers()),
           f"xlstm-1.3b built {n_super} superblocks")
     requests, answers, _, _ = serve_requests(
         cfg, shape, model, SSM_PROMPT_LEN, GEN_TOKENS, 1, 0)
@@ -2538,8 +2577,8 @@ def serve_xlstm_long_500k():
     cache = model.init_caches(1, shape, "full")["super"]
     emit("serve_xlstm_long_500k", arch=cfg.name, shape=shape.name,
          n_params=sum(p.numel() for p in model.parameters()),
-         layers=dict(superblocks=n_super, mlstm=cfg.mlstm_per_slstm,
-                     slstm=1),
+         layers=dict(superblocks=n_super, of_superblocks=6,
+                     mlstm=cfg.mlstm_per_slstm, slstm=1),
          state_gb={g: sum(t.numel() * t.element_size()
                           for t in cache[g].values()) / 1e9
                    for g in ("mlstm", "slstm")},
@@ -2588,7 +2627,8 @@ def planted_fault(model):
 
 
 def ssm_forward(model) -> dict:
-    """The chunked forward of a recurrent model at full width and depth:
+    """The chunked forward of a recurrent model at full width (at the
+    depth it was served with):
     ``forward(last_only=True)`` over 2048 tokens (B = 1), timed, with its
     peak memory; then the forward's logits at every position of a
     64-token prompt (the recurrence in 4 chunks) against token-by-token
@@ -3042,25 +3082,31 @@ SHARDED_MOMENT_REL = 1e-2
 
 
 def sharded_vs_one_device(state, kept, lr: float,
-                          moment_rel: float = SHARDED_MOMENT_REL) -> dict:
+                          moment_rel: float = SHARDED_MOMENT_REL,
+                          param_lr: float = 2.0) -> dict:
     """Each leaf of the sharded ``state``, gathered on the card, against
-    ``kept`` (the host copy of the one-device step's): each first
-    moment's relative Frobenius error, the largest and its leaf, the
-    largest parameter difference in units of lr and its leaf, and the
-    keys of the leaves outside the rule (the moments within
-    ``moment_rel``, the parameters within 2 lr plus one ulp)."""
+    ``kept`` (the host copy of the one-device step's): each moment's
+    relative Frobenius error (AdamW's first moments ``m``; Adafactor's
+    second moments ``fac``: ``vr``, ``vc``, ``v``), the largest and its
+    leaf, the largest parameter difference in units of lr and its leaf,
+    and the keys of the leaves outside the rule (the moments within
+    ``moment_rel``, the parameters within ``param_lr`` lr plus one
+    ulp)."""
     from repro_torch import tree
+    group = "m" if "m" in kept["opt"] else "fac"
     out = dict(moment_rel_err=0.0, moment_leaf=None, param_err_lr=0.0,
                param_leaf=None, moment_rel_errs={}, outside=[])
-    for path, s in tree.items(state["opt"]["m"]):
+    for path, s in tree.items(state["opt"][group]):
         a = on_card(s).float()
-        b = tree.get(kept["opt"]["m"], path).to(a.device).float()
+        b = tree.get(kept["opt"][group], path).to(a.device).float()
         rel = float((a - b).norm()) / max(float(b.norm()), 1e-30)
-        out["moment_rel_errs"][tree.key_of(path)] = rel
+        key = tree.key_of(path)
+        out["moment_rel_errs"][key] = rel
         if rel > out["moment_rel_err"]:
-            out.update(moment_rel_err=rel, moment_leaf=tree.key_of(path))
+            out.update(moment_rel_err=rel, moment_leaf=key)
         if not rel <= moment_rel:
-            out["outside"].append("opt/m/" + tree.key_of(path))
+            out["outside"].append(f"opt/{group}/{key}")
+        del a, b
     for path, s in tree.items(state["params"]):
         a = on_card(s)
         b = tree.get(kept["params"], path).to(a.device)
@@ -3071,8 +3117,9 @@ def sharded_vs_one_device(state, kept, lr: float,
         err = float(diff.max()) / lr
         if err > out["param_err_lr"]:
             out.update(param_err_lr=err, param_leaf=tree.key_of(path))
-        if not bool((diff <= 2 * lr + ulp).all()):
+        if not bool((diff <= param_lr * lr + ulp).all()):
             out["outside"].append("params/" + tree.key_of(path))
+        del a, b, big, ulp, diff
     return out
 
 
@@ -3421,45 +3468,6 @@ def _fac_leaves(t):
     return [f for v in t.values() for f in _fac_leaves(v)]
 
 
-def moe_sharded_vs_one_device(state, kept, lr: float,
-                              moment_rel: float = MOE_MOMENT_REL,
-                              param_lr: float = MOE_PARAM_LR) -> dict:
-    """Each leaf of the sharded Adafactor ``state``, gathered on the card,
-    against ``kept`` (the host copy of the one-device step's): each
-    second moment's (``vr``, ``vc``, ``v``) relative Frobenius error, the
-    largest and its leaf, the largest parameter difference in units of
-    lr and its leaf, and the keys of the leaves outside the rule (the
-    moments within ``moment_rel``, the parameters within ``param_lr`` lr
-    plus one ulp)."""
-    from repro_torch import tree
-    out = dict(moment_rel_err=0.0, moment_leaf=None, param_err_lr=0.0,
-               param_leaf=None, moment_rel_errs={}, outside=[])
-    for path, s in tree.items(state["opt"]["fac"]):
-        a = on_card(s).float()
-        b = tree.get(kept["opt"]["fac"], path).to(a.device).float()
-        rel = float((a - b).norm()) / max(float(b.norm()), 1e-30)
-        key = tree.key_of(path)
-        out["moment_rel_errs"][key] = rel
-        if rel > out["moment_rel_err"]:
-            out.update(moment_rel_err=rel, moment_leaf=key)
-        if not rel <= moment_rel:
-            out["outside"].append("opt/fac/" + key)
-    for path, s in tree.items(state["params"]):
-        a = on_card(s)
-        b = tree.get(kept["params"], path).to(a.device)
-        big = torch.maximum(a.abs(), b.abs())
-        ulp = torch.nextafter(big, torch.full_like(big, float("inf"))
-                              ).float() - big.float()
-        diff = (a.float() - b.float()).abs()
-        err = float(diff.max()) / lr
-        if err > out["param_err_lr"]:
-            out.update(param_err_lr=err, param_leaf=tree.key_of(path))
-        if not bool((diff <= param_lr * lr + ulp).all()):
-            out["outside"].append("params/" + tree.key_of(path))
-        del a, b, big, ulp, diff
-    return out
-
-
 def train_moe_one_device(nudge: bool = False):
     """The one-device Adafactor step of the MoE phase on a whole seed-0
     state, profiled (``nudge`` moves one entry of the first layer's ``attn.wq``,
@@ -3584,18 +3592,18 @@ def train_moe_sharded(baseline: dict, experts_only: bool = False) -> dict:
     drop_gap = max((abs(a - b) / n for a, b, n in
                     zip(drops, baseline["drops"], entries)), default=1.0)
     if experts_only:
-        rule = moe_sharded_vs_one_device(state, baseline["state"],
-                                         baseline["lr"],
-                                         MOE_EXACT_MOMENT_REL,
-                                         MOE_EXACT_PARAM_LR)
+        rule = sharded_vs_one_device(state, baseline["state"],
+                                     baseline["lr"], MOE_EXACT_MOMENT_REL,
+                                     MOE_EXACT_PARAM_LR)
         limits = dict(loss="bit for bit", drops="equal",
                       moment_rel=MOE_EXACT_MOMENT_REL,
                       param=f"{MOE_EXACT_PARAM_LR} lr + 1 ulp")
         rule_ok = (float(met["loss"]) == float(baseline["loss"])
                    and drops == baseline["drops"] and not rule["outside"])
     else:
-        rule = moe_sharded_vs_one_device(state, baseline["state"],
-                                         baseline["lr"])
+        rule = sharded_vs_one_device(state, baseline["state"],
+                                     baseline["lr"], MOE_MOMENT_REL,
+                                     MOE_PARAM_LR)
         limits = dict(loss_rtol=SHARDED_LOSS_RTOL,
                       norm_rtol=SHARDED_NORM_RTOL, drops_rel=MOE_DROPS_REL,
                       moment_rel=MOE_MOMENT_REL,
@@ -4183,7 +4191,10 @@ def train_whisper() -> dict:
     cannot feed frames); ``WHISPER_STEPS`` steps, the losses finite, the
     embedding moved by weight decay alone (the hoisted gather gives it no
     gradient), a profiled step's idle share, and the state's checkpoint
-    read back bit for bit through ``stacked_like``."""
+    read back bit for bit through ``stacked_like``.  -> (the emitted
+    fields, the first step's baseline for :func:`train_whisper_sharded`:
+    its loss, norm and lr, and its state before and after, on the
+    host)."""
     import shutil
     from repro_torch import tree
     from repro_torch.ckpt import checkpoint as ckpt
@@ -4205,12 +4216,17 @@ def train_whisper() -> dict:
              "step": torch.zeros((), dtype=torch.int32, device="cuda")}
     step = make_train_step(model, opt, cfg, shape, plan)
     embed0 = state["opt"]["master"]["embed"].clone()
+    baseline = dict(lr=opt.lr, before=tree.map_(host_copy, state))
     walls, losses = [], []
     for i in range(WHISPER_STEPS):
         batch = batch_like(cfg, shape, i)
         sec, (state, met) = timed_s(lambda: step(state, batch))
         walls.append(sec)
         losses.append(float(met["loss"]))
+        if i == 0:
+            baseline.update(loss=met["loss"].cpu(),
+                            grad_norm=met["grad_norm"].cpu(),
+                            state=tree.map_(host_copy, state))
     check(all(np.isfinite(losses)), f"whisper train: losses {losses}")
     m = embed0
     for _ in range(WHISPER_STEPS):
@@ -4259,6 +4275,210 @@ def train_whisper() -> dict:
     emit("train_whisper", **fields)
     del state, restored, model, step
     torch.cuda.empty_cache()
+    return fields, baseline
+
+
+# whisper-base's 2 x 2 step against its one-device step: the seed-0 state
+# on train_whisper's plan and its first batch, on make_host_mesh(2, 2,
+# device="cuda").  Each data shard computes the encoder's and decoder's
+# self attention, the cross attention (4 of the 8 heads a position) and
+# the FFN (1024 of 2048 columns) over its two "model" positions, and the
+# head by vocab halves.  In bf16 (the model's type; the first one-device
+# step of train_whisper is the baseline) and again in f32 (the same
+# seed-0 draws), the discriminating check.  The loss and the gradient
+# norm at relative errors ``loss`` and ``norm``, each leaf's AdamW first
+# moment within a relative Frobenius error ``moment``, each parameter
+# within 2 lr plus one ulp.  Each limit is twice what
+# tools/model_axis_noise.py measured for the same step on an H100
+# (NVIDIA H100 80GB HBM3, 700 W; PERF.md section 6), rounded up, and no
+# less than 1e-6: whisper_full read loss 4.2e-7, norm 6.0e-4 and first
+# moments 1.50% (one bf16 ulp of one decoder wq entry, whisper_ulp: loss
+# 1.4e-6, norm 6.5e-5, moments 1.23%); whisper_full_f32 loss 8.4e-8, norm
+# 8.7e-7, moments 9.8e-6
+WHISPER_LIMITS = {
+    "bfloat16": dict(loss=1e-6, norm=1.2e-3, moment=0.03),
+    "float32": dict(loss=1e-6, norm=2e-6, moment=2e-5),
+}
+
+
+def whisper_train_setup(dtype: str):
+    """(config, shape, plan) of whisper-base's training in ``dtype``:
+    train_4k's 4096 tokens, ``WHISPER_BATCH`` sequences in
+    ``WHISPER_TRAIN_MICRO`` micro-batches, remat."""
+    from repro_torch.configs import SHAPES, get_config
+    from repro_torch.train.step import TrainPlan
+    cfg = dataclasses.replace(get_config("whisper-base"), dtype=dtype)
+    shape = dataclasses.replace(SHAPES["train_4k"], global_batch=WHISPER_BATCH)
+    return cfg, shape, TrainPlan(n_micro=WHISPER_TRAIN_MICRO, q_chunk=2048,
+                                 remat=True)
+
+
+def train_whisper_one_device(dtype: str) -> dict:
+    """One one-device AdamW step (f32 master weights) of whisper-base in
+    ``dtype`` from the seed-0 state on ``batch_like(cfg, shape, 0)``, not
+    profiled: the baseline :func:`train_whisper_sharded` is held against,
+    as :func:`train_whisper`'s first step gives it in bf16."""
+    import gc
+    from repro_torch import tree
+    from repro_torch.models import batch_like
+    from repro_torch.optim import AdamW
+    from repro_torch.train.step import make_train_step
+
+    cfg, shape, plan = whisper_train_setup(dtype)
+    opt = AdamW(master_weights=True)
+    model, state = whole_train_state(cfg, opt)
+    baseline = dict(lr=opt.lr, before=tree.map_(host_copy, state))
+    step = make_train_step(model, opt, cfg, shape, plan)
+    state, met = step(state, batch_like(cfg, shape, 0))
+    check(np.isfinite(float(met["loss"])), f"whisper {dtype}: loss")
+    baseline.update(loss=met["loss"].cpu(), grad_norm=met["grad_norm"].cpu(),
+                    state=tree.map_(host_copy, state))
+    del state, met, model, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    return baseline
+
+
+def whisper_position_blocks(cfg, n_model: int) -> tuple[int, int, int]:
+    """(the bytes a "model" position copies of one encoder layer, of one
+    decoder layer, of the head once a step), from the shapes, with M
+    dividing the heads and d_ff: its h / M heads' columns of ``wq``,
+    ``wk``, ``wv`` and rows of ``wo`` (a decoder layer's ``xattn`` too),
+    its d_ff / M columns of ``w1``, ``w3`` and rows of ``w2``, its Vp / M
+    columns of ``head``."""
+    w = getattr(torch, cfg.dtype).itemsize
+    d = cfg.d_model
+    attn = 2 * d * (cfg.n_heads + cfg.n_kv_heads) * cfg.dh // n_model
+    ffn = 3 * d * cfg.d_ff // n_model
+    return (w * (attn + ffn), w * (2 * attn + ffn),
+            w * d * cfg.padded_vocab // n_model)
+
+
+def train_whisper_sharded(dtype: str, baseline: dict, profile: bool
+                          ) -> dict:
+    """The 2 x 2 step of whisper-base in ``dtype`` (``make_train_step`` on
+    ``make_host_mesh(2, 2, device="cuda")``, the state ``baseline``'s
+    seed-0 state cut into its blocks; whisper has no ``Trainer``) on the
+    one-device step's batch, held against ``baseline`` under
+    ``WHISPER_LIMITS``; each position's gathered bytes of every encoder
+    and decoder layer and of the head against
+    :func:`whisper_position_blocks`, exactly; the encoder's gathered
+    layers alive until the backward (at most ``encoder_layers + 1`` at
+    once), none after; the row products among ``from_model_adds``.  With
+    ``profile`` the step is profiled (device-busy seconds, launches) and
+    a warm step timed.  -> the fields."""
+    import gc
+    from repro_torch import tree
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import batch_like, build_model
+    from repro_torch.optim import AdamW
+    from repro_torch.train import sharding as sh
+    from repro_torch.train.step import make_train_step
+
+    what = f"whisper {dtype} sharded"
+    limits = WHISPER_LIMITS[dtype]
+    cfg, shape, plan = whisper_train_setup(dtype)
+    mesh = make_host_mesh(*SHARDED_MESH, device="cuda")
+    opt = AdamW(master_weights=True)
+    check(opt.lr == baseline["lr"], f"{what}: not the one-device step's "
+          f"AdamW")
+    state = sh.shard_state(tree.map_(lambda t: t.to("cuda"),
+                                     baseline["before"]), mesh)
+    step = make_train_step(build_model(cfg, device="meta"), opt, cfg, shape,
+                           plan, mesh=mesh)
+    batch = batch_like(cfg, shape, 0)
+    torch.cuda.reset_peak_memory_stats()
+    (state, met), first = recurrent_step(lambda: step(state, batch), profile)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    stats = dict(step.stats)
+    stats.pop("accumulator_bytes")
+    loss_err = abs(float(met["loss"]) - float(baseline["loss"])) / abs(
+        float(baseline["loss"]))
+    norm_err = abs(float(met["grad_norm"]) - float(baseline["grad_norm"])
+                   ) / abs(float(baseline["grad_norm"]))
+    rule = sharded_vs_one_device(state, baseline["state"], baseline["lr"],
+                                 limits["moment"])
+    rule_ok = (loss_err <= limits["loss"] and norm_err <= limits["norm"]
+               and not rule["outside"])
+    n_model = mesh.shape["model"]
+    enc_layer, dec_layer, head = whisper_position_blocks(cfg, n_model)
+    want_layers = {**{f"enc.{i}": enc_layer
+                      for i in range(cfg.encoder_layers)},
+                   **{f"dec.{i}": dec_layer for i in range(cfg.n_layers)}}
+    positions = stats.pop("positions")
+    per_micro = cfg.encoder_layers + 2 * cfg.n_layers   # decoder remat'd
+    per_position_ok = all(
+        p["layer_bytes"] == want_layers and p["once_bytes"] == head
+        and p["gathers"] == per_micro * p["micro_batches"]
+        and p["max_live_layers"] <= cfg.encoder_layers + 1
+        and p["live_after"] == 0 for p in positions)
+    # each micro-batch's forward adds the row products of every encoder
+    # layer (wo, w2) and decoder layer (wo, xattn wo, w2); the remat'd
+    # decoder adds more in its recompute
+    row_products = WHISPER_TRAIN_MICRO * (2 * cfg.encoder_layers
+                                          + 3 * cfg.n_layers)
+    adds = stats["from_model_adds"]
+    adds_ok = adds >= row_products
+    fields = dict(
+        arch=cfg.name, dtype=dtype, mesh=repr(mesh),
+        data_shards=len(sh.batch_devices(mesh)), model_ways=n_model,
+        plan=dataclasses.asdict(plan), batch=[WHISPER_BATCH, shape.seq_len],
+        frames=cfg.encoder_ctx,
+        loss=float(met["loss"]), loss_one_device=float(baseline["loss"]),
+        loss_rel_err=loss_err, grad_norm=float(met["grad_norm"]),
+        grad_norm_one_device=float(baseline["grad_norm"]),
+        grad_norm_rel_err=norm_err, state=rule,
+        rule=dict(limits, param="2 lr + 1 ulp"), gather=stats,
+        positions=[dict(p, layer_bytes=sorted(set(
+            p["layer_bytes"].values()))) for p in positions],
+        position_enc_layer_bytes=enc_layer,
+        position_dec_layer_bytes=dec_layer, position_head_bytes=head,
+        per_position_ok=per_position_ok, row_products=row_products,
+        adds_ok=adds_ok, peak_gb=peak_gb, **first)
+    if not (rule_ok and per_position_ok and adds_ok):
+        emit("train_whisper_sharded_failed", **fields)
+    check(rule_ok, f"{what}: loss {float(met['loss'])} against "
+          f"{float(baseline['loss'])}, norm {float(met['grad_norm'])} "
+          f"against {float(baseline['grad_norm'])}, limits {limits}, "
+          f"state {rule}")
+    check(per_position_ok, f"{what}: a position's gathers are not its "
+          f"regions ({enc_layer} B an encoder layer, {dec_layer} B a "
+          f"decoder layer, {head} B of head), or gathered layers outlived "
+          f"their use: {fields['positions']}")
+    check(adds_ok, f"{what}: {adds} row-product adds, want at least "
+          f"{row_products}")
+    if profile:
+        warm_s, (state, met) = timed_s(lambda: step(state, batch))
+        check(np.isfinite(float(met["loss"])), f"{what}: warm loss")
+        fields.update(warm_fields(first, warm_s))
+        fields["tokens_per_s"] = WHISPER_BATCH * shape.seq_len / warm_s
+    del state, met, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    return fields
+
+
+def train_whisper_sharded_phase(one_device: dict, baseline: dict) -> dict:
+    """``train_whisper_sharded``'s line: the bf16 2 x 2 step against
+    ``baseline`` (:func:`train_whisper`'s first step, whose profiled
+    repeat ``one_device`` gives the one-device busy seconds, launches,
+    idle share and peak beside it), then the f32 one-device and 2 x 2
+    steps; the phase's seconds."""
+    t0 = time.perf_counter()
+    bf16 = train_whisper_sharded("bfloat16", baseline, True)
+    prof = one_device["step_profile"]
+    bf16["one_device"] = dict(
+        device_busy_s=prof["device_busy_s"],
+        device_launches=prof["device_launches"],
+        idle_share=prof["idle_share"], peak_gb=one_device["peak_gb"])
+    del baseline
+    t1 = time.perf_counter()
+    f32 = train_whisper_sharded("float32", train_whisper_one_device(
+        "float32"), False)
+    fields = dict(bfloat16=bf16, float32=f32,
+                  float32_seconds=time.perf_counter() - t1,
+                  seconds=time.perf_counter() - t0)
+    emit("train_whisper_sharded", **fields)
     return fields
 
 
@@ -5084,8 +5304,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     # the recurrent families: zamba2-2.7b serving (the shared attention at
     # dh = 80 on the clustered cache, its refresh on 192 tensor-core
-    # lanes) and forward, xlstm-1.3b serving on its recurrent state and
-    # forward
+    # lanes) and forward, xlstm-1.3b (1 of its 6 superblocks) serving on
+    # its recurrent state and forward
     zamba_requests, zamba_parity, model = serve_zamba_long_500k()
     cases.append(zamba_parity)
     zamba_launches = zamba_requests[-1]["launches"]
@@ -5168,7 +5388,12 @@ def main() -> int:
     serve_whisper_decode_32k(model)
     del model
     torch.cuda.empty_cache()
-    train_whisper()
+    whisper_one, whisper_base = train_whisper()
+    # its encoder, decoder, cross attention and head over "model" on a
+    # 2 x 2 mesh against the one-device step, in bf16 and f32 (no kernel)
+    train_whisper_sharded_phase(whisper_one, whisper_base)
+    del whisper_base
+    torch.cuda.empty_cache()
     sampler = cluster_balanced_sampler()
     table1 = paper_table1()
     sampler_lloyd, rec = [], sampler.pop("lloyd_rec")

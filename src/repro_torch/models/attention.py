@@ -63,10 +63,11 @@ def attention(p, x: torch.Tensor, dims: AttnDims, ctx: dict, *,
               window: int = 0, causal: bool = True, kv_override=None,
               use_rope: bool = True) -> torch.Tensor:
     """x: (B, S, d) -> (B, S, d): :func:`attend_projected` of x's
-    projections by ``wq``, ``wk`` and ``wv``, then the output projection
-    ``wo``."""
-    out = attend_projected(dot(x, p["wq"]), dot(x, p["wk"]),
-                           dot(x, p["wv"]), dims, ctx, window=window,
+    projections by ``wq``, ``wk`` and ``wv`` (``wq`` alone with
+    ``kv_override``), then the output projection ``wo``."""
+    k, v = ((None, None) if kv_override is not None
+            else (dot(x, p["wk"]), dot(x, p["wv"])))
+    out = attend_projected(dot(x, p["wq"]), k, v, dims, ctx, window=window,
                            causal=causal, kv_override=kv_override,
                            use_rope=use_rope)
     return dot(out, p["wo"])
@@ -79,7 +80,8 @@ def attend_projected(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """The queries (B, S, h dh), keys and values (B, S, kv dh) -> the
     heads' outputs (B, S, h dh) in their type.  ``kv_override=(k, v)``,
     each (B, Skv, kv, dh), attends to those keys and values instead
-    (cross attention); ``window > 0`` masks keys ``window`` or more
+    (cross attention; ``k`` and ``v`` are then not read, and RoPE turns
+    only the queries); ``window > 0`` masks keys ``window`` or more
     positions back.  The reference's arithmetic: logits in f32 from the
     activations' type, masked entries at ``NEG``, softmax in f32, the
     probabilities cast to the activations' type before the value product.
@@ -95,14 +97,16 @@ def attend_projected(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     scale = dh ** -0.5
     x = q                       # the activations' type and device
     q = q.reshape(b, s, h, dh)
-    k = k.reshape(b, s, kv, dh)
-    v = v.reshape(b, s, kv, dh)
+    if kv_override is None:
+        k = k.reshape(b, s, kv, dh)
+        v = v.reshape(b, s, kv, dh)
+    else:
+        k, v = kv_override
     if use_rope:
         cos, sin = (t.to(x.device) for t in ctx["rope"])
         q = apply_rope(q, cos, sin)
-        k = apply_rope(k, cos, sin)
-    if kv_override is not None:
-        k, v = kv_override
+        if kv_override is None:
+            k = apply_rope(k, cos, sin)
     skv = k.shape[1]
     chunk = _largest_divisor(s, ctx.get("q_chunk", 2048))
     kf = k.float()

@@ -19,6 +19,16 @@ and each layer's cross keys and values.  Nothing here fills ``xk``/``xv``
 (the reference's engine leaves them zero too); a caller that decodes
 against an encoding writes ``blk.cross_kv(encode(frames))`` of each
 layer ``blk`` into them, transposed to (B, kv, T, dh).
+
+Over a "model" axis of M positions (a sharded train step's
+``ctx["model_split"]``), as :mod:`repro_torch.models.lm`'s blocks: each
+layer's self attention and the decoder's cross attention by heads where
+M divides ``n_heads`` (the cross attention's keys and values from the
+encoder output, which goes to every position as an f32 copy), its SwiGLU
+FFN by hidden columns where M divides ``d_ff``, and the untied head by
+vocab columns where M divides the padded vocabulary; the norms, the
+embedding and the residual streams stay on the data shard's first
+position.  Serving (``decode``, ``cross_kv``) runs on one device.
 """
 from __future__ import annotations
 
@@ -33,11 +43,13 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.configs import ArchConfig, ShapeConfig
 from repro_torch.core.device import resolve_device
 
-from .attention import (AttnDims, _cache_attend, attention, attention_decode,
+from .attention import (AttnDims, _cache_attend, attention_decode,
                         init_kv_cache)
 from .layers import cross_entropy, dot, param, rms_norm, rope_tables, swiglu
-from .lm import (_index, attn_params, draw_weights, gathered_call,
-                 vocab_logits, weight_draws)
+from .lm import (_index, attend, attn_params, attn_regions, draw_weights,
+                 ffn_regions, gathered_call, holds, model_parts,
+                 model_regions, project_kv, swiglu_over_model, vocab_logits,
+                 vocab_parallel_loss, weight_draws)
 
 
 def _sinusoid(n: int, d: int, device=None) -> torch.Tensor:
@@ -69,19 +81,36 @@ class _Block(nn.Module):
         """The weights drawn at ``d_in ** -0.5`` (the norms start at 0)."""
         return [*self.attn.values(), self.w1, self.w3, self.w2]
 
-    def ffn(self, h: torch.Tensor) -> torch.Tensor:
-        return h + swiglu(rms_norm(h, self.ln2, self.eps), self.w1, self.w3,
-                          self.w2)
+    def split_regions(self, n_model: int) -> dict:
+        """``{name within the block: [region a "model" position computes
+        with]}``: where M divides the heads, position m's heads' columns
+        of ``attn.wq``, ``attn.wk``, ``attn.wv`` and rows of ``attn.wo``
+        (:func:`~repro_torch.models.lm.attn_regions`); where M divides
+        ``d_ff``, its ``d_ff / M`` columns of ``w1``, ``w3`` and rows of
+        ``w2``.  Empty at M = 1."""
+        d = self.ln1.shape[0]
+        return {**attn_regions(self.dims, d, n_model),
+                **ffn_regions(d, self.w1.shape[1], n_model)}
+
+    def ffn(self, h: torch.Tensor, split=None, parts=None) -> torch.Tensor:
+        """The residual update by the SwiGLU FFN, over "model" where
+        ``parts`` splits ``w1``."""
+        hn = rms_norm(h, self.ln2, self.eps)
+        if holds(parts, "w1"):
+            return h + swiglu_over_model(split, hn, parts, "")
+        return h + swiglu(hn, self.w1, self.w3, self.w2)
 
 
 class EncBlock(_Block):
     """One encoder layer: bidirectional self-attention without RoPE, then
-    the FFN."""
+    the FFN; each over "model" where ``ctx["model_split"]`` holds its
+    regions (:meth:`split_regions`)."""
 
     def forward(self, x: torch.Tensor, ctx: dict) -> torch.Tensor:
-        h = x + attention(self.attn, rms_norm(x, self.ln1, self.eps),
-                          self.dims, ctx, causal=False, use_rope=False)
-        return self.ffn(h)
+        split, parts = model_parts(ctx, self)
+        h = x + attend(self.attn, rms_norm(x, self.ln1, self.eps), self.dims,
+                       ctx, split, parts, causal=False, use_rope=False)
+        return self.ffn(h, split, parts)
 
 
 class DecBlock(_Block):
@@ -97,23 +126,33 @@ class DecBlock(_Block):
         return [*self.attn.values(), *self.xattn.values(), self.w1, self.w3,
                 self.w2]
 
+    def split_regions(self, n_model: int) -> dict:
+        """:meth:`_Block.split_regions` and the cross attention's heads'
+        columns of ``xattn.wq``, ``xattn.wk``, ``xattn.wv`` and rows of
+        ``xattn.wo`` where M divides the heads."""
+        return {**super().split_regions(n_model),
+                **attn_regions(self.dims, self.lnx.shape[0], n_model,
+                               "xattn.")}
+
     def cross_kv(self, enc: torch.Tensor
                  ) -> tuple[torch.Tensor, torch.Tensor]:
         """This layer's cross keys and values of the encoder output ``enc``
         (B, T, d): each (B, T, kv, dh)."""
-        b, t, _ = enc.shape
-        _, kv, dh = self.dims
-        return (dot(enc, self.xattn["wk"]).reshape(b, t, kv, dh),
-                dot(enc, self.xattn["wv"]).reshape(b, t, kv, dh))
+        return project_kv(self.xattn, enc, self.dims)
 
     def forward(self, x: torch.Tensor, enc: torch.Tensor, ctx: dict
                 ) -> torch.Tensor:
-        h = x + attention(self.attn, rms_norm(x, self.ln1, self.eps),
-                          self.dims, ctx)
-        h = h + attention(self.xattn, rms_norm(h, self.lnx, self.eps),
-                          self.dims, ctx, causal=False,
-                          kv_override=self.cross_kv(enc), use_rope=False)
-        return self.ffn(h)
+        """The layer over the tokens ``x`` (B, S, d) and the encoder output
+        ``enc`` (B, T, d); each attention and the FFN over "model" where
+        ``ctx["model_split"]`` holds its regions (the cross attention's
+        keys and values each position's products of ``enc``)."""
+        split, parts = model_parts(ctx, self)
+        h = x + attend(self.attn, rms_norm(x, self.ln1, self.eps), self.dims,
+                       ctx, split, parts)
+        h = h + attend(self.xattn, rms_norm(h, self.lnx, self.eps),
+                       self.dims, ctx, split, parts, "xattn.", kv=enc,
+                       causal=False, use_rope=False)
+        return self.ffn(h, split, parts)
 
     def decode(self, cache_l: dict, xk: torch.Tensor, xv: torch.Tensor,
                x: torch.Tensor, ctx: dict) -> torch.Tensor:
@@ -198,24 +237,27 @@ class EncDecLM(nn.Module):
         t = frames.shape[1]
         x = (frames.to(self.dtype)
              + _sinusoid(t, self.cfg.d_model, self.device).to(self.dtype))
-        ectx = {"rope": (None, None),
-                "q_chunk": (ctx or {}).get("q_chunk", 2048)}
-        gather = (ctx or {}).get("gather")
+        ctx = ctx or {}
+        ectx = {"rope": (None, None), "q_chunk": ctx.get("q_chunk", 2048)}
+        if "model_split" in ctx:
+            ectx["model_split"] = ctx["model_split"]
+        gather = ctx.get("gather")
         for i, blk in enumerate(self.enc):
             x = (blk(x, ectx) if gather is None
                  else gathered_call(blk, gather, f"enc.{i}", x, ectx))
         return rms_norm(x, self.enc_ln, self.cfg.norm_eps)
 
     # -- decoder (training, prefill) -------------------------------------------
-    def embed_in(self, batch: dict) -> torch.Tensor:
-        """The token embeddings (B, S, d)."""
+    def embed_in(self, batch: dict, ctx: Optional[dict] = None
+                 ) -> torch.Tensor:
+        """The token embeddings (B, S, d) (``ctx``, as the reference's,
+        changes nothing here)."""
         return self.embed[batch["tokens"].long()].to(self.dtype)
 
     def decode_stack(self, x: torch.Tensor, frames: torch.Tensor, ctx: dict,
-                     *, remat: bool = True, last_only: bool = False
-                     ) -> torch.Tensor:
+                     *, remat: bool = True) -> torch.Tensor:
         """The encoder over ``frames``, then the decoder layers over the
-        embedded tokens ``x`` -> f32 logits (B, S', Vp).  ``remat``
+        embedded tokens ``x`` -> the last layer's output (B, S, d).  ``remat``
         recomputes each decoder layer in the backward pass (the
         reference's ``jax.checkpoint`` of the decoder's layer; the encoder
         keeps its activations), only where a gradient is being
@@ -234,9 +276,7 @@ class EncDecLM(nn.Module):
                 gathered_call, blk, gather, f"dec.{i}")
             x = (checkpoint(call, x, enc, ctx, use_reentrant=False) if remat
                  else call(x, enc, ctx))
-        if last_only:
-            x = x[:, -1:]
-        return self.head_out(x)
+        return x
 
     def forward(self, batch: dict, ctx: Optional[dict] = None, *,
                 remat: bool = True, last_only: bool = False
@@ -248,8 +288,9 @@ class EncDecLM(nn.Module):
         if ctx is None:
             ctx = self.make_ctx(torch.arange(batch["tokens"].shape[1],
                                              device=self.device))
-        logits = self.decode_stack(self.embed_in(batch), batch["frames"], ctx,
-                                   remat=remat, last_only=last_only)
+        x = self.decode_stack(self.embed_in(batch), batch["frames"], ctx,
+                              remat=remat)
+        logits = self.head_out(x[:, -1:] if last_only else x)
         return logits, torch.zeros((), dtype=torch.float32,
                                    device=logits.device)
 
@@ -263,9 +304,26 @@ class EncDecLM(nn.Module):
                       remat: bool = True, aux_weight: float = 0.0
                       ) -> torch.Tensor:
         """:meth:`loss` from tokens already embedded (``x`` from
-        :meth:`embed_in`); ``rest`` holds ``frames`` and ``labels``."""
-        logits = self.decode_stack(x, rest["frames"], ctx, remat=remat)
-        return cross_entropy(logits, rest["labels"])
+        :meth:`embed_in`); ``rest`` holds ``frames`` and ``labels``.  Where
+        ``ctx["model_split"]`` holds this model's columns of ``head``, the
+        head and the loss are computed over "model"
+        (:func:`~repro_torch.models.lm.vocab_parallel_loss`)."""
+        x = self.decode_stack(x, rest["frames"], ctx, remat=remat)
+        split, parts = model_parts(ctx, self)
+        if holds(parts, "head"):
+            return vocab_parallel_loss(split, parts, x, self.final_ln,
+                                       self.cfg.norm_eps, rest["labels"])
+        return cross_entropy(self.head_out(x), rest["labels"])
+
+    def split_regions(self, n_model: int) -> dict:
+        """``{parameter name: [region a "model" position computes
+        with]}`` (:func:`~repro_torch.models.lm.model_regions`): each
+        encoder and decoder layer's (:meth:`EncBlock.split_regions`,
+        :meth:`DecBlock.split_regions`) under ``enc.i.`` / ``dec.i.``, and
+        position m's ``Vp / M`` columns of ``head`` where M divides the
+        padded vocabulary.  Empty at M = 1."""
+        return model_regions(self, n_model, {
+            "head": (self.cfg.d_model, self.cfg.padded_vocab)})
 
     def head_out(self, x: torch.Tensor) -> torch.Tensor:
         """Final norm and the head's f32 logits (:func:`vocab_logits`)."""

@@ -62,6 +62,13 @@ shard's first position, and:
   and the loss is combined over the positions
   (:func:`~repro_torch.models.layers.vocab_parallel_cross_entropy`)
   without forming whole logits;
+* a VLM's ``patch_proj`` (when M divides ``d_model``): position m
+  projects the patches by its columns ``[m d/M, (m+1) d/M)``, and the
+  first position puts the columns together (``concat_model``);
+* whisper's encoder and decoder layers
+  (:mod:`~repro_torch.models.encdec`): their self attention and cross
+  attention by heads and their FFN by hidden columns, as above, and its
+  head by vocab columns;
 * the recurrent blocks (:mod:`~repro_torch.models.ssm`): the mLSTM by
   heads (by value columns of a head where the heads divide M), the sLSTM
   by heads, Mamba2 by its 64-wide heads, each where M divides, its
@@ -70,9 +77,13 @@ shard's first position, and:
 Each position's input arrives as an f32 copy (``to_model``), so its
 gradient reaches the positions' add unrounded, and the sum is rounded
 once, where the one-device product rounds; the partials are added in f32
-and rounded once (``from_model``).  The experts split no sum: their
-dispatch block is cut along E (``split_model``) and their outputs put
-back together (``concat_model``).
+and rounded once (``from_model``).  The experts and ``patch_proj`` split no
+sum: the experts' dispatch block is cut along E (``split_model``), and
+their outputs and the patches' columns are put back together
+(``concat_model``).  The attention, FFN and head code over "model"
+(:func:`attend`, :func:`swiglu_over_model`, :func:`vocab_parallel_loss`,
+:func:`attn_regions`, :func:`ffn_regions`, :func:`model_regions`) is
+shared by both model classes.
 """
 from __future__ import annotations
 
@@ -162,7 +173,8 @@ def gathered_call(layer: nn.Module, gather, name: str, *args):
     the layer computes over "model", one such dict a position of the
     weights split there, else ``None``).  The split weights reach each
     block of the layer that names regions (``split_regions``: an
-    :class:`AttnBlock`, an mLSTM, sLSTM or Mamba2 block) through the
+    :class:`AttnBlock`, an mLSTM, sLSTM or Mamba2 block, a whisper
+    encoder or decoder layer) through the
     ``model_split`` of the context, ``args``' last entry."""
     params, parts = gather(name)
     if parts is not None:
@@ -191,6 +203,127 @@ def swiglu_over_model(split, x: torch.Tensor, parts: list, prefix: str
             for n in ("w1", "w3"))
     return over_rows(split, [swiglu_gate(um, vm) for um, vm in zip(u, v)],
                      [p[prefix + "w2"] for p in parts])
+
+
+def model_parts(ctx: dict, module: nn.Module) -> tuple:
+    """(``ctx["model_split"]`` or ``None``, the per-position weights it
+    holds for ``module`` or ``None``)."""
+    split = ctx.get("model_split")
+    return split, (split.parts(module) if split is not None else None)
+
+
+def holds(parts, name: str) -> bool:
+    """Whether the per-position weights ``parts`` split ``name``."""
+    return parts is not None and name in parts[0]
+
+
+def attend(p, x: torch.Tensor, dims: AttnDims, ctx: dict, split=None,
+           parts=None, prefix: str = "attn.", *, kv=None, window: int = 0,
+           causal: bool = True, use_rope: bool = True) -> torch.Tensor:
+    """An attention layer's output (B, S, d) for the normed input ``x``:
+    by its whole weights ``p`` (:func:`attention`), or, where ``parts``
+    splits ``prefix + "wq"``, over "model": each position's query heads'
+    columns of ``wq`` and its kv heads' columns of ``wk`` and ``wv``
+    (:func:`over_columns`), its heads' outputs
+    (:func:`attend_projected`), its f32 partial by its rows of ``wo``,
+    added in mesh order (:func:`over_rows`).  ``kv`` (B, T, d) is cross
+    attention's source: the keys and values are its products by ``wk``
+    and ``wv`` (x's are never formed)."""
+    if not holds(parts, prefix + "wq"):
+        return attention(p, x, dims, ctx, window=window, causal=causal,
+                         use_rope=use_rope,
+                         kv_override=None if kv is None else project_kv(
+                             p, kv, dims))
+    src = x if kv is None else kv
+    q = over_columns(split, x, [w[prefix + "wq"] for w in parts])
+    k, v = (over_columns(split, src, [w[prefix + n] for w in parts])
+            for n in ("wk", "wv"))
+    outs = []
+    for qm, km, vm in zip(q, k, v):
+        dm = AttnDims(qm.shape[-1] // dims.dh, km.shape[-1] // dims.dh,
+                      dims.dh)
+        over = None if kv is None else tuple(
+            t.reshape(*t.shape[:2], dm.n_kv, dm.dh) for t in (km, vm))
+        outs.append(attend_projected(qm, km, vm, dm, ctx, window=window,
+                                     causal=causal, use_rope=use_rope,
+                                     kv_override=over))
+    return over_rows(split, outs, [w[prefix + "wo"] for w in parts])
+
+
+def project_kv(p, src: torch.Tensor, dims: AttnDims) -> tuple:
+    """The keys and values (B, T, kv, dh) of ``src`` (B, T, d) by the
+    attention weights ``p``'s ``wk`` and ``wv``: cross attention's."""
+    b, t, _ = src.shape
+    return tuple(dot(src, p[n]).reshape(b, t, dims.n_kv, dims.dh)
+                 for n in ("wk", "wv"))
+
+
+def vocab_parallel_loss(split, parts, x: torch.Tensor,
+                        final_ln: torch.Tensor, eps: float,
+                        labels: torch.Tensor, offset: int = 0
+                        ) -> torch.Tensor:
+    """The head and the mean NLL over "model": the final norm of ``x``,
+    each position's f32 logits of its columns of ``head``
+    (:func:`over_columns`), the sequence positions from ``offset`` on
+    (after a VLM's patches) held against ``labels`` without forming
+    whole logits (:func:`vocab_parallel_cross_entropy`)."""
+    xn = rms_norm(x, final_ln, eps)
+    blocks = over_columns(split, xn, [p["head"] for p in parts], out_f32=True)
+    return vocab_parallel_cross_entropy([b[:, offset:] for b in blocks],
+                                        labels)
+
+
+def attn_regions(dims: AttnDims, d: int, n_model: int,
+                 prefix: str = "attn.") -> dict:
+    """``{name: [region a position]}`` of an attention layer's weights
+    ``prefix + "wq"`` ... ``"wo"`` split by heads (:func:`head_split`):
+    position m's query heads' columns of ``wq`` and rows of ``wo``, its
+    kv heads' columns of ``wk`` and ``wv``; empty where the attention is
+    computed whole."""
+    out: dict = {}
+    rows, dh = slice(0, d), dims.dh
+    for (q0, q1), (k0, k1) in head_split(dims, n_model) or ():
+        q, k = slice(q0 * dh, q1 * dh), slice(k0 * dh, k1 * dh)
+        for name, region in (("wq", (rows, q)), ("wk", (rows, k)),
+                             ("wv", (rows, k)), ("wo", (q, rows))):
+            out.setdefault(prefix + name, []).append(region)
+    return out
+
+
+def ffn_regions(d: int, f: int, n_model: int, prefix: str = "") -> dict:
+    """``{name: [region a position]}`` of a SwiGLU FFN's ``prefix + "w1"``,
+    ``"w3"``, ``"w2"`` split by hidden columns: position m's ``f / M``
+    columns of ``w1`` and ``w3`` and those rows of ``w2``; empty at M = 1
+    or where M does not divide ``f``."""
+    out: dict = {}
+    if n_model == 1 or f % n_model:
+        return out
+    rows = slice(0, d)
+    for m in range(n_model):
+        cols = slice(m * f // n_model, (m + 1) * f // n_model)
+        for name, region in (("w1", (rows, cols)), ("w3", (rows, cols)),
+                             ("w2", (cols, rows))):
+            out.setdefault(prefix + name, []).append(region)
+    return out
+
+
+def model_regions(model: nn.Module, n_model: int, columns: dict) -> dict:
+    """A model's ``split_regions``: each weight of ``columns`` (``{name:
+    (d_in, d_out)}``, a projection of the model's own) whose ``d_out`` M
+    divides, position m its columns ``[m d_out/M, (m+1) d_out/M)``, and
+    every block's regions that names them (``split_regions``), under the
+    block's name.  Empty at M = 1."""
+    out: dict = {}
+    for name, (rows, cols) in columns.items():
+        if n_model > 1 and cols % n_model == 0:
+            out[name] = [(slice(0, rows), slice(m * cols // n_model,
+                                                (m + 1) * cols // n_model))
+                         for m in range(n_model)]
+    for name, blk in model.named_modules():
+        if name and hasattr(blk, "split_regions"):
+            for rel, regions in blk.split_regions(n_model).items():
+                out[f"{name}.{rel}"] = regions
+    return out
 
 
 def head_split(dims: AttnDims, n_model: int):
@@ -276,28 +409,13 @@ class AttnBlock(nn.Module):
         ``moe.we1``, ``moe.we3`` and ``moe.we2``, whole along d and
         d_ff.  Empty at M = 1; what M does not divide is computed whole
         (the router always)."""
-        out: dict = {}
-        d, dh = self.cfg.d_model, self.dims.dh
+        d, f, e = self.cfg.d_model, self.cfg.d_ff, self.cfg.n_experts
+        out = attn_regions(self.dims, d, n_model)
+        if self.moe is None or "w1" in self.moe:
+            out.update(ffn_regions(d, f, n_model,
+                                   "" if self.moe is None else "moe."))
         rows = slice(0, d)
-        for (q0, q1), (k0, k1) in head_split(self.dims, n_model) or ():
-            q, k = slice(q0 * dh, q1 * dh), slice(k0 * dh, k1 * dh)
-            for name, region in (("attn.wq", (rows, q)),
-                                 ("attn.wk", (rows, k)),
-                                 ("attn.wv", (rows, k)),
-                                 ("attn.wo", (q, rows))):
-                out.setdefault(name, []).append(region)
-        if n_model == 1:
-            return out
-        f, e = self.cfg.d_ff, self.cfg.n_experts
-        ffn = "" if self.moe is None else "moe." if "w1" in self.moe else None
-        if ffn is not None and f % n_model == 0:
-            for m in range(n_model):
-                cols = slice(m * f // n_model, (m + 1) * f // n_model)
-                for name, region in (("w1", (rows, cols)),
-                                     ("w3", (rows, cols)),
-                                     ("w2", (cols, rows))):
-                    out.setdefault(ffn + name, []).append(region)
-        if self.moe is not None and e % n_model == 0:
+        if self.moe is not None and n_model > 1 and e % n_model == 0:
             hidden = slice(0, f)
             for m in range(n_model):
                 ex = slice(m * e // n_model, (m + 1) * e // n_model)
@@ -321,25 +439,13 @@ class AttnBlock(nn.Module):
         experts are computed expert-parallel and its shared expert by
         hidden columns; the norms and the residual stay on the data
         shard's device."""
-        split = ctx.get("model_split")
-        parts = split.parts(self) if split is not None else None
-        xn = rms_norm(x, self.ln1, self.eps)
-        if parts is not None and "attn.wq" in parts[0]:
-            q, k, v = (over_columns(split, xn, [p["attn." + n] for p in parts])
-                       for n in ("wq", "wk", "wv"))
-            dh, outs = self.dims.dh, []
-            for qm, km, vm in zip(q, k, v):
-                dims = AttnDims(qm.shape[-1] // dh, km.shape[-1] // dh, dh)
-                outs.append(attend_projected(qm, km, vm, dims, ctx,
-                                             window=self.window))
-            h = x + over_rows(split, outs, [p["attn.wo"] for p in parts])
-        else:
-            h = x + attention(self.attn, xn, self.dims, ctx,
-                              window=self.window)
+        split, parts = model_parts(ctx, self)
+        h = x + attend(self.attn, rms_norm(x, self.ln1, self.eps), self.dims,
+                       ctx, split, parts, window=self.window)
         hn = rms_norm(h, self.ln2, self.eps)
         if self.moe is not None:
             return self._moe(split, parts, h, hn, aux)
-        if parts is not None and "w1" in parts[0]:
+        if holds(parts, "w1"):
             return h + swiglu_over_model(split, hn, parts, ""), aux
         return h + swiglu(hn, self.w1, self.w3, self.w2), aux
 
@@ -347,8 +453,8 @@ class AttnBlock(nn.Module):
         """The MoE FFN's residual update and aux loss; over "model" where
         ``parts`` holds the experts (``moe.we1`` ...) or the shared
         expert's columns (``moe.w1`` ...)."""
-        split_experts = parts is not None and "moe.we1" in parts[0]
-        split_shared = parts is not None and "moe.w1" in parts[0]
+        split_experts, split_shared = (holds(parts, n)
+                                       for n in ("moe.we1", "moe.w1"))
         p = {n: w for n, w in self.moe.items()
              if not (split_experts and n.startswith("we")
                      or split_shared and n in ("w1", "w3", "w2"))}
@@ -625,12 +731,24 @@ class DecoderLM(nn.Module):
         return ctx
 
     # -- forward -----------------------------------------------------------
-    def embed_in(self, batch: dict) -> torch.Tensor:
+    def embed_in(self, batch: dict, ctx: Optional[dict] = None
+                 ) -> torch.Tensor:
         """The token embeddings (B, S, d), after the projected
-        ``batch["patches"]`` (B, n_patches, d) for a VLM."""
+        ``batch["patches"]`` (B, n_patches, d) for a VLM.  Where
+        ``ctx["model_split"]`` holds this model's columns of
+        ``patch_proj``, each "model" position projects the patches by its
+        columns (:func:`over_columns`) and the first position puts them
+        together (``concat_model``)."""
         x = self.embed[batch["tokens"].long()].to(self.dtype)
         if self.cfg.n_patches:
-            patches = dot(batch["patches"].to(self.dtype), self.patch_proj)
+            split, parts = model_parts(ctx or {}, self)
+            if holds(parts, "patch_proj"):
+                patches = split.concat_model(over_columns(
+                    split, batch["patches"],
+                    [p["patch_proj"] for p in parts]), -1)
+            else:
+                patches = dot(batch["patches"].to(self.dtype),
+                              self.patch_proj)
             x = torch.cat([patches, x], dim=1)
         return x
 
@@ -689,41 +807,32 @@ class DecoderLM(nn.Module):
         step, outside the gradient; ``rest`` holds the batch's other
         leaves (``labels``)."""
         x, aux = self.run_groups(x, ctx, remat=remat)
-        split = ctx.get("model_split")
-        heads = split.parts(self) if split is not None else None
-        if heads is None:
+        split, parts = model_parts(ctx, self)
+        if not holds(parts, "head"):
             return self._text_loss(self.head_out(x), rest["labels"], aux,
                                    aux_weight)
-        # the vocab-parallel head: position m's f32 logits of its columns
-        xn = rms_norm(x, self.final_ln, self.cfg.norm_eps)
-        blocks = over_columns(split, xn, [p["head"] for p in heads],
-                              out_f32=True)
-        blocks = [b[:, self.cfg.n_patches:] for b in blocks]
-        return (vocab_parallel_cross_entropy(blocks, rest["labels"])
+        return (vocab_parallel_loss(split, parts, x, self.final_ln,
+                                    self.cfg.norm_eps, rest["labels"],
+                                    self.cfg.n_patches)
                 + aux_weight * aux)
 
     def split_regions(self, n_model: int) -> dict:
         """``{parameter name: [region each of n_model "model" positions
-        computes with]}``: every block's that names regions (an
-        attention block's, :meth:`AttnBlock.split_regions`; an mLSTM's,
-        an sLSTM's and a Mamba2's, :mod:`~repro_torch.models.ssm`) and,
-        for an untied head whose padded vocabulary M divides, position
-        m's ``Vp / M`` columns of ``head`` (the vocab-parallel loss).
-        Everything else (the norms, the embedding, a tied head, the MoE
-        router, the mLSTM's ``up1``, ``patch_proj``) is computed whole on
-        the data shard's device.  Empty at M = 1."""
-        out: dict = {}
-        cfg = self.cfg
-        vp = cfg.padded_vocab
-        if n_model > 1 and not cfg.tie_embeddings and vp % n_model == 0:
-            out["head"] = [(slice(0, cfg.d_model),
-                            slice(m * vp // n_model, (m + 1) * vp // n_model))
-                           for m in range(n_model)]
-        for name, blk in self.named_modules():
-            if name and hasattr(blk, "split_regions"):
-                for rel, regions in blk.split_regions(n_model).items():
-                    out[f"{name}.{rel}"] = regions
-        return out
+        computes with]}`` (:func:`model_regions`): every block's that
+        names regions (an attention block's,
+        :meth:`AttnBlock.split_regions`; an mLSTM's, an sLSTM's and a
+        Mamba2's, :mod:`~repro_torch.models.ssm`); for an untied head
+        whose padded vocabulary M divides, position m's ``Vp / M``
+        columns of ``head`` (the vocab-parallel loss); for a VLM whose
+        ``d_model`` M divides, its ``d / M`` columns of ``patch_proj``
+        (:meth:`embed_in`).  Everything else (the norms, the embedding, a
+        tied head, the MoE router, the mLSTM's ``up1``) is computed whole
+        on the data shard's device.  Empty at M = 1."""
+        cfg, d = self.cfg, self.cfg.d_model
+        columns = {} if cfg.tie_embeddings else {"head": (d, cfg.padded_vocab)}
+        if cfg.n_patches:
+            columns["patch_proj"] = (d, d)
+        return model_regions(self, n_model, columns)
 
     def _text_loss(self, logits, labels, aux, aux_weight):
         if self.cfg.n_patches:

@@ -300,10 +300,11 @@ def make_train_step(model, optimizer, cfg: ArchConfig, shape: ShapeConfig,
     loss are taken over a whole micro-batch, as in the reference;
     ``n_micro % W != 0`` raises ``ValueError``.  Each shard computes on
     its M positions along "model" (:func:`position_members`: the weights
-    ``model.split_regions`` splits, attention by heads, the dense FFN and
-    llama4's shared expert by hidden columns, the MoE experts by expert,
-    the mLSTM, sLSTM and Mamba2 blocks by heads and an untied head by
-    vocab columns, each position its region; every
+    ``model.split_regions`` splits, attention (whisper's self and cross
+    attention too) by heads, the dense FFN and llama4's shared expert by
+    hidden columns, the MoE experts by expert, the mLSTM, sLSTM and
+    Mamba2 blocks by heads, an untied head by vocab columns and a VLM's
+    ``patch_proj`` by columns, each position its region; every
     other weight whole on the shard's first position, whose device holds
     the activations).  Each layer's weights are
     gathered onto the positions' devices inside its checkpointed call
@@ -311,7 +312,9 @@ def make_train_step(model, optimizer, cfg: ArchConfig, shape: ShapeConfig,
     recompute gathers again and no layer's copies outlive its forward or
     its backward; the unstacked leaves (``embed``, ``head``,
     ``final_ln``, ``patch_proj``, zamba2's ``shared``) are gathered once a
-    step, the split ones a region on each position.  There is one
+    step, the split ones a region on each position (``patch_proj``'s
+    columns project the patches in the hoisted embedding, still outside
+    the gradient).  There is one
     accumulator: each gradient is cut into its blocks and each owner adds
     its block, micro-batch after micro-batch and position after position
     in mesh order, and the losses are summed in that order too.  With a
@@ -464,8 +467,9 @@ def _mesh_step(optimizer, cfg, shape, plan, compress_fn, mesh, stats,
         setups[devs] = (m, bound, parts, g, ctx, once)
 
     batch = _on(batch, first)
-    with torch.no_grad():
-        x_all = setups[tuple(d for _, d in shards[0])][0].embed_in(batch)
+    with torch.no_grad():       # a VLM's patches by patch_proj's columns
+        m, *_, ctx, _ = setups[tuple(d for _, d in shards[0])]
+        x_all = m.embed_in(batch, ctx)
     rest = {k: v for k, v in batch.items() if k not in ("tokens", "patches")}
     lsum = torch.zeros((), device=first)
     for j, row in enumerate(shards):

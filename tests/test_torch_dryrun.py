@@ -127,9 +127,9 @@ def test_a_training_cells_port_figure_is_the_sharded_trainers():
                                         ("gemma3-12b", True)])
 def test_what_a_training_cell_leaves_whole_is_gathered_whole(arch, split):
     """llama4's 40 heads on a "model" axis of 16 compute their attention
-    whole (its experts split, 8 a position), and whisper's blocks and
-    head wait for their slice: a position's largest layer holds those
-    leaves whole.  gemma3's 16 heads
+    whole (its experts split, 8 a position), and so do whisper's 8 heads
+    (16 does not divide them; its FFN and head split, below): a
+    position's largest layer holds those leaves whole.  gemma3's 16 heads
     split (one query head and its kv head a position), its tied head is
     the replicated table, so nothing is gathered once a step."""
     cfg = get_config(arch)
@@ -144,6 +144,37 @@ def test_what_a_training_cell_leaves_whole_is_gathered_whole(arch, split):
         assert port["gathered_once"] == 0
     else:
         assert port["gathered_layer"] >= attn
+
+
+@pytest.mark.parametrize("arch", ["whisper-base", "internvl2-2b"])
+def test_a_training_cells_whisper_and_vlm_figures(arch):
+    """whisper-base and internvl2-2b at train_4k on 16 x 16 (bf16).
+    whisper: its largest layer a decoder layer, whose attention and cross
+    attention are gathered whole (16 does not divide 8 heads) beside its
+    FFN's d_ff / 16 columns of ``w1``, ``w3`` and rows of ``w2``
+    (4,587,520 B); once a step the head's Vp / 16 columns (3,325,952 B);
+    94,039,044 B a device.  internvl2: once a step the head's Vp / 16
+    columns and ``patch_proj``'s d / 16 (24,248,320 B)."""
+    cfg = get_config(arch)
+    mem = dryrun.account(cfg, SHAPES["train_4k"],
+                         production_mesh_shape())["memory"]
+    port, sharded = mem["port_per_device"], mem["sharded_per_device"]
+    d, m = cfg.d_model, 16
+    head = 2 * d * cfg.padded_vocab // m
+    if arch == "whisper-base":
+        attn = 2 * d * cfg.n_heads * cfg.dh + 2 * d * cfg.n_kv_heads * cfg.dh
+        layer = 2 * (2 * attn + 3 * d * cfg.d_ff // m)
+        assert (layer, head) == (4_587_520, 3_325_952)
+        assert port["gathered_layer"] == layer
+        assert port["gathered_once"] == head
+        assert port["total"] == 94_039_044
+    else:
+        once = head + 2 * d * d // m
+        assert once == 24_248_320
+        assert port["gathered_once"] == once
+        assert port["total"] == 562_999_300
+    assert port["total"] == (sharded["total"] + port["gathered_layer"]
+                             + port["gathered_once"])
 
 
 @pytest.mark.parametrize("arch", ["dbrx-132b", "llama4-maverick-400b-a17b"])

@@ -3,8 +3,11 @@ f32: attention by heads, the dense SwiGLU FFN and llama4's shared expert
 by hidden columns (their output projections' partial products added in
 mesh order), the MoE experts by expert (each position its E/M experts
 on its slice of the dispatch block), the recurrent blocks (xlstm's mLSTM
-and sLSTM, zamba2's Mamba2) by heads and the vocab-parallel head and
-loss.
+and sLSTM, zamba2's Mamba2) by heads, whisper's encoder and decoder
+layers (self and cross attention by heads, the FFN by hidden columns),
+internvl2's patch projection by columns and the vocab-parallel head and
+loss.  whisper's frames and internvl2's patches are drawn with numpy
+from seed 0 in the reference's subprocess, after the tokens and labels.
 
 The oracle is the JAX package's own GSPMD step: its jitted train step on
 a 2 x 2 ("data", "model") mesh of 4 host devices, in one subprocess for
@@ -40,13 +43,14 @@ from repro_torch.models import build_model, lm
 from repro_torch.models.layers import (cross_entropy,
                                        vocab_parallel_cross_entropy)
 from repro_torch.train import sharding as sh
-from repro_torch.train.step import TrainPlan, make_train_step
+from repro_torch.train.step import (TrainPlan, make_train_step,
+                                   position_members)
 from test_torch_train import LR, _compare_step
 
 ROOT = Path(__file__).resolve().parents[1]
 SEQ, BATCH, N_MICRO, CHUNK = 16, 8, 4, 8
 REF_ARCHS = ["llama3-8b", "dbrx-132b", "llama4-maverick-400b-a17b",
-             "xlstm-1.3b", "zamba2-2.7b"]
+             "xlstm-1.3b", "zamba2-2.7b", "whisper-base", "internvl2-2b"]
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -101,6 +105,12 @@ for arch in archs.split(","):
     rng = np.random.default_rng(0)
     batch = {k: rng.integers(0, cfg.vocab, (batch_n, seq)).astype(np.int32)
              for k in ("tokens", "labels")}
+    if cfg.family == "audio":
+        batch["frames"] = rng.normal(
+            size=(batch_n, cfg.encoder_ctx, cfg.d_model)).astype(np.float32)
+    if cfg.n_patches:
+        batch["patches"] = rng.normal(
+            size=(batch_n, cfg.n_patches, cfg.d_model)).astype(np.float32)
     b_sh = named(batch_specs(batch, mesh))
     fn = make_train_step(model, opt, cfg,
                          ShapeConfig("t", seq, batch_n, "train"),
@@ -165,11 +175,17 @@ def test_the_model_axis_step_matches_the_reference_gspmd_step(gspmd, arch):
         _assert_moe_positions(cfg, step.stats, 2)
         assert step.stats["split_model_calls"] > 0
         assert step.stats["concat_model_calls"] > 0
-    if cfg.family in ("ssm", "hybrid"):     # every position computes a
-        for p in step.stats["positions"]:   # part of each recurrent layer
-            assert len(p["layer_bytes"]) == len(build_model(
-                cfg, device="meta").layers()), p
+    if cfg.family in ("ssm", "hybrid", "audio"):    # every position
+        n_layers = len(position_members(          # computes a part of
+            build_model(cfg, device="meta"), 2)[0])   # each layer
+        for p in step.stats["positions"]:
+            assert len(p["layer_bytes"]) == n_layers, p
             assert min(p["layer_bytes"].values()) > 0, p
+    if cfg.n_patches:       # patch_proj's d/M columns beside the head's
+        d = cfg.d_model     # Vp/M, put together by concat_model
+        for p in step.stats["positions"]:
+            assert p["once_bytes"] == 4 * d * (cfg.padded_vocab + d) // 2, p
+        assert step.stats["concat_model_calls"] == 1
 
 
 def _moe_layer_bytes(cfg, ways: int, experts_split: bool = True) -> tuple:

@@ -59,10 +59,27 @@ for:
 ``chip_smoke.REC_LIMITS`` are twice the ``*_full`` and ``*_full_f32``
 readings.
 
-Run it on the card (about 3 minutes for llama, 2 for dbrx, 2.5 for xlstm
-or zamba2)::
+At ``chip_smoke.py``'s whisper configuration (whisper-base at full width
+and depth, 6 + 6 layers, 1500 frames, bf16 from seed 0, AdamW with f32
+master weights, 8 x 4096 tokens in 2 micro-batches;
+``chip_smoke.train_whisper_one_device``) it measures the same rows for:
 
-    python3 tools/model_axis_noise.py [--only llama|dbrx|xlstm|zamba2] [OUT]
+* ``whisper_ulp``: the one-device step with one entry of the first
+  decoder layer's ``attn.wq`` moved by one bf16 ulp;
+* ``whisper_full``: the sharded step on the 2 x 2 mesh
+  (``chip_smoke.train_whisper_sharded``: the encoder and decoder layers,
+  the cross attention and the head over "model");
+* ``whisper_full_f32``: that step and its one-device step both in f32.
+
+``chip_smoke.WHISPER_LIMITS`` are twice the ``whisper_full`` and
+``whisper_full_f32`` readings.
+
+Run it on the card (about 3 minutes for llama, 2 for dbrx, 2.5 for xlstm
+or zamba2, 1 for whisper)::
+
+    python3 tools/model_axis_noise.py [--only MODEL] [OUT]
+
+with MODEL one of ``llama``, ``dbrx``, ``xlstm``, ``zamba2``, ``whisper``.
 
 It prints one JSON line a case and writes them all to ``OUT`` (default
 ``build/model_axis_noise.json``).
@@ -140,32 +157,21 @@ def dbrx_cases(record) -> None:
     _, nudged = cs.train_moe_one_device(nudge=True)
     nudged_drops = nudged["drops"]
     torch.cuda.empty_cache()
-    rows = cs.moe_sharded_vs_one_device(
+    rows = cs.sharded_vs_one_device(
         {k: tree_on_card(nudged["state"][k]) for k in ("params", "opt")},
-        base["state"], base["lr"])
+        base["state"], base["lr"], cs.MOE_MOMENT_REL, cs.MOE_PARAM_LR)
     del nudged
     record("dbrx_one_ulp", rows["moment_rel_errs"],
            param_err_lr=rows["param_err_lr"], param_leaf=rows["param_leaf"],
            drops=nudged_drops, drops_one_device=base["drops"])
-    seen = {}
-    real = cs.moe_sharded_vs_one_device
-
-    def capture(state, kept_state, lr, *limits):
-        seen.update(real(state, kept_state, lr, *limits))
-        return seen
-
-    cs.moe_sharded_vs_one_device = capture
-    try:
-        for name, experts_only in (("dbrx_experts_only", True),
-                                   ("dbrx_full", False)):
-            fields = cs.train_moe_sharded(base, experts_only=experts_only)
-            record(name, dict(seen["moment_rel_errs"]),
-                   param_err_lr=seen["param_err_lr"],
-                   param_leaf=seen["param_leaf"],
-                   drops=fields["drops"], drops_one_device=base["drops"])
-            torch.cuda.empty_cache()
-    finally:
-        cs.moe_sharded_vs_one_device = real
+    for name, experts_only in (("dbrx_experts_only", True),
+                               ("dbrx_full", False)):
+        fields = cs.train_moe_sharded(base, experts_only=experts_only)
+        record(name, dict(fields["state"]["moment_rel_errs"]),
+               param_err_lr=fields["state"]["param_err_lr"],
+               param_leaf=fields["state"]["param_leaf"],
+               drops=fields["drops"], drops_one_device=base["drops"])
+        torch.cuda.empty_cache()
 
 
 @contextlib.contextmanager
@@ -179,10 +185,14 @@ def patched(obj, name: str, value):
         setattr(obj, name, real)
 
 
-def recurrent_nudge(params) -> None:
-    """Move one entry of the first recurrent block's first product (the
-    mLSTM's ``wq``, the Mamba2's ``in_proj``), which every token's path
-    crosses, by one bf16 ulp."""
+def nudge(params) -> None:
+    """Move one entry of the first block's first product, which every
+    token's path crosses, by one bf16 ulp: the first mLSTM's ``wq``, the
+    first Mamba2's ``in_proj``, whisper's first decoder layer's
+    ``attn.wq``."""
+    if "dec" in params:
+        params["dec"]["attn"]["wq"].view(torch.int16)[0, 3, 5] += 1
+        return
     group = params["g_super"]
     w = group["mlstm"]["wq"] if "mlstm" in group else group["mamba"][
         "in_proj"]
@@ -190,10 +200,10 @@ def recurrent_nudge(params) -> None:
 
 
 def nudged_state(cfg, opt):
-    """``chip_smoke.whole_train_state`` with :func:`recurrent_nudge`
-    applied to its parameters."""
+    """``chip_smoke.whole_train_state`` with :func:`nudge` applied to its
+    parameters."""
     model, state = REAL_WHOLE_TRAIN_STATE(cfg, opt)
-    recurrent_nudge(state["params"])
+    nudge(state["params"])
     return model, state
 
 
@@ -254,8 +264,38 @@ def recurrent_cases(arch: str, record, stage: list) -> None:
                                                         base, False), record)
 
 
+def whisper_cases(record, stage: list) -> None:
+    """The whisper configuration's cases (the module docstring), each
+    recorded as its first moments' distances, the loss and norm errors
+    and its largest parameter difference in lr; ``stage`` names the case
+    being run."""
+    stage[:] = ["whisper_one_device"]
+    base = cs.train_whisper_one_device("bfloat16")
+    stage[:] = ["whisper_ulp"]
+    with patched(cs, "whole_train_state", nudged_state):
+        nudged = cs.train_whisper_one_device("bfloat16")
+    rows = cs.sharded_vs_one_device(
+        {k: tree_on_card(nudged["state"][k]) for k in ("params", "opt")},
+        base["state"], base["lr"])
+    record("whisper_ulp", rows["moment_rel_errs"],
+           param_err_lr=rows["param_err_lr"], param_leaf=rows["param_leaf"],
+           loss_rel_err=rel_err(nudged["loss"], base["loss"]),
+           grad_norm_rel_err=rel_err(nudged["grad_norm"], base["grad_norm"]))
+    del nudged, rows
+    torch.cuda.empty_cache()
+    stage[:] = ["whisper_full"]
+    record_sharded(stage[0], cs.train_whisper_sharded("bfloat16", base,
+                                                      False), record)
+    del base
+    stage[:] = ["whisper_full_f32"]
+    base = cs.train_whisper_one_device("float32")
+    record_sharded(stage[0], cs.train_whisper_sharded("float32", base,
+                                                      False), record)
+
+
 def record_sharded(name: str, fields: dict, record) -> None:
-    """Record a recurrent sharded step's distances from its baseline."""
+    """Record a sharded step's distances from its baseline (a recurrent
+    or a whisper step's fields)."""
     record(name, fields["state"]["moment_rel_errs"],
            param_err_lr=fields["state"]["param_err_lr"],
            param_leaf=fields["state"]["param_leaf"],
@@ -314,6 +354,9 @@ def main(argv=None):
         if only in (None, arch.split("-")[0]):
             recurrent_cases(arch, record, stage)
             write()
+    if only in (None, "whisper"):
+        whisper_cases(record, stage)
+        write()
     if only not in (None, "llama"):
         return
     stage[:] = ["llama"]
@@ -361,10 +404,10 @@ def main(argv=None):
     seen = {}
     real = cs.sharded_vs_one_device
 
-    def capture(state, kept_state, lr):
+    def capture(state, kept_state, lr, *limits):
         seen["rows"] = moments_against(state["opt"]["m"],
                                        kept_state["opt"]["m"])
-        return real(state, kept_state, lr)
+        return real(state, kept_state, lr, *limits)
 
     cs.sharded_vs_one_device = capture
     try:
