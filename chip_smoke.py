@@ -89,7 +89,13 @@ after:
     of 129 tokens (sketches on the card, 1024 clusters, a chi-square test
     of its draws, a landmark fit's labels against the plain version's,
     one ``Trainer`` step fed by it), and the paper's Table 1 on the Iris
-    and Seeds surrogates through ``sampled_kmeans``.
+    and Seeds surrogates through ``sampled_kmeans``;
+  * the roofline: every kernel's bound comes from
+    ``repro_torch.roofline.analysis`` (the H100's roofs and the kernels'
+    work), and its ``predicted_vs_measured`` is reported on each shape the
+    kernels were timed at; one ``kmeans_lloyd_step`` at paper_500k's
+    local shape against the plain version; ``calibrate()`` and the
+    paper_500k fit's ``summarize_events`` totals.
 
     python3 chip_smoke.py          # needs one CUDA device (sm_90a) and nvcc
     python3 chip_smoke.py --stream-sweep 6   # only the stream's seed sweep
@@ -120,14 +126,7 @@ ROOT = Path(__file__).resolve().parent
 SPECS = ROOT / "benchmarks" / "specs"
 SPEC_FILE = SPECS / "paper_500k.json"
 
-# published H100 SXM peaks (NVIDIA data sheet, dense, 700 W): FP32 outside
-# the tensor cores, TF32 on the tensor cores (without sparsity), and HBM3
-# bandwidth
-FP32_PEAK = 67e12          # FLOP/s
-TF32_PEAK = 495e12         # FLOP/s
-HBM_BYTES_PER_S = 3.35e12  # B/s
 SPIN_CYCLES = 200_000_000  # ~0.1 s at the H100's clock: time to queue calls
-ISSUE_PER_SM_CLOCK = 128   # thread-instructions an SM issues a clock (4 x 32)
 
 
 def emit(phase: str, **fields) -> None:
@@ -152,11 +151,6 @@ def call_ms(fn, *, iters: int = 20) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
-
-
-def n_read(t: torch.Tensor) -> int:
-    """Elements a kernel reads of ``t`` (once, for a batch broadcast)."""
-    return t[:1].numel() if t.stride(0) == 0 else t.numel()
 
 
 def rotating(fn, *inputs):
@@ -199,78 +193,6 @@ def one_launch_ms(fn) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end)
-
-
-def bound_ms(ops: float, n_bytes: float) -> tuple[float, str]:
-    """Least time for ``ops`` FP32 operations and ``n_bytes`` of device
-    memory traffic: the larger of the two over the card's peaks."""
-    t_ops = ops / FP32_PEAK * 1e3
-    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
-
-
-def pair_bound_ms(b: int, m: int, k: int, d: int, in_bytes: int,
-                  out_bytes: int) -> tuple[float, str]:
-    """Least time for a distance-scan kernel: the larger of its FP32 work
-    over the FP32 peak and its bytes over the HBM rate.  Work per (point,
-    center) pair: 2d for the cross term (d multiply-adds), then the norm
-    add, the subtract of 2 x.c and the clamp (+3) — 7 at d=2."""
-    return bound_ms(b * m * k * (2 * d + 3), in_bytes + out_bytes)
-
-
-def issue_floor_ms(b: int, m: int, k: int, d: int, sm_count: int,
-                   clock_hz: float) -> float:
-    """Least time for the exact per-pair expression of a one-pass
-    assignment at the SMs' issue rate (``ISSUE_PER_SM_CLOCK``
-    thread-instructions per clock at their top clock): d multiply-adds for
-    the cross term, then the norm add, the fused subtract of 2 x.c, the
-    clamp, the compare and two selects, d + 6 instructions a pair (nvcc
-    compiles argmin_tile's form to d + 7: it doubles 2 x.c and
-    subtracts).  Unlike :func:`bound_ms` it charges an add, a compare or a
-    select a whole issue slot."""
-    return b * m * k * (d + 6) / (sm_count * ISSUE_PER_SM_CLOCK
-                                  * clock_hz) * 1e3
-
-
-def tc_lo_blocks(x: torch.Tensor) -> torch.Tensor:
-    """(B, ceil(M / TC_ROWS)) bool: the tensor-core route's blocks of
-    points that hold a value not exact in TF32 (its mantissa rounded to 10
-    bits, ties away from zero, as the kernel rounds), which take three
-    TF32 passes; the others take two."""
-    from repro_torch.kernels import tiles
-    b, m, _ = x.shape
-    bits = x.float().contiguous().view(torch.int32)
-    lo = (((bits + 0x1000) & -0x2000) != bits).any(-1).to(torch.int8)
-    lo = torch.nn.functional.pad(lo, (0, -m % tiles.TC_ROWS))
-    return lo.view(b, -1, tiles.TC_ROWS).any(-1)
-
-
-def tc_bound_ms(x: torch.Tensor, k: int) -> float:
-    """Least time for the cross term on the tensor cores (the Lloyd
-    kernel's tensor-core route) at the TF32 peak: 2 K d operations per
-    point and pass, three passes in the blocks of :func:`tc_lo_blocks`,
-    two in the others, as this run's points need."""
-    from repro_torch.kernels import tiles
-    b, m, d = x.shape
-    rows = torch.full((-(-m // tiles.TC_ROWS),), tiles.TC_ROWS)
-    rows[-1] = m - (rows.numel() - 1) * tiles.TC_ROWS
-    passes = 2 + tc_lo_blocks(x).long().cpu()
-    return float((passes * rows).sum()) * 2 * k * d / TF32_PEAK * 1e3
-
-
-def lloyd_bound_ms(x: torch.Tensor, k: int, n_bytes: int,
-                   route: str) -> tuple[float, str]:
-    """Least time for a Lloyd step on its route.  SIMT: the FP32 work of
-    :func:`pair_bound_ms`, or the bytes.  Tensor cores: the larger of the
-    cross term's TF32 passes (:func:`tc_bound_ms`), the epilogue's three
-    FP32 operations per pair on the CUDA cores (the norm add, the subtract
-    of 2 x.c and the clamp) and the bytes."""
-    b, m, d = x.shape
-    if route == "simt":
-        return pair_bound_ms(b, m, k, d, n_bytes, 0)
-    t_ops = max(tc_bound_ms(x, k), b * m * k * 3 / FP32_PEAK * 1e3)
-    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
 # ---------------------------------------------------------------------------
@@ -729,14 +651,6 @@ def scan_plan(luts, codes) -> dict:
     return dict(threads=tiles.THREADS, blocks_per_sm=per_sm,
                 blocks_per_entry=p.blocks, grid=[p.blocks, b],
                 tiles_per_block=-(-n_tiles // p.blocks), waves=p.waves)
-
-
-def scan_bound_ms(luts, codes) -> tuple[float, str]:
-    """Bytes: every code once, every table once, every output once;
-    operations: one add per code."""
-    b, l, m = codes.shape
-    return bound_ms(b * l * m, codes.numel() + luts.numel()
-                    * luts.element_size() + b * l * 4)
 
 
 # ---------------------------------------------------------------------------
@@ -1879,18 +1793,6 @@ LIVE_TOTALS_BEFORE = (495, 736)
 # on a CPU with ``PYTHONPATH=src python -m benchmarks.run --only
 # cluster_attn``); the port's kernel must stay within 1.25x + 0.01 of it.
 JAX_ATTN_REL_ERR = {8: 0.3724, 64: 0.4155}
-
-
-def attn_bound_ms(q, kc, vc, counts) -> tuple[float, str]:
-    """Bytes: q, kc, vc and counts read once, (acc, m, l) written once;
-    operations: per (query head, centroid) 2 dh for the logit, 2 dh for
-    the value sum and about 4 for the bias, max and exponential."""
-    b, h, dh = q.shape
-    nc = kc.shape[2]
-    in_bytes = (q.numel() * q.element_size() + kc.numel() * kc.element_size()
-                + vc.numel() * vc.element_size() + counts.numel() * 4)
-    out_bytes = b * h * (dh + 2) * 4
-    return bound_ms(b * h * nc * (4 * dh + 4), in_bytes + out_bytes)
 
 
 def layer_query(model, blk, token: torch.Tensor, pos: int) -> torch.Tensor:
@@ -4704,6 +4606,9 @@ def main() -> int:
     from repro_torch.data import blobs
     from repro_torch.kernels import (assign, build, centroid, cluster_attn,
                                      lloyd, ref, scan, tiles)
+    from repro_torch.roofline.analysis import (
+        issue_floor_ms, kernel_bound_ms, kernel_dims, pair_bound_ms,
+        tc_lo_blocks)
     from repro_torch.telemetry import RecordingLogger
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -5438,50 +5343,54 @@ def main() -> int:
                 lambda *t: kernel(*t, row), *inputs)))
         return entry
 
-    def timed(shape_name, inputs, kernel, plain, bound, library=None,
-              iters=20, **dims):
-        b_ms, by = bound
-        return dict(
-            shape=shape_name, **dims,
+    # bound_ms / bound_by: repro_torch.roofline's bound of the kernel
+    # (``model``) on its route at ``cost_dims``, the launch's dims
+    # (kernel_dims of its inputs; the roofline phase reads them)
+    def with_bound(entry, model, inputs, route="simt"):
+        entry["cost_dims"] = dims = kernel_dims(model, *inputs, route=route)
+        entry["bound_ms"], entry["bound_by"] = kernel_bound_ms(
+            model, route=route, **dims)
+        return entry
+
+    def timed(shape_name, inputs, kernel, plain, model, library=None,
+              iters=20, bound_inputs=None, **fields):
+        return with_bound(dict(
+            shape=shape_name, **fields,
             ms=device_ms(rotating(kernel, *inputs), iters=iters),
             call_ms=call_ms(rotating(kernel, *inputs), iters=iters),
             plain_ms=device_ms(rotating(plain, *inputs), iters=3),
             library_ms=(None if library is None
-                        else device_ms(rotating(library[0], *library[1]))),
-            bound_ms=b_ms, bound_by=by)
+                        else device_ms(rotating(library[0], *library[1])))),
+            model, bound_inputs or inputs, fields.get("route", "simt"))
 
-    # bound_ms: the route's bound (lloyd_bound_ms); on the tensor-core
-    # route also fp32_bound_ms, the FP32 CUDA-core bound of the same work,
-    # and where the tensor cores take the shape tc_bound_ms, the cross
-    # term's TF32 passes at the TF32 peak
-    def lloyd_bytes(xw, wl, cl):
-        bb, mm, dd = xw.shape
-        kk = cl.shape[1]
-        return ((n_read(xw) + n_read(wl) + cl.numel()) * 4 + bb * mm * 8
-                + bb * kk * (dd + 1) * 4 + bb * 4)
-
-    def lloyd_bounds(entry, xw, cl, n_bytes):
-        bb, mm, dd = xw.shape
-        kk = cl.shape[1]
-        entry["bound_ms"], entry["bound_by"] = lloyd_bound_ms(
-            xw, kk, n_bytes, entry["route"])
+    # on the tensor-core route also fp32_bound_ms, the bound of the same
+    # work on the CUDA cores (the SIMT route's), and where the tensor
+    # cores take the shape tc_bound_ms, the bound on their route
+    def tc_bounds(entry, model, inputs):
+        kk, dd = entry["k"], entry["d"]
         if entry["route"] == "tc":
-            entry["fp32_bound_ms"] = pair_bound_ms(bb, mm, kk, dd, n_bytes,
-                                                   0)[0]
-        if dd >= tiles.TC_MIN_D and tiles.sort_clusters_fit(kk):
-            entry["tc_bound_ms"] = tc_bound_ms(xw, kk)
+            entry["fp32_bound_ms"] = kernel_bound_ms(
+                model, route="simt", **entry["cost_dims"])[0]
+        if dd >= tiles.TC_MIN_D and (model == "assign"
+                                     or tiles.sort_clusters_fit(kk)):
+            entry["tc_bound_ms"] = kernel_bound_ms(model, route="tc", **(
+                entry["cost_dims"] if entry["route"] == "tc"
+                else kernel_dims(model, *inputs, route="tc")))[0]
         return entry
+
+    # a Lloyd launch timed on the kernel alone
+    def kernel_only_entry(entry, inputs):
+        return tc_bounds(with_bound(entry, "lloyd", inputs, entry["route"]),
+                         "lloyd", inputs)
 
     def lloyd_entry(shape_name, xw, wl, cl, routes=False, iters=20):
         bb, mm, dd = xw.shape
         kk = cl.shape[1]
-        n_bytes = lloyd_bytes(xw, wl, cl)
         route = tiles.lloyd_route(kk, dd)
-        entry = lloyd_bounds(
-            timed(shape_name, (xw, wl, cl), lloyd.lloyd_step,
-                  ref.lloyd_step_ref, lloyd_bound_ms(xw, kk, n_bytes, route),
-                  iters=iters, b=bb, m=mm, k=kk, d=dd, route=route), xw, cl,
-            n_bytes)
+        entry = tc_bounds(timed(
+            shape_name, (xw, wl, cl), lloyd.lloyd_step, ref.lloyd_step_ref,
+            "lloyd", iters=iters, b=bb, m=mm, k=kk, d=dd, route=route),
+            "lloyd", (xw, wl, cl))
         if routes:   # both routes on the same inputs
             entry["route_ms"] = {
                 r: device_ms(rotating(
@@ -5504,14 +5413,11 @@ def main() -> int:
         return timed(
             shape_name, (xw, ids, wl),
             lambda *t: centroid.centroid_update(*t, kk),
-            lambda *t: ref.centroid_update_ref(*t, kk),
-            bound_ms(bb * mm * (2 * dd + 1),
-                     (n_read(xw) + n_read(wl) + ids.numel()) * 4
-                     + bb * kk * (dd + 1) * 4),
+            lambda *t: ref.centroid_update_ref(*t, kk), "centroid",
             library=(lambda f, v: torch.zeros(bb * kk, dd, device="cuda"
                                               ).index_add_(0, f, v),
                      (flat, wx)),
-            b=bb, m=mm, k=kk, d=dd)
+            bound_inputs=(xw, ids, wl, kk), b=bb, m=mm, k=kk, d=dd)
 
     # the derived plan (``ms``), and the card's row where one applies
     # (``row_ms``, what the search's lookup launches)
@@ -5521,7 +5427,7 @@ def main() -> int:
         return with_row(timed(
             shape_name, (luts, codes),
             lambda *t: scan.adc_scan_cuda(*t, DEFAULT), ref.adc_scan_ref,
-            scan_bound_ms(luts, codes), b=b, l=l, m=m, c=luts.shape[2],
+            "scan", b=b, l=l, m=m, c=luts.shape[2],
             plan=scan_plan(luts, codes)), "scan", scan.adc_scan_cuda,
             (luts, codes), b=b, l=l, msub=m, c=luts.shape[2])
 
@@ -5545,13 +5451,11 @@ def main() -> int:
     # so the tensor-core route leaves out its lo_x pass
     xb = xr.bfloat16().float()
     l_refresh, l_refresh_bf16 = (
-        lloyd_bounds(dict(shape=name, b=256, m=9216, k=8192, d=128,
-                          route=tiles.lloyd_route(8192, 128),
-                          ms=device_ms(lambda p=p: lloyd.lloyd_step(p, wr,
-                                                                    cr),
-                                       iters=3),
-                          plain_ms=None, library_ms=None),
-                     p, cr, lloyd_bytes(p, wr, cr))
+        kernel_only_entry(dict(
+            shape=name, b=256, m=9216, k=8192, d=128,
+            route=tiles.lloyd_route(8192, 128),
+            ms=device_ms(lambda p=p: lloyd.lloyd_step(p, wr, cr), iters=3),
+            plain_ms=None, library_ms=None), (p, wr, cr))
         for name, p in (("refresh, 256 lanes", xr),
                         ("refresh, 256 lanes, bf16-valued points", xb)))
     del xr, wr, cr, xb
@@ -5621,10 +5525,10 @@ def main() -> int:
         ms = (float(np.median(served_ms)) if served_ms else
               one_launch_ms(lambda: lloyd.lloyd_step(xk, wk, ck)) if once
               else device_ms(lambda: lloyd.lloyd_step(xk, wk, ck), iters=3))
-        entry = lloyd_bounds(dict(
+        entry = kernel_only_entry(dict(
             shape=name, b=bb, m=mm, k=kk, d=dd,
             route=tiles.lloyd_route(kk, dd), ms=ms,
-            plain_ms=None, library_ms=None), xk, ck, lloyd_bytes(xk, wk, ck))
+            plain_ms=None, library_ms=None), (xk, wk, ck))
         if served_ms:
             entry["served_launches_ms"] = served_ms
         if entry["route"] == "simt":
@@ -5694,8 +5598,8 @@ def main() -> int:
         return timed(name, inputs,
                      lambda *t: cluster_attn.cluster_attn_partial(*t, sc),
                      lambda *t: ref.cluster_attn_decode_ref(*t, sc),
-                     attn_bound_ms(*inputs),
-                     library=sdpa_library(inputs, sc), **dims)
+                     "cluster_attn", library=sdpa_library(inputs, sc),
+                     **dims)
 
     sdpa, sdpa_in = sdpa_library(serve_attn, scale)
     sdpa_err = float((sdpa(*sdpa_in)[:, :, 0].float()
@@ -5716,11 +5620,11 @@ def main() -> int:
         "ragged (bf16)", ragged,
         lambda *t: cluster_attn.cluster_attn_partial(*t, scale),
         lambda *t: ref.cluster_attn_decode_ref(*t, scale),
-        attn_bound_ms(*ragged), b=4, h=32, hkv=8, nc=1000, dh=128)
+        "cluster_attn", b=4, h=32, hkv=8, nc=1000, dh=128)
     # the assignment kernel at every shape its paths launched, with each
     # path's calls; at small d also the issue floor of the exact expression
     # (issue_floor_ms); where d >= TC_MIN_D both routes on the same inputs
-    # (route_ms) and the tensor cores' bound (tc_bound_ms)
+    # (route_ms) and the bound on the tensor cores' route (tc_bound_ms)
     def assign_entry(shape, calls, shared):
         bb, mm, kk, dd = shape
         if shape == tuple(predict_x.shape[:2]) + tuple(predict_c.shape[1:]):
@@ -5728,13 +5632,11 @@ def main() -> int:
         else:
             name = f"{'+'.join(calls)} {bb}x{mm}x{kk} d={dd}"
             xa, _, ca = _case(bb, mm, kk, dd, share_x=shared, seed=26)
-        n_bytes = (n_read(xa) + ca.numel()) * 4 + bb * mm * 8
         route = tiles.assign_route(kk, dd)
-        entry = timed(name, (xa, ca), assign.assign_argmin,
-                      ref.assign_argmin_ref,
-                      pair_bound_ms(bb, mm, kk, dd, n_bytes, 0),
-                      b=bb, m=mm, k=kk, d=dd, route=route,
-                      calls_by_path=calls)
+        entry = tc_bounds(timed(
+            name, (xa, ca), assign.assign_argmin, ref.assign_argmin_ref,
+            "assign", b=bb, m=mm, k=kk, d=dd, route=route,
+            calls_by_path=calls), "assign", (xa, ca))
         if 0 < tiles.register_dim(dd) <= 16:
             entry["issue_floor_ms"] = issue_floor_ms(bb, mm, kk, dd, sms,
                                                      sm_clock_hz)
@@ -5743,11 +5645,6 @@ def main() -> int:
                 r: device_ms(rotating(
                     lambda *t, r=r: assign.route_argmin(*t, r), xa, ca))
                 for r in ("simt", "tc")}
-            entry["tc_bound_ms"] = tc_bound_ms(xa, kk)
-        if route == "tc":
-            entry["fp32_bound_ms"] = entry["bound_ms"]
-            entry["bound_ms"], entry["bound_by"] = lloyd_bound_ms(
-                xa, kk, n_bytes, "tc")
         return with_row(entry, "assign", assign.assign_argmin, (xa, ca),
                         b=bb, m=mm, k=kk, d=dd)
 
@@ -5902,6 +5799,9 @@ def main() -> int:
              shapes=[attn_500k, attn_gemma, attn_dbrx, attn_zamba,
                      attn_ragged]),
     ]
+    # -- 13. the roofline: repro_torch.roofline's models at section 12's
+    # shapes and times, kmeans_lloyd_step, the telemetry helpers ----------
+    roofline_phase(kernels, local, log.events, kind, smi)
     emit("done", seconds=time.perf_counter() - t_all)
     print(smi)
     print(json.dumps({"kernels": kernels}))
@@ -5909,6 +5809,91 @@ def main() -> int:
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))
     return 0
+
+
+# each kernel of the ``kernels`` line and its model in repro_torch.roofline
+KERNEL_MODELS = {"lloyd_step": "lloyd", "assign_argmin": "assign",
+                 "centroid_update": "centroid", "adc_scan": "scan",
+                 "cluster_attn": "cluster_attn"}
+
+
+def roofline_phase(kernels: list, local, events: list, kind: str,
+                   smi: str) -> dict:
+    """``kmeans_lloyd_step`` at paper_500k's local shape (its default
+    backend: one Lloyd kernel launch) against the plain statistics of its
+    own labels at the Lloyd kernel's tolerance (:func:`lloyd_parity`'s)
+    and against the plain step, whose counts may differ only in the
+    clusters of the points the two label apart; ``predicted_vs_measured``
+    for every shape section 12 timed, on its times and ``cost_dims`` (no
+    launch); ``calibrate()`` and the ``summarize_events`` totals of
+    paper_500k's logged fit."""
+    from repro_torch.core import get_backend, kmeans_lloyd_step
+    from repro_torch.kernels import ref
+    from repro_torch.roofline.analysis import predicted_vs_measured
+    from repro_torch.telemetry import calibrate, summarize_events
+    t0 = time.perf_counter()
+    x, w, c = local
+    reset_launches()
+    new_c, counts = kmeans_lloyd_step(x, c, w)
+    torch.cuda.synchronize()
+    launched = read_launches()
+    check(launched["lloyd_step"] == 1 and sum(launched.values()) == 1,
+          f"kmeans_lloyd_step launched {launched}")
+    # the same launch again, for its labels: the plain statistics of them
+    be = get_backend(None, device=x.device)
+    st = be.step(be.prepare(x, w), c)
+    check(torch.equal(st.counts, counts), "kmeans_lloyd_step: a repeated "
+          "step is not bit-identical")
+    csums, ccounts = ref.centroid_update_ref(x, st.idx, w, c.shape[1])
+    want = torch.where((ccounts <= 0)[..., None], c,
+                       csums / ccounts.clamp_min(1e-12)[..., None])
+    check(torch.equal(counts, ccounts), "kmeans_lloyd_step: counts differ")
+    cerr = float(((new_c - want).abs() - 1e-4 * want.abs()).amax())
+    check(cerr <= 1e-4 * float(want.abs().amax()),
+          f"kmeans_lloyd_step: centers off ({cerr})")
+    plain_c, plain_n = kmeans_lloyd_step(x, c, w, backend="torch")
+    # the clusters the two steps may count apart: both labels of every
+    # point they label apart
+    pb = get_backend("torch", device=x.device)
+    plain_idx = pb.step(pb.prepare(x, w), c).idx
+    apart = st.idx.ne(plain_idx)
+    lane = torch.arange(x.shape[0], device=x.device)[:, None].expand_as(apart)
+    touched = torch.zeros_like(counts, dtype=torch.bool)
+    for labels in (st.idx, plain_idx):
+        touched[lane[apart], labels[apart].long()] = True
+    moved = int((plain_n != counts).sum())
+    check(not bool(((plain_n != counts) & ~touched).any()),
+          "kmeans_lloyd_step: counts differ from the plain step's outside "
+          "the clusters of the points the two label apart")
+    step = dict(shape=list(x.shape) + [c.shape[1]], launches=launched,
+                max_center_err=float((new_c - want).abs().amax()),
+                max_center_diff_vs_plain_step=float(
+                    (new_c - plain_c).abs().amax()),
+                points_labelled_apart_from_plain_step=int(apart.sum()),
+                clusters_whose_counts_differ_from_plain_step=moved)
+    preds = []
+    for kd in kernels:
+        for e in kd["shapes"]:
+            p = predicted_vs_measured(
+                KERNEL_MODELS[kd["name"]], e["ms"] / 1e3, device_kind=kind,
+                route=e.get("route", "simt"), **e["cost_dims"])
+            preds.append(dict(kernel=kd["name"], shape=e["shape"],
+                              **{k: p[k] for k in (
+                                  "flops", "bytes", "compute_s", "memory_s",
+                                  "predicted_s", "dominant", "measured_s",
+                                  "efficiency")}))
+    calib = calibrate()
+    summary = summarize_events(events)
+    timers = {e["name"] for e in events if e["kind"] == "timer"}
+    check(calib > 0 and set(summary["timers_s"]) == timers
+          and sum(summary["event_counts"].values()) == len(events),
+          f"calibrate {calib}, summary {summary}")
+    out = dict(nvidia_smi=smi, kmeans_lloyd_step=step,
+               predicted_vs_measured=preds, calib_mflops=calib,
+               paper_500k_summary=summary,
+               seconds=time.perf_counter() - t0)
+    emit("roofline", **out)
+    return out
 
 
 def stream_sweep(n_seeds: int) -> int:
@@ -5949,6 +5934,7 @@ def attn_times(src: str) -> int:
     sys.path.insert(0, str(Path(src).resolve()))
     from repro_torch.kernels import build, cluster_attn
     from repro_torch.kernels.tiles import TileError
+    from repro_torch.roofline.analysis import kernel_bound_ms, kernel_dims
     build.build(["cluster_attn"])
     for name, dims in ATTN_TIME_SHAPES:
         sc = dims[-1] ** -0.5
@@ -5963,7 +5949,8 @@ def attn_times(src: str) -> int:
         fn = rotating(lambda *t: cluster_attn.cluster_attn_partial(*t, sc),
                       *inputs)
         row.update(ms=[device_ms(fn) for _ in range(3)],
-                   bound_ms=attn_bound_ms(*inputs)[0])
+                   bound_ms=kernel_bound_ms("cluster_attn", **kernel_dims(
+                       "cluster_attn", *inputs))[0])
         print(json.dumps(row), flush=True)
     return 0
 

@@ -5,6 +5,7 @@ Public API (the names of :mod:`repro.core` that this slice ports):
   ClusterSpec (+ PartitionSpec/LocalSpec/LevelSpec/MergeSpec/ChunkSpec/
                ExecutionSpec/StopSpec)   — declarative job description
   kmeans, KMeansResult                   — weighted Lloyd's algorithm
+  kmeans_lloyd_step                      — one exposed Lloyd iteration
   register_init / get_init               — init registry (kmeans++ | random |
                                            landmark | kmeans||)
   register_partitioner / get_partitioner — subclustering registry (equal |
@@ -34,9 +35,9 @@ from .distributed import (ChunkDistStats, DistributedClusteringResult,
                           fit_chunked_dist, make_distributed_sampled_kmeans,
                           merge_pool_distributed)
 from .kmeans import (KMeansResult, available_inits, get_init, kmeans,
-                     kmeans_batched, kmeans_parallel_init, kmeans_pp_init,
-                     landmark_init, pairwise_sqdist, random_init,
-                     register_init, update_centers)
+                     kmeans_batched, kmeans_lloyd_step, kmeans_parallel_init,
+                     kmeans_pp_init, landmark_init, pairwise_sqdist,
+                     random_init, register_init, update_centers)
 from .metrics import (clustering_accuracy, map_row_blocks, min_sqdist,
                       relative_error, sse)
 from .pipeline import (ChunkStats, SampledClusteringResult, chunk_fold,
@@ -53,7 +54,8 @@ from .subcluster import (Partition, available_partitioners, equal_partition,
 __all__ = [
     "ClusterSpec", "PartitionSpec", "LocalSpec", "MergeSpec",
     "ExecutionSpec", "LevelSpec", "ChunkSpec", "StopSpec",
-    "KMeansResult", "kmeans", "kmeans_batched", "kmeans_pp_init",
+    "KMeansResult", "kmeans", "kmeans_batched", "kmeans_lloyd_step",
+    "kmeans_pp_init",
     "kmeans_parallel_init", "landmark_init", "random_init",
     "pairwise_sqdist", "register_init", "get_init", "available_inits",
     "update_centers",

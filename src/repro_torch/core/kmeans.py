@@ -480,3 +480,28 @@ def kmeans(
                          generator=make_generator(seed, dev), init=init,
                          backend=backend, restarts=restarts, stop=stop)
     return KMeansResult(*(t[0] for t in res))
+
+
+def kmeans_lloyd_step(
+    x, centers, weights, backend: BackendSpec = None, *,
+    device: "torch.device | str | None" = None,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """One exposed Lloyd iteration: ``(new_centers, counts)`` of the
+    ([B,] m, d) points ``x`` with ([B,] m) ``weights`` against the
+    ([B,] k, d) ``centers``, through ``backend.prepare`` and
+    ``backend.step`` on ``device`` (``None``: the CUDA device).  The
+    backend resolves as everywhere (``get_backend``): on the card
+    ``cuda_tuned``, the fused Lloyd kernel (``cuda_fused`` at the derived
+    plan), on the CPU the plain version; empty clusters keep their
+    centers."""
+    dev = resolve_device(device)
+    x = torch.as_tensor(x, device=dev)
+    c = torch.as_tensor(centers, device=dev)
+    w = torch.as_tensor(weights, device=dev)
+    lane = x.dim() == 2
+    if lane:
+        x, c, w = x[None], c[None], w[None]
+    be = get_backend(backend, device=dev)
+    st = be.step(be.prepare(x, w), c)
+    new = _centers_from_stats(st.sums, st.counts, c)
+    return (new[0], st.counts[0]) if lane else (new, st.counts)

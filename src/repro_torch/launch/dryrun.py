@@ -22,14 +22,37 @@ production mesh (16 x 16, or 2 x 16 x 16), the bytes the port's layout
 holds (a training cell's: the sharded trainer's blocks under those rules
 plus the largest layer a "model" position gathers and the leaves it
 gathers once a step; serving's: its model whole), the bytes of every
-tree whole,
-``fits`` against the visible card's memory (``null`` with no card), and,
-on the single-pod mesh unless ``--no-ab``, the FLOPs
-of ``torch.utils.flop_counter.FlopCounterMode`` assembled by the
-reference's A/B differencing: stem + n_super x block (x n_micro) +
-optimizer, the cluster attention's 4 B H Nc dh a layer added from its
-formula, against the analytic ``model_flops``.  No roofline time is
-given: the reference's are TPU constants.
+tree whole, ``fits`` against the visible card's memory (``null`` with no
+card), and ``collective``, the link bytes one chip moves in a step by
+the ring model (:func:`collective`).  For a training cell these are the
+weights' (``weights``: the gathers as all-gathers, once more for a layer
+the remat recompute gathers again, and the gradient adds as
+reduce-scatters) and the activations' (``activations``: one micro-batch
+of the sharded step run on ``meta`` over the "model" positions, its
+forward, remat recompute and backward, in which each row-parallel sum is
+an all-reduce of its f32 partials, each column-parallel input's gradient
+sum an all-reduce, the vocab-parallel loss three all-reduces of a value a
+row, and the MoE dispatch and combine all-to-alls and all-gathers; see
+:class:`_RingSplit`).  Serving moves nothing: the port runs its model
+whole on one card.
+
+On the single-pod mesh unless ``--no-ab``, the record also holds the
+step's cost, assembled as ``PartCost``s by the reference's A/B
+differencing (stem + n_super x block (x n_micro) + optimizer): the FLOPs
+of ``torch.utils.flop_counter.FlopCounterMode`` (the cluster attention's
+4 B H Nc dh a layer added from its formula) and the bytes of
+:class:`ByteCounterMode` (each op's inputs and outputs, counted before
+any fusion: an upper bound of what the step moves; the cluster
+attention's from its kernel model).  The meta step computes the whole
+global batch, so the record divides its FLOPs and bytes by ``chips``:
+``roofline`` holds ``compute_s`` (FLOPs over the H100's BF16 peak),
+``memory_s`` (bytes over HBM) and ``collective_s`` (one chip's link bytes
+over NVLink, :mod:`repro_torch.roofline.analysis`), ``dominant`` the
+largest, and ``roofline_fraction`` the analytic ``model_flops`` per chip
+over the BF16 peak, divided by the dominant term.  ``memory_s`` is an upper
+bound, and where it is the dominant term ``roofline_fraction`` is a lower
+bound; ``roofline_bounds`` says so and gives the dominant term and the
+fraction with ``memory_s`` left out.
 
 Resumable: one JSON a cell under ``build/dryrun/`` (``--out``); existing
 files are skipped unless ``--force``.
@@ -49,23 +72,30 @@ import time
 import traceback
 
 import torch
+from torch.utils import _pytree
+from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils.flop_counter import FlopCounterMode
 
 from repro_torch import tree
 from repro_torch.configs import (ARCH_IDS, SHAPES, ArchConfig, ShapeConfig,
                                  get_config, shape_applicable)
-from repro_torch.convert import stacked_params
+from repro_torch.convert import stacked_like, stacked_params
 from repro_torch.core.blocks import region_shape, ways
+from repro_torch.core.model_axis import ModelSplit
 from repro_torch.launch.mesh import production_mesh_shape
 from repro_torch.models.registry import build_model, cache_kind, input_specs
 from repro_torch.optim import get_optimizer
+from repro_torch.roofline.analysis import (BF16_PEAK, PartCost, dominant_term,
+                                           kernel_cost, model_flops,
+                                           ring_bytes, roofline_terms)
 from repro_torch.train.sharding import (P, batch_specs, cache_specs, dp_size,
                                         filter_divisible, grad_specs,
                                         opt_state_specs, param_specs,
                                         shard_bytes)
 from repro_torch.train.step import (TrainPlan, default_plan,
                                     make_prefill_step, make_serve_step,
-                                    make_train_step, position_members)
+                                    make_train_step, position_members,
+                                    split_owner)
 
 ART = pathlib.Path(__file__).resolve().parents[3] / "build" / "dryrun"
 
@@ -98,19 +128,6 @@ def n_steps(params) -> int:
         if group in params:
             return tree.leaves(params[group])[0].shape[0]
     raise ValueError("n_steps: no stacked group in the tree")
-
-
-def model_flops(cfg: ArchConfig, shape: ShapeConfig, kind: str) -> float:
-    """Analytic MODEL_FLOPS (``repro.roofline.analysis.model_flops``):
-    6 N D for training, 2 N S B for prefill, 2 N B for a decode step, with
-    N the active parameters."""
-    n_active = cfg.active_param_count()
-    tokens = shape.global_batch * shape.seq_len
-    if kind == "train":
-        return 6.0 * n_active * tokens
-    if kind == "prefill":
-        return 2.0 * n_active * tokens
-    return 2.0 * n_active * shape.global_batch
 
 
 def _optimizer(cfg: ArchConfig, plan: TrainPlan):
@@ -186,21 +203,23 @@ def build_decode_program(cfg, shape, mesh):
 # the record
 # ---------------------------------------------------------------------------
 
-def _gathered_bytes(cfg, params, p_specs, mesh) -> tuple[int, int]:
-    """What the sharded step copies onto a "model" position beside its
-    blocks, at the position that copies most (a data shard's first, which
-    also computes what is left whole): (the largest layer's copies, the
-    once-a-step leaves' copies).  A weight computed over "model" is read
-    in the position's region (its column or row ranges) gathered over
-    "data" (:func:`~repro_torch.train.step.position_members`); one
-    computed whole is read whole; a read that one block of the leaf's
-    spec holds (a replicated leaf) is made in place, with no copy."""
+def _copies(cfg, params, p_specs, mesh) -> tuple[list, list]:
+    """What the sharded step copies onto each "model" position of a data
+    shard beside its blocks: (a ``{layer: [copy]}`` a position, a
+    ``[copy]`` a position of the leaves copied once a step), each copy
+    ``(elements, element size, blocks)``, ``blocks`` the leaf's blocks
+    the read spans (the gather's group).  A weight computed over "model"
+    is read in the position's region (its column or row ranges) gathered
+    over "data" (:func:`~repro_torch.train.step.position_members`); one
+    computed whole is read whole, on a data shard's first position; a
+    read that one block of the leaf's spec holds (a replicated leaf) is
+    made in place, with no copy."""
     n_model = mesh.shape.get("model", 1)
     layers, outside = position_members(build_model(cfg, device="meta"),
                                        n_model)
     leaves, specs = dict(tree.items(params)), dict(tree.items(p_specs))
 
-    def copied(path, idx, region) -> int:
+    def copied(path, idx, region):
         leaf, spec = leaves[path], list(specs[path])
         shape = leaf.shape[len(idx):]
         spec = (spec + [None] * leaf.dim())[len(idx):leaf.dim()]
@@ -209,31 +228,239 @@ def _gathered_bytes(cfg, params, p_specs, mesh) -> tuple[int, int]:
         if all(isinstance(r, slice) and r.stop - r.start == n // k
                and r.start % (n // k) == 0
                for r, n, k in zip(region, shape, parts)):
-            return 0
-        return math.prod(region_shape(region)) * leaf.element_size()
+            return None
+        blocks = math.prod(
+            len({i for r in (e if isinstance(e, tuple) else (e,))
+                 for i in range(r.start // (n // k),
+                                (r.stop - 1) // (n // k) + 1)})
+            for e, n, k in zip(region, shape, parts))
+        return (math.prod(region_shape(region)), leaf.element_size(),
+                blocks)
 
-    layer = [max((sum(copied(path, idx, region)
-                      for _, path, idx, region in members[m])
-                  for members in layers.values()), default=0)
-             for m in range(n_model)]
-    once = [sum(copied(path, (), (regions or [None] * n_model)[m])
-                for _, path, regions in outside
-                if regions is not None or m == 0)
+    def kept(copies):
+        return [c for c in copies if c is not None]
+
+    per_layer = [{name: kept(copied(path, idx, region)
+                             for _, path, idx, region in members[m])
+                  for name, members in layers.items()}
+                 for m in range(n_model)]
+    once = [kept(copied(path, (), (regions or [None] * n_model)[m])
+                 for _, path, regions in outside
+                 if regions is not None or m == 0)
             for m in range(n_model)]
-    return max(layer), max(once)
+    return per_layer, once
 
 
-def _memory(cfg, shape, mesh, kind: str, args, plan) -> dict:
+def _gathered_bytes(copies) -> tuple[int, int]:
+    """What the sharded step copies onto a "model" position beside its
+    blocks, at the position that copies most (a data shard's first, which
+    also computes what is left whole): (the largest layer's copies, the
+    once-a-step leaves' copies), from :func:`_copies`."""
+    per_layer, once = copies
+    layer = max((sum(n * size for n, size, _ in layer_copies)
+                 for layers in per_layer for layer_copies in layers.values()),
+                default=0)
+    return layer, max(sum(n * size for n, size, _ in c) for c in once)
+
+
+def _collective(copies, mesh, plan, passes: dict) -> dict:
+    """The link bytes one chip moves in one step of the sharded trainer
+    for its weights, by :func:`~repro_torch.roofline.analysis.ring_bytes`,
+    at the "model" position that moves most: each copy of :func:`_copies`
+    an all-gather of its bytes over the blocks it spans (a layer's in
+    each micro-batch of the data shard, ``passes[group]`` times: twice
+    where the remat recompute gathers again; the once-a-step leaves'
+    once), and each copy's gradient added into its blocks a
+    reduce-scatter of the same elements in ``plan.grad_dtype`` (in each
+    micro-batch)."""
+    per_layer, once = copies
+    micro = plan.n_micro // dp_size(mesh)
+    gsize = getattr(torch, plan.grad_dtype).itemsize
+
+    def gathered(cs):
+        return sum(ring_bytes("all-gather", n * size, blocks)
+                   for n, size, blocks in cs)
+
+    def scattered(cs):
+        return sum(ring_bytes("reduce-scatter", n * gsize / blocks, blocks)
+                   for n, _, blocks in cs)
+
+    moved = []
+    for m, layers in enumerate(per_layer):
+        every = [c for cs in layers.values() for c in cs]
+        moved.append((m, {
+            "all-gather": gathered(once[m]) + micro * sum(
+                passes[_group(name)] * gathered(cs)
+                for name, cs in layers.items()),
+            "reduce-scatter": micro * (scattered(once[m])
+                                       + scattered(every))}))
+    m, by_op = max(moved, key=lambda mb: sum(mb[1].values()))
+    return {"per_chip_bytes": sum(by_op.values()), "by_op": by_op,
+            "model_position": m, "micro_batches_per_shard": micro}
+
+
+def _group(layer: str) -> str:
+    """The stacked group of a layer name (``g_blocks.3`` -> ``g_blocks``)."""
+    return layer.rsplit(".", 1)[0]
+
+
+class _RingSplit(ModelSplit):
+    """A :class:`~repro_torch.core.model_axis.ModelSplit` of ``n_model``
+    ``meta`` positions that adds each collective's per-chip ring bytes
+    (:func:`~repro_torch.roofline.analysis.ring_bytes`) to ``ring``
+    (``{op: bytes}``) in each pass it runs in: ``from_model`` an
+    all-reduce of the f32 partials in the forward (and again where a remat
+    recompute runs it); ``to_model`` an all-reduce of the positions' input
+    gradients in the backward (its forward reads activations every
+    position holds); ``split_model`` (the MoE dispatch) an all-to-all of
+    the slices, and in the backward an all-gather of their gradients;
+    ``concat_model`` an all-gather of the parts, and in the backward an
+    all-to-all of the gradient's slices."""
+
+    def __init__(self, n_model: int, weights=None, ring=None):
+        super().__init__(["meta"] * n_model, weights)
+        self.ring = {} if ring is None else ring
+
+    def with_weights(self, more: dict) -> "_RingSplit":
+        return _RingSplit(len(self.devices), {**self.weights, **more},
+                          self.ring)
+
+    def _add(self, op: str, nbytes: float) -> None:
+        self.ring[op] = self.ring.get(op, 0.0) + ring_bytes(
+            op, nbytes, len(self.devices))
+
+    def _in_backward(self, op: str, t: torch.Tensor) -> None:
+        if t.requires_grad:
+            nbytes = t.numel() * t.element_size()
+            t.register_hook(lambda g: self._add(op, nbytes))
+
+    def to_model(self, x: torch.Tensor) -> tuple:
+        self._in_backward("all-reduce", x)
+        return super().to_model(x)
+
+    def from_model(self, parts, dtype: torch.dtype) -> tuple:
+        self._add("all-reduce", parts[0].numel() * 4)
+        return super().from_model(parts, dtype)
+
+    def split_model(self, x: torch.Tensor, dim: int) -> tuple:
+        self._add("all-to-all", x.numel() * x.element_size())
+        self._in_backward("all-gather", x)
+        return super().split_model(x, dim)
+
+    def concat_model(self, parts, dim: int) -> torch.Tensor:
+        out = super().concat_model(parts, dim)
+        self._add("all-gather", out.numel() * out.element_size())
+        self._in_backward("all-to-all", out)
+        return out
+
+
+class _MetaGather:
+    """A data shard's ``ctx["gather"]`` on ``meta``, as the sharded step's
+    gives it (``gather(layer)`` -> the weights computed whole, and one
+    dict a position of the parts, or ``None``): each member of
+    ``layers`` (:func:`~repro_torch.train.step.position_members`) a
+    ``meta`` tensor of its region's shape, tied to ``anchor`` so that the
+    backward runs through every layer; ``calls`` counts each layer's
+    gathers."""
+
+    def __init__(self, params, layers: dict):
+        self.params, self.layers, self.calls = params, layers, {}
+        self.anchor = torch.zeros((), device="meta", requires_grad=True)
+
+    def weight(self, path, idx: tuple, region) -> torch.Tensor:
+        leaf = tree.get(self.params, path)
+        shape = (leaf.shape[len(idx):] if region is None
+                 else region_shape(region))
+        return (torch.zeros(shape, dtype=leaf.dtype, device="meta")
+                + self.anchor.to(leaf.dtype))
+
+    def __call__(self, name: str):
+        self.calls[name] = self.calls.get(name, 0) + 1
+        got = [[(m, self.weight(*m[1:])) for m in ms]
+               for ms in self.layers[name]]
+        whole = {m[0]: t for m, t in got[0] if m[3] is None}
+        parts = [{m[0]: t for m, t in pairs if m[3] is not None}
+                 for pairs in got]
+        return whole, (parts if parts[0] else None)
+
+
+def _sharded_micro(cfg, shape, mesh, plan) -> tuple:
+    """One micro-batch of a data shard's sharded step on ``meta``: the
+    model at ``cfg`` computes over the mesh's "model" positions
+    (:class:`_MetaGather`, :class:`_RingSplit`) the loss of ``global_batch
+    / n_micro`` rows, its forward, remat recompute and backward. -> (the
+    per-chip ring bytes by op of the embedding (a VLM's patch columns),
+    those of the loss and its gradient, each layer's gathers)."""
+    n_model = mesh.shape.get("model", 1)
+    model = build_model(cfg, device="meta")
+    layers, outside = position_members(model, n_model)
+    gather = _MetaGather(stacked_like(cfg), layers)
+    weights = {}
+    for name, path, regions in outside:
+        if regions is not None:
+            owner, rel = split_owner(model, name)
+            per = weights.setdefault(owner, [{} for _ in regions])
+            for part, region in zip(per, regions):
+                part[rel] = gather.weight(path, (), region)
+    ring: dict = {}
+    ctx = model.make_ctx(torch.arange(shape.seq_len + (cfg.n_patches or 0),
+                                      device="meta"), q_chunk=plan.q_chunk)
+    ctx.update(gather=gather, model_split=_RingSplit(n_model, weights, ring))
+    batch = input_specs(cfg, dataclasses.replace(
+        shape, global_batch=shape.global_batch // plan.n_micro))
+    with torch.no_grad():
+        x = model.embed_in(batch, ctx)
+    embed = dict(ring)
+    ring.clear()
+    rest = {k: v for k, v in batch.items() if k not in ("tokens", "patches")}
+    loss = model.loss_embedded(x, rest, ctx, remat=plan.remat,
+                               aux_weight=plan.aux_weight)
+    if "head" in weights.get(model, [{}])[0]:
+        # the vocab-parallel loss: each row's max, exp sum and gold logit
+        ring["all-reduce"] = ring.get("all-reduce", 0.0) + 3 * ring_bytes(
+            "all-reduce", rest["labels"].numel() * 4, n_model)
+    torch.autograd.grad(loss, [gather.anchor])
+    return embed, dict(ring), gather.calls
+
+
+def _as_cost(by_op: dict) -> PartCost:
+    return PartCost(coll=sum(by_op.values()), coll_by_op=dict(by_op))
+
+
+def activation_collectives(cfg, shape, mesh, plan, n_super: int) -> dict:
+    """What one chip moves over the links in one step for the activations
+    of a training cell's sharded step (the row-parallel sums, the
+    column-parallel input gradients, the vocab-parallel loss, the MoE
+    dispatch and combine, a VLM's patch columns): :func:`_sharded_micro`
+    of the 1- and 2-superblock variants, differenced as the FLOPs are
+    (stem + n_super x block), times the data shard's micro-batches, and
+    the embedding's once a step over the global batch (on the first data
+    shard's positions, which move most).  ``passes``: each stacked group's
+    gathers of one layer in a micro-batch (2 where the remat recompute
+    gathers again: every group but whisper's encoder)."""
+    lps = layers_per_step(cfg)
+    runs = [_sharded_micro(_variant(cfg, k, lps), shape, mesh, plan)
+            for k in (1, 2)]
+    blk = _as_cost(runs[1][1]) - _as_cost(runs[0][1])
+    step = (_as_cost(runs[0][1]) - blk) + blk.scaled(n_super)
+    micro = plan.n_micro // dp_size(mesh)
+    total = step.scaled(micro) + _as_cost(runs[0][0]).scaled(plan.n_micro)
+    by_op = {op: b for op, b in total.coll_by_op.items() if b}
+    return {"per_chip_bytes": sum(by_op.values()), "by_op": by_op,
+            "passes": {_group(name): n for name, n in runs[0][2].items()}}
+
+
+def _memory(cfg, shape, mesh, kind: str, args, plan, copies=None) -> dict:
     """What one device holds: under the reference's rules on ``mesh``
     (``sharded``), in the port's layout (``port``) and with every tree
     whole (``whole``); arguments only, not activations.  A training
     cell's ``port`` is the sharded trainer's: its blocks under the rules
     (parameters, optimizer state, the gradient accumulator in
     ``grad_dtype``), the largest layer a "model" position gathers and the
-    leaves it gathers once a step (:func:`_gathered_bytes`).  Serving holds its
-    model whole on one device, so a prefill or decode cell's ``port`` is
-    ``whole``; ``whole`` of a training cell also counts the f32 gradient
-    sum."""
+    leaves it gathers once a step (:func:`_gathered_bytes` of its
+    ``copies``).  Serving holds its model whole on one device, so a
+    prefill or decode cell's ``port`` is ``whole``; ``whole`` of a
+    training cell also counts the f32 gradient sum."""
     params = args[0]["params"] if kind == "train" else args[0]
     p_specs = param_specs(params, mesh)
     sharded, whole = {}, {}
@@ -270,7 +497,7 @@ def _memory(cfg, shape, mesh, kind: str, args, plan) -> dict:
     if kind == "train":
         port = dict(sharded)
         port["gathered_layer"], port["gathered_once"] = _gathered_bytes(
-            cfg, params, p_specs, mesh)
+            copies)
     else:
         port = dict(whole)
     for part in (sharded, whole, port):
@@ -300,14 +527,57 @@ def cluster_attn_flops(cfg: ArchConfig, caches) -> float:
     return total
 
 
-def _run(fn, args, count: bool) -> tuple[object, float]:
-    """``fn(*args)`` -> (its output, the FLOPs FlopCounterMode counted, or
-    0 without ``count``)."""
+def cluster_attn_cost(cfg: ArchConfig, caches) -> PartCost:
+    """The cluster-attention kernel's cost for one decode token over
+    ``caches``, which the counters on ``meta`` cannot see: the FLOPs of
+    :func:`cluster_attn_flops` and the kernel's bytes
+    (:func:`~repro_torch.roofline.analysis.kernel_cost`) for each layer
+    that holds a clustered cache."""
+    nbytes = 0.0
+    for path, leaf in tree.items(caches):
+        if path[-1] == "kc":
+            b, hkv, nc, dh = leaf.shape[-4:]
+            nbytes += math.prod(leaf.shape[:-4]) * kernel_cost(
+                "cluster_attn", dtype_bytes=leaf.element_size(), b=b,
+                h=cfg.n_heads, hkv=hkv, nc=nc, dh=dh).bytes
+    return PartCost(cluster_attn_flops(cfg, caches), nbytes)
+
+
+_NO_TRAFFIC = {torch.ops.aten.empty.memory_format,
+               torch.ops.aten.empty_strided.default,
+               torch.ops.aten.empty_like.default}
+
+
+class ByteCounterMode(TorchDispatchMode):
+    """Adds up the bytes of every tensor input and output of each aten op
+    that is not a view (nor an allocation): the counterpart of XLA's
+    "bytes accessed".  It counts the ops one by one, before any fusion, so
+    it is an upper bound of what a fused program moves."""
+
+    def __init__(self):
+        super().__init__()
+        self.bytes = 0
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        kwargs = kwargs or {}
+        out = func(*args, **kwargs)
+        if not func.is_view and func not in _NO_TRAFFIC:
+            self.bytes += sum(
+                t.numel() * t.element_size()
+                for t in _pytree.tree_leaves((args, kwargs, out))
+                if isinstance(t, torch.Tensor))
+        return out
+
+
+def _run(fn, args, count: bool) -> tuple[object, PartCost]:
+    """``fn(*args)`` -> (its output, the FLOPs ``FlopCounterMode`` and the
+    bytes :class:`ByteCounterMode` counted, or nothing without
+    ``count``)."""
     if not count:
-        return fn(*args), 0.0
-    with FlopCounterMode(display=False) as fc:
+        return fn(*args), PartCost()
+    with FlopCounterMode(display=False) as fc, ByteCounterMode() as bc:
         out = fn(*args)
-    return out, float(fc.get_total_flops())
+    return out, PartCost(float(fc.get_total_flops()), float(bc.bytes))
 
 
 def _check_output(cfg, shape, kind: str, b: int, out) -> None:
@@ -324,10 +594,40 @@ def _check_output(cfg, shape, kind: str, b: int, out) -> None:
                            f"{shape.name} returned the wrong shapes")
 
 
+MEMORY_UPPER = ("upper bound: the inputs and outputs of every op, counted "
+                "one op at a time, before any fusion")
+FRACTION_LOWER = ("lower bound: over the dominant term, which memory_s's "
+                  "upper bound may set; without_memory leaves memory_s out "
+                  "(an upper bound where the other terms hold)")
+
+SERVED_WHOLE = ("the port serves its model whole on one card: a prefill "
+                "or decode step moves nothing between cards")
+
+
+def collective(cfg: ArchConfig, shape: ShapeConfig, mesh) -> dict:
+    """What one chip moves over the links in one step, by op: for a
+    training cell's sharded trainer its weights' gathers and gradient
+    adds (``weights``, :func:`_collective`, each layer gathered as often
+    as :func:`activation_collectives` saw it gathered) and its
+    activations' collectives (``activations``); nothing for serving
+    (``SERVED_WHOLE``)."""
+    if shape.kind != "train":
+        return {"per_chip_bytes": 0.0, "by_op": {}, "reason": SERVED_WHOLE}
+    plan = default_plan(cfg, shape, dp_size(mesh))
+    params = stacked_like(cfg)
+    acts = activation_collectives(cfg, shape, mesh, plan, n_steps(params))
+    weights = _collective(_copies(cfg, params, param_specs(params, mesh),
+                                  mesh), mesh, plan, acts["passes"])
+    by_op = {op: weights["by_op"].get(op, 0.0) + acts["by_op"].get(op, 0.0)
+             for op in (*weights["by_op"], *acts["by_op"])}
+    return {"per_chip_bytes": sum(by_op.values()), "by_op": by_op,
+            "weights": weights, "activations": acts}
+
+
 def account(cfg: ArchConfig, shape: ShapeConfig, mesh) -> dict:
     """The cell's full-depth trees on ``meta`` and what one device holds
-    of them (:func:`_memory`): -> ``n_super``, ``memory`` and the plan of
-    a training cell or the cache kind of a decode cell."""
+    of them (:func:`_memory`) -> ``n_super``, ``memory`` and the plan of a
+    training cell or the cache kind of a decode cell."""
     kind = shape.kind
     if kind == "train":
         _, args, plan = build_train_program(cfg, shape, mesh)
@@ -338,8 +638,11 @@ def account(cfg: ArchConfig, shape: ShapeConfig, mesh) -> dict:
     else:
         _, args, ckind = build_decode_program(cfg, shape, mesh)
         plan, fields, params = None, {"cache_kind": ckind}, args[0]
+    copies = None
+    if kind == "train":
+        copies = _copies(cfg, params, param_specs(params, mesh), mesh)
     return {"n_super": n_steps(params), **fields,
-            "memory": _memory(cfg, shape, mesh, kind, args, plan)}
+            "memory": _memory(cfg, shape, mesh, kind, args, plan, copies)}
 
 
 def dry_run(cfg: ArchConfig, shape: ShapeConfig, mesh, *,
@@ -354,13 +657,14 @@ def dry_run(cfg: ArchConfig, shape: ShapeConfig, mesh, *,
                  "params": cfg.param_count(),
                  "active_params": cfg.active_param_count(),
                  "chips": math.prod(mesh.shape.values()),
-                 **account(cfg, shape, mesh)}
+                 **account(cfg, shape, mesh),
+                 "collective": collective(cfg, shape, mesh)}
     # a training cell's optimizer over the full-depth state, once
     n_micro = rec["plan"]["n_micro"] if kind == "train" else 1
     if kind == "train":
-        _, opt_flops = _run(*build_opt_program(cfg, shape, mesh), with_ab)
+        _, opt_cost = _run(*build_opt_program(cfg, shape, mesh), with_ab)
     # -- the gate: the 1- and 2-superblock variants' steps -----------------
-    flops, seconds = {}, {}
+    cost, seconds = {}, {}
     for k in (1, 2):
         cfg_k = _variant(cfg, k, lps)
         t1 = time.perf_counter()
@@ -375,26 +679,44 @@ def dry_run(cfg: ArchConfig, shape: ShapeConfig, mesh, *,
         else:
             fk, ak, _ = build_decode_program(cfg_k, shape, mesh)
             b = shape.global_batch
-        out, flops[k] = _run(fk, ak, with_ab)
+        out, cost[k] = _run(fk, ak, with_ab)
         _check_output(cfg_k, shape, kind, b, out)
-        if kind == "decode":
-            flops[k] += cluster_attn_flops(cfg_k, ak[1]) if with_ab else 0.0
+        if kind == "decode" and with_ab:
+            cost[k] = cost[k] + cluster_attn_cost(cfg_k, ak[1])
         seconds[k] = time.perf_counter() - t1
         del fk, ak, out
     rec["gate"] = {"ran": "meta", "variants": [1, 2],
                    "seconds": [seconds[1], seconds[2]]}
-    # -- the A/B differencing ------------------------------------------------
+    # -- the A/B differencing and the roofline --------------------------------
     if with_ab:
-        blk = flops[2] - flops[1]
-        stem = flops[1] - blk
-        total = stem + blk * rec["n_super"]
-        parts = {"stem": stem, "block": blk}
+        blk = cost[2] - cost[1]
+        stem = cost[1] - blk
+        total = stem + blk.scaled(rec["n_super"])
+        parts = {"stem": stem.flops, "block": blk.flops}
         if kind == "train":
-            total = total * n_micro + opt_flops
-            parts.update(opt=opt_flops, n_micro=n_micro)
-        mf = model_flops(cfg, shape, kind)
-        rec.update(parts=parts, total_flops=total, model_flops_global=mf,
-                   useful_flop_ratio=mf / max(total, 1.0))
+            total = total.scaled(n_micro) + opt_cost
+            parts.update(opt=opt_cost.flops, n_micro=n_micro)
+        coll = rec["collective"]
+        total.coll, total.coll_by_op = coll["per_chip_bytes"], coll["by_op"]
+        mf, chips = model_flops(cfg, shape, kind), rec["chips"]
+        terms = roofline_terms(total, chips)
+        dom = dominant_term(terms)
+        lean = dict(terms, memory_s=0.0)
+        lean_dom = dominant_term(lean)
+        rec.update(parts=parts, total_flops=total.flops,
+                   model_flops_global=mf,
+                   useful_flop_ratio=mf / max(total.flops, 1.0),
+                   total_cost=dataclasses.asdict(total), roofline=terms,
+                   dominant=dom, model_flops_per_chip=mf / chips,
+                   roofline_fraction=(mf / chips / BF16_PEAK)
+                   / max(terms[dom], 1e-30),
+                   roofline_bounds={
+                       "memory_s": MEMORY_UPPER,
+                       "roofline_fraction": FRACTION_LOWER,
+                       "without_memory": {
+                           "dominant": lean_dom,
+                           "roofline_fraction": (mf / chips / BF16_PEAK)
+                           / max(lean[lean_dom], 1e-30)}})
     rec["seconds"] = time.perf_counter() - t0
     return rec
 

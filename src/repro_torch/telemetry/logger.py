@@ -32,7 +32,7 @@ import collections
 import contextlib
 import json
 import time
-from typing import Callable, Optional
+from typing import Callable, Iterable, Optional
 
 SCHEMA_VERSION = 1
 EVENT_KINDS = ("event", "timer", "rate")
@@ -295,6 +295,46 @@ def peak_rss_mb() -> float:
     import sys
     peak = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss
     return peak / 1024.0 if sys.platform != "darwin" else peak / 2 ** 20
+
+
+def calibrate(repeats: int = 3) -> float:
+    """Machine-speed probe: MFLOP/s of a fixed small numpy matmul chain
+    (the JAX package's probe, so ``calib_mflops`` means the same in both
+    packages' artifacts).
+
+    Benchmark artifacts record this next to their wall-clock metrics so a
+    gate can compare runs from different machines on
+    calibration-normalized throughput: to first order the machine speed
+    cancels.  Tiny (tens of ms) and deterministic in its inputs."""
+    import numpy as np
+    rng = np.random.default_rng(0)
+    a = rng.standard_normal((256, 256)).astype(np.float32)
+    b = rng.standard_normal((256, 256)).astype(np.float32)
+    flop = 2 * 256 ** 3 * 8
+    best = float("inf")
+    for _ in range(repeats):
+        t0 = time.perf_counter()
+        c = a
+        for _ in range(8):
+            c = c @ b
+        _ = float(c[0, 0])
+        best = min(best, time.perf_counter() - t0)
+    return flop / best / 1e6
+
+
+def summarize_events(events: Iterable[dict]) -> dict:
+    """Collapse an event stream into per-name totals (timer seconds, the
+    last rate, event counts): the shape the benchmark artifacts embed."""
+    timers: dict = {}
+    rates: dict = {}
+    counts: dict = {}
+    for e in events:
+        counts[e["name"]] = counts.get(e["name"], 0) + 1
+        if e["kind"] == "timer":
+            timers[e["name"]] = timers.get(e["name"], 0.0) + e["dur"]
+        elif e["kind"] == "rate":
+            rates[e["name"]] = e["rate"]   # the last median wins
+    return {"timers_s": timers, "rates": rates, "event_counts": counts}
 
 
 def get_run_logger(spec: "str | RunLogger | None") -> RunLogger:

@@ -245,7 +245,7 @@ def position_members(model, n_model: int) -> tuple[dict, list]:
     return layers, outside
 
 
-def _split_owner(model, name: str) -> tuple:
+def split_owner(model, name: str) -> tuple:
     """(the module a split unstacked parameter belongs to, its name
     within it): the block that names its region (zamba2's ``shared``),
     else the model (``head``)."""
@@ -449,7 +449,7 @@ def _mesh_step(optimizer, cfg, shape, plan, compress_fn, mesh, stats,
                     once[0] += t.numel() * t.element_size()
                 bound.append((path, _bind(m, name, t)))
                 continue
-            owner, rel = _split_owner(m, name)
+            owner, rel = split_owner(m, name)
             per = weights.setdefault(owner, [{} for _ in devs])
             for k, (dev, region) in enumerate(zip(devs, regions)):
                 t = gather(leaf, dev, (), region)

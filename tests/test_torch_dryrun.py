@@ -5,6 +5,8 @@ count; the full configs' byte accounting for every runnable cell of
 ``configs.cells()`` on both production meshes; the cluster-attention
 wrapper's ``meta`` branch; and the command line, which writes only into
 the directory it is given."""
+import dataclasses
+import functools
 import json
 import math
 
@@ -26,11 +28,18 @@ SMALL = {"train": ShapeConfig("train_s", 64, 8, "train"),
                                   cluster_compression=4, cluster_window=16)}
 
 
+@functools.lru_cache(maxsize=None)
+def _reduced_record(arch: str, cell: str) -> dict:
+    """The dry run's record of a reduced config at a small cell on MESH
+    (one run a cell for every test of this file)."""
+    return dryrun.dry_run(get_config(arch).reduced(), SMALL[cell], MESH)
+
+
 @pytest.mark.parametrize("cell", list(SMALL))
 @pytest.mark.parametrize("arch", ARCH_IDS)
 def test_reduced_cells_run_on_meta_with_every_field(arch, cell):
     cfg, shape = get_config(arch).reduced(), SMALL[cell]
-    rec = dryrun.dry_run(cfg, shape, MESH)
+    rec = _reduced_record(arch, cell)
     for key in ("shape", "kind", "n_super", "layers_per_step", "params",
                 "active_params", "chips", "gate", "memory", "seconds",
                 "parts", "total_flops", "model_flops_global",
@@ -54,6 +63,147 @@ def test_reduced_cells_run_on_meta_with_every_field(arch, cell):
             "dense", "moe", "vlm", "hybrid")) else "full"
         assert rec["cache_kind"] == want
     json.dumps(rec)                                   # a JSON record
+
+
+@pytest.mark.parametrize("cell", list(SMALL))
+@pytest.mark.parametrize("arch", ARCH_IDS)
+def test_reduced_cells_carry_the_roofline_on_the_h100_roofs(arch, cell):
+    """``total_cost`` (FLOPs, the bytes of the meta step's ops, a training
+    cell's per-chip link bytes), the three terms on the H100's roofs with
+    the whole step's FLOPs and bytes over the chips, the dominant term and
+    ``roofline_fraction`` in (0, 1]; a serving cell moves nothing between
+    cards and says why."""
+    rec = _reduced_record(arch, cell)
+    for key in ("total_cost", "roofline", "dominant", "model_flops_per_chip",
+                "roofline_fraction", "collective"):
+        assert key in rec, key
+    total, terms, chips = rec["total_cost"], rec["roofline"], rec["chips"]
+    assert set(terms) == {"compute_s", "memory_s", "collective_s"}
+    assert all(v >= 0 for v in terms.values())
+    assert total["flops"] == rec["total_flops"] > 0 and total["bytes"] > 0
+    assert terms["compute_s"] == total["flops"] / chips / 989e12
+    assert terms["memory_s"] == total["bytes"] / chips / 3.35e12
+    assert terms["collective_s"] == total["coll"] / 450e9
+    assert rec["dominant"] == max(terms, key=terms.get)
+    assert 0 < rec["roofline_fraction"] <= 1
+    assert rec["roofline_fraction"] == pytest.approx(
+        rec["model_flops_per_chip"] / 989e12 / terms[rec["dominant"]],
+        rel=1e-12)
+    assert rec["model_flops_per_chip"] == rec["model_flops_global"] / chips
+    bounds = rec["roofline_bounds"]
+    assert bounds["memory_s"].startswith("upper bound")
+    assert bounds["roofline_fraction"].startswith("lower bound")
+    lean = dict(terms, memory_s=0.0)
+    assert bounds["without_memory"]["dominant"] == max(lean, key=lean.get)
+    assert bounds["without_memory"]["roofline_fraction"] >= \
+        rec["roofline_fraction"]
+    coll = rec["collective"]
+    if SMALL[cell].kind == "train":
+        assert terms["collective_s"] > 0
+        assert total["coll_by_op"] == coll["by_op"]
+        assert sum(coll["by_op"].values()) == coll["per_chip_bytes"]
+        weights, acts = coll["weights"], coll["activations"]
+        assert set(weights["by_op"]) == {"all-gather", "reduce-scatter"}
+        assert coll["per_chip_bytes"] == pytest.approx(
+            weights["per_chip_bytes"] + acts["per_chip_bytes"], rel=1e-12)
+        for op, b in coll["by_op"].items():
+            assert b == weights["by_op"].get(op, 0) + acts["by_op"].get(op,
+                                                                        0)
+    else:
+        assert terms["collective_s"] == 0 == coll["per_chip_bytes"]
+        assert "one card" in coll["reason"]
+
+
+def test_a_training_cells_collective_bytes_count_each_pass():
+    """llama3-8b at train_4k on 16 x 16: a data shard's first position
+    all-gathers each layer in the forward and again in the remat
+    recompute, the head's Vp / 16 columns once a step, and reduce-scatters
+    each gradient (f32, twice the bf16 weights' bytes) once a
+    micro-batch.  A region within one "model" block spans the leaf's 16
+    "data" blocks (15/16 of it over the links): its query heads' columns
+    of wq and rows of wo, its FFN columns, the head's; the one kv head it
+    reads (128 columns of wk and wv, cut in blocks of 64) spans 32
+    (31/32).  The activations of the micro-batch's 16 x 4096 tokens (d =
+    4096, f32: 1 GiB) are all-reduced eight times a layer: the attention's
+    and the FFN's row-parallel sums in the forward, the attention's again
+    in the recompute (which stops once it has what the backward keeps),
+    and the input gradients of wq, wk, wv, w1 and w3 in the backward; once
+    more for the head's input gradient, and three values a row for the
+    vocab-parallel loss."""
+    cfg = get_config("llama3-8b")
+    mesh = production_mesh_shape()
+    rec = dryrun.account(cfg, SHAPES["train_4k"], mesh)
+    rec["collective"] = dryrun.collective(cfg, SHAPES["train_4k"], mesh)
+    port = rec["memory"]["port_per_device"]
+    coll = rec["collective"]["weights"]
+    assert rec["plan"]["grad_dtype"] == "float32" and rec["plan"]["remat"]
+    assert coll["micro_batches_per_shard"] == 1
+    assert coll["model_position"] == 0
+    d, f, dh, m = cfg.d_model, cfg.d_ff, cfg.dh, 16
+    q_o, kv = 2 * 2 * d * cfg.n_heads * dh // m, 2 * 2 * d * dh
+    ffn = 2 * 3 * d * f // m
+    assert q_o + kv + ffn == port["gathered_layer"]
+    layer = q_o * 15 / 16 + kv * 31 / 32 + ffn * 15 / 16
+    head = port["gathered_once"] * 15 / 16
+    ag, rs = coll["by_op"]["all-gather"], coll["by_op"]["reduce-scatter"]
+    assert ag == head + 2 * cfg.n_layers * layer
+    assert rs == 2 * (head + cfg.n_layers * layer)
+    assert coll["per_chip_bytes"] == ag + rs
+    acts = rec["collective"]["activations"]
+    tokens = SHAPES["train_4k"].global_batch // 16 * 4096
+    ring = 2 * 15 / 16
+    assert acts["passes"] == {"blocks": 2}
+    assert acts["by_op"] == {"all-reduce": pytest.approx(
+        (8 * cfg.n_layers + 1) * ring * tokens * d * 4
+        + 3 * ring * tokens * 4, rel=1e-12)}
+    assert rec["collective"]["per_chip_bytes"] == pytest.approx(
+        ag + rs + acts["by_op"]["all-reduce"], rel=1e-12)
+
+
+def test_whisper_encoder_layers_are_gathered_once_a_micro_batch():
+    """whisper-base at train_4k on 16 x 16: its encoder layers keep their
+    activations (no remat), so each is gathered once a micro-batch, its
+    decoder layers twice; the weights' all-gathers are those of the
+    copies at those passes."""
+    cfg, shape = get_config("whisper-base"), SHAPES["train_4k"]
+    mesh = production_mesh_shape()
+    coll = dryrun.collective(cfg, shape, mesh)
+    assert coll["activations"]["passes"] == {"enc": 1, "dec": 2}
+    _, args, plan = dryrun.build_train_program(cfg, shape, mesh)
+    params = args[0]["params"]
+    copies = dryrun._copies(cfg, params, dryrun.param_specs(params, mesh),
+                            mesh)
+    twice = dryrun._collective(copies, mesh, plan, {"enc": 2, "dec": 2})
+    enc = sum(dryrun.ring_bytes("all-gather", n * size, blocks)
+              for name, cs in copies[0][coll["weights"]["model_position"]
+                                        ].items()
+              if name.startswith("enc.") for n, size, blocks in cs)
+    micro = plan.n_micro // 16
+    assert enc > 0
+    assert coll["weights"]["by_op"]["all-gather"] == pytest.approx(
+        twice["by_op"]["all-gather"] - micro * enc, rel=1e-12)
+
+
+@pytest.mark.parametrize("arch,ops", [
+    ("dbrx-132b", {"all-reduce", "all-to-all", "all-gather"}),
+    ("internvl2-2b", {"all-reduce", "all-gather"}),
+    ("llama3-8b", {"all-reduce"}),
+    ("xlstm-1.3b", {"all-reduce"})])
+def test_activation_collectives_by_op(arch, ops):
+    """The reduced configs' training cells on MESH: the MoE's
+    expert-parallel dispatch is an all-to-all and its combine an
+    all-gather (each the other way in the backward, the gates' bytes
+    beside the tokens' in the dispatch); a VLM's patch columns an
+    all-gather once a step; the row-parallel sums and the input
+    gradients' sums of the attention, the FFN and the recurrent blocks
+    all-reduces; every stacked layer gathered twice a micro-batch (the
+    remat recompute)."""
+    acts = _reduced_record(arch, "train")["collective"]["activations"]
+    assert set(acts["by_op"]) == ops
+    assert all(b > 0 for b in acts["by_op"].values())
+    assert set(acts["passes"].values()) == {2}
+    if arch.startswith("dbrx"):
+        assert acts["by_op"]["all-to-all"] > acts["by_op"]["all-gather"]
 
 
 def test_decode_flops_count_the_cluster_attention():
@@ -234,6 +384,41 @@ def test_a_training_cells_gathered_recurrent_layer_holds_its_regions():
         assert port["gathered_layer"] == layer, arch
         assert port["total"] == (sharded["total"] + layer
                                  + port["gathered_once"])
+
+
+def test_the_command_line_writes_the_roofline_of_a_training_cell(tmp_path):
+    """``--arch llama3-8b --shape train_4k``: the record carries every
+    field it had (the byte accounting, the parts and the FLOPs) and the
+    roofline on the H100's roofs."""
+    out = tmp_path / "out"
+    assert dryrun.main(["--arch", "llama3-8b", "--shape", "train_4k",
+                        "--mesh", "single", "--out", str(out)]) == 0
+    rec = json.loads((out / "llama3-8b__train_4k__single.json").read_text())
+    for key in ("shape", "kind", "n_super", "layers_per_step", "params",
+                "active_params", "chips", "gate", "memory", "seconds",
+                "plan", "parts", "total_flops", "model_flops_global",
+                "useful_flop_ratio", "total_cost", "roofline", "dominant",
+                "model_flops_per_chip", "roofline_fraction", "collective"):
+        assert key in rec, key
+    assert rec["chips"] == 256 and rec["parts"]["n_micro"] == 16
+    terms = rec["roofline"]
+    assert terms["compute_s"] == rec["total_flops"] / 256 / 989e12
+    assert terms["collective_s"] == rec["collective"]["per_chip_bytes"] \
+        / 450e9 > 0
+    assert rec["collective"]["activations"]["per_chip_bytes"] > 0
+    assert 0 < rec["roofline_fraction"] <= 1
+    assert rec["roofline_bounds"]["memory_s"].startswith("upper bound")
+
+
+def test_the_byte_counter_counts_each_ops_inputs_and_outputs():
+    """Not a view, not an allocation: an add reads two and writes one."""
+    a = torch.empty((4, 8), device="meta")
+    with dryrun.ByteCounterMode() as bc:
+        b = a + a
+        b.view(32).t()
+        torch.empty((100,), device="meta")
+        b.sum()
+    assert bc.bytes == 3 * 128 + 128 + 4
 
 
 def test_the_meta_branch_gives_the_plain_versions_shapes():

@@ -14,7 +14,8 @@ from repro.core.subcluster import equal_partition as jax_equal
 from repro.core.subcluster import gather_partitions as jax_gather
 from repro.data.synthetic import blobs
 from repro_torch.core import (StopSpec, get_init, kmeans, kmeans_batched,
-                              landmark_init, local_stage, random_init)
+                              kmeans_lloyd_step, landmark_init, local_stage,
+                              random_init)
 from repro_torch.core.device import make_generator
 from repro_torch.core.kmeans import _jittered_array_init, _linspace01
 
@@ -297,3 +298,39 @@ def test_entry_point_defaults_to_cuda_and_never_falls_back(pts, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
         kmeans(pts, 4, iters=2)
+
+
+@pytest.mark.parametrize("m,d,k,seed", [(600, 3, 4, 0), (257, 2, 9, 1),
+                                        (130, 7, 5, 2)])
+def test_kmeans_lloyd_step_matches_jax(m, d, k, seed):
+    """One exposed Lloyd iteration on seeded numpy inputs (masked points,
+    and an empty cluster that keeps its center) against
+    ``repro.core.kmeans_lloyd_step`` at rtol 1e-5; the batched form gives
+    each lane's unbatched answer."""
+    from repro.core import kmeans_lloyd_step as jax_step
+    rng = np.random.default_rng(seed)
+    x = rng.normal(size=(m, d)).astype(np.float32)
+    w = rng.integers(1, 4, size=m).astype(np.float32)
+    w[::5] = 0.0
+    c = x[rng.choice(m, k - 1, replace=False)]
+    c = np.concatenate([c, np.full((1, d), 50.0, np.float32)])  # empty
+    ref_c, ref_n = jax_step(jnp.asarray(x), jnp.asarray(c), jnp.asarray(w))
+    got_c, got_n = kmeans_lloyd_step(x, c, w, device="cpu")
+    np.testing.assert_allclose(got_c.numpy(), np.asarray(ref_c), rtol=1e-5,
+                               atol=1e-6)
+    np.testing.assert_allclose(got_n.numpy(), np.asarray(ref_n), rtol=1e-5)
+    assert float(got_n[-1]) == 0.0 and np.all(got_c[-1].numpy() == 50.0)
+    assert float(got_n.sum()) == float(w.sum())
+    xb = torch.from_numpy(np.stack([x, x[::-1].copy()]))
+    wb = torch.from_numpy(np.stack([w, w[::-1].copy()]))
+    cb = torch.from_numpy(np.stack([c, c]))
+    bc, bn = kmeans_lloyd_step(xb, cb, wb, backend="torch", device="cpu")
+    assert torch.equal(bc[0], got_c) and torch.equal(bn[0], got_n)
+    lane1 = kmeans_lloyd_step(xb[1], cb[1], wb[1], device="cpu")
+    assert torch.equal(bc[1], lane1[0]) and torch.equal(bn[1], lane1[1])
+
+
+def test_kmeans_lloyd_step_defaults_to_cuda(pts, monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        kmeans_lloyd_step(pts, pts[:4], np.ones(len(pts), np.float32))
