@@ -10,8 +10,8 @@ shape:
     is large (``tiles.assign_points``), its ``idx``/``dist`` bit for bit
     those of the Lloyd kernel's SIMT route;
   * ``"tc"`` (d >= 32): the Lloyd kernel's tensor-core argmin
-    (``csrc/tc_argmin.cuh``, three TF32 passes), after a pre-pass for |c|^2
-    and an f32 copy of the centers.
+    (``csrc/tc_argmin.cuh``, three TF32 passes), after a pre-pass that
+    splits both operands into TF32 planes in device memory.
 
 ``config`` (a ``kernels.autotune.TileConfig``, or ``None`` for the
 formulas of ``tiles.assign_plan``) sets the SIMT route's center tile,
@@ -30,7 +30,7 @@ import torch
 from . import build
 from .ref import assign_argmin_ref
 from .tiles import (AssignPlan, assign_plan, assign_route, center_tile,
-                    check_inputs, register_dim, tc_dims)
+                    check_inputs, register_dim, tc_work_floats)
 
 launches = 0      # CUDA launches of this kernel since import (or reset)
 
@@ -52,7 +52,7 @@ def _lib() -> ctypes.CDLL:
         lib.repro_assign_occupancy.argtypes = [_I, _I, _I, _I, _P]
         lib.repro_assign_tc.argtypes = [
             _P, _L, _I, _P, _L, _I,                 # x, c
-            _I, _I, _I, _I, _P, _P,                 # B M K d cpad c2
+            _I, _I, _I, _I, _P, _L,                 # B M K d work n_work
             _P, _P, _P]                             # idx dist stream
         for fn in (lib.repro_assign_argmin, lib.repro_assign_occupancy,
                    lib.repro_assign_tc):
@@ -117,8 +117,8 @@ def assign_argmin(x: torch.Tensor, c: torch.Tensor, config=None
 def route_argmin(x: torch.Tensor, c: torch.Tensor, route: str, config=None
                  ) -> tuple[torch.Tensor, torch.Tensor]:
     """:func:`assign_argmin` on CUDA inputs it accepts, on the given route
-    (``"simt"``, or ``"tc"`` where ``tiles.tc_smem_bytes(d)`` fits a block)
-    whatever the shape would pick; ``launches`` is not counted.
+    (``"simt"``, or ``"tc"`` at d >= ``tiles.TC_MIN_D``) whatever the shape
+    would pick; ``launches`` is not counted.
     Measurement compares the two routes through it."""
     (b, m, d), k = x.shape, c.shape[1]
     dev = x.device
@@ -128,13 +128,13 @@ def route_argmin(x: torch.Tensor, c: torch.Tensor, route: str, config=None
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
         if route == "tc":
-            c2 = torch.empty((b, k), device=dev, dtype=torch.float32)
-            cpad = torch.empty((b, k, tc_dims(d)), device=dev,
-                               dtype=torch.float32)
+            work = torch.empty(
+                (tc_work_floats(b, m, k, d, x.stride(0) == 0),), device=dev,
+                dtype=torch.float32)
             err = _lib().repro_assign_tc(
                 x.data_ptr(), x.stride(0), x.dtype == bf16,
                 c.data_ptr(), c.stride(0), c.dtype == bf16, b, m, k, d,
-                cpad.data_ptr(), c2.data_ptr(), idx.data_ptr(),
+                work.data_ptr(), work.numel(), idx.data_ptr(),
                 dist.data_ptr(), stream)
         else:
             bk, points, g = plan(b, m, k, d, dev, config)

@@ -6,13 +6,13 @@
 // a running (min, argmin) in its VMEM output blocks.  Two routes, chosen by
 // shape in repro_torch/kernels/tiles.py (assign_route):
 //
-//   * SIMT route (the paper's d = 2 predict and fit; every d where the
-//     tensor cores do not win).  What bounds it: FP32 issue and the ALU
-//     pipe, which runs the clamp, compares and selects at half the FMA
-//     pipe's rate, while the bytes are tiny.  A one-pass argmin spends
-//     d + 6 instructions a pair, four of them on the ALU pipe (the clamp,
-//     the compare and two selects).  The design keeps every pair on chip
-//     and moves the compare and the selects off the pair:
+//   * SIMT route (d < 32: the paper's d = 2 predict and fit).  What bounds
+//     it: FP32 issue and the ALU pipe, which runs the clamp, compares and
+//     selects at half the FMA pipe's rate, while the bytes are tiny.  A
+//     one-pass argmin spends d + 6 instructions a pair, four of them on
+//     the ALU pipe (the clamp, the compare and two selects).  The design
+//     keeps every pair on chip and moves the compare and the selects off
+//     the pair:
 //       - a register tile: each thread holds P points, so one broadcast
 //         shared-memory load of a center (its coordinates and |c|^2, staged
 //         once per block by distance.cuh's stage_centers) feeds P pairs;
@@ -41,10 +41,12 @@
 //         or a point wider than 16 registers, takes one point per thread
 //         and argmin_tile's one-pass scan instead (tiles.assign_points).
 //
-//   * Tensor-core route (d >= 32 where it measured faster: the index's
-//     routing of chunks to cells).  The Lloyd kernel's tensor-core argmin
-//     (tc_argmin.cuh: three TF32 passes, fp32-class distances, ties by a
-//     lexicographic merge) without its SSE partials.
+//   * Tensor-core route (d >= 32, where it measured faster: the index's
+//     routing of chunks to cells, the sampler's assignment at d = 32, and
+//     every d past 128, where the SIMT scan would read the point from
+//     device memory for each center).  The Lloyd kernel's tensor-core
+//     argmin (tc_argmin.cuh: three TF32 passes, fp32-class distances, ties
+//     by a lexicographic merge) without its SSE partials.
 //
 // Ragged M is masked; ragged K is never visited.  No atomics: a repeated
 // launch is bit-identical.
@@ -267,9 +269,10 @@ int occupancy(int d, int bk, int wide, int* per_sm) {
 }  // namespace repro
 
 // SIMT route.  Strides are in elements.  dp is the register width (2..128,
-// or 0 for d > 128), bk the centers staged per tile, wide whether each
-// thread holds 4 points, and G the blocks per batch entry, all from
-// repro_torch/kernels/tiles.py.  Returns the launch's cudaGetLastError().
+// or 0 for d > 128, which only route_argmin's forced route reaches), bk the
+// centers staged per tile, wide whether each thread holds 4 points, and G
+// the blocks per batch entry, all from repro_torch/kernels/tiles.py.
+// Returns the launch's cudaGetLastError().
 extern "C" int repro_assign_argmin(const void* x, long long x_bs, int x_bf16,
                                    const void* c, long long c_bs, int c_bf16,
                                    int B, int M, int K, int d, int dp, int bk,
@@ -287,27 +290,16 @@ extern "C" int repro_assign_occupancy(int d, int dp, int bk, int wide,
   REPRO_DISPATCH_DP(dp, repro::occupancy, d, bk, wide, per_sm);
 }
 
-// Tensor-core route: |c|^2 and the f32 center copy (cpad (B, K,
-// tc::dims(d)), c2 (B, K)), then the argmin.
+// Tensor-core route: the pre-pass and the argmin in the workspace work
+// (n_work floats, tiles.tc_work_floats).
 extern "C" int repro_assign_tc(const void* x, long long x_bs, int x_bf16,
                                const void* c, long long c_bs, int c_bf16,
-                               int B, int M, int K, int d, float* cpad,
-                               float* c2, int32_t* idx, float* dist,
+                               int B, int M, int K, int d, float* work,
+                               long long n_work, int32_t* idx, float* dist,
                                void* stream) {
-  using namespace repro;
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int64_t rows = static_cast<int64_t>(B) * K;
-  tc::centers_kernel<<<static_cast<unsigned>((rows + 7) / 8), 256, 0, s>>>(
-      c, c_bs, c_bf16, B, K, d, c2, cpad);
-  cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess) return static_cast<int>(e);
-  const size_t smem = tc::smem_bytes(d);
-  e = allow_smem(tc::argmin_kernel, smem);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  const int G = (M + tc::kRows - 1) / tc::kRows;
-  tc::argmin_kernel<<<dim3(G, B), tc::kThreads, smem, s>>>(
-      x, x_bs, x_bf16, nullptr, 0, 0, cpad, c2, M, K, d, idx, dist, nullptr);
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(repro::tc::launch_argmin(
+      x, x_bs, x_bf16, nullptr, 0, 0, c, c_bs, c_bf16, B, M, K, d, work,
+      n_work, idx, dist, nullptr, static_cast<cudaStream_t>(stream)));
 }
 
 extern "C" const char* repro_assign_error_string(int e) {

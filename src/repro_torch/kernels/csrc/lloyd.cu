@@ -8,10 +8,11 @@
 // shape in repro_torch/kernels/tiles.py (lloyd_route):
 //
 //   * Tensor-core route, d >= 32 (the KV-cache refresh: 256 lanes x 9216
-//     points x 8192 centers, d = 128; the index's coarse fits).  Bound by
-//     the tensor cores' TF32 rate: the cross term runs in three TF32 passes
-//     (tc_argmin.cuh), one pre-pass computes |c|^2 and an f32 copy of the
-//     centers in rows of whole 32-dim chunks (what the argmin reads), a
+//     points x 8192 centers at llama's d = 128, 64 lanes at gemma's
+//     d = 256; the index's coarse fits).  Bound by the tensor cores' TF32
+//     rate: the cross term runs in three TF32 passes (tc_argmin.cuh), a
+//     pre-pass splits the points and the centers into TF32 planes of whole
+//     32-dim chunks with their norms (what the argmin streams), a
 //     small reduction sums the blocks' SSE partials in block order, and the
 //     statistics come from the centroid update's kernels (centroid.cu,
 //     launched by the Python wrapper) on the labels this route wrote: they
@@ -204,32 +205,23 @@ extern "C" int repro_lloyd_simt_occupancy(int K, int d, int dp, int bk,
   REPRO_DISPATCH_DP(dp, repro::occupancy, K, d, bk, acc_smem, per_sm, smem);
 }
 
-// Tensor-core route, up to the statistics: |c|^2 and the center copy
-// (cpad (B, K, tc::dims(d))), the argmin with per-block SSE partials
-// (part_sse (B, ceil(M / 128))), and their sum in block order.
+// Tensor-core route, up to the statistics: the pre-pass and the argmin in
+// the workspace work (n_work floats, tiles.tc_work_floats), with per-block
+// SSE partials (part_sse (B, ceil(M / 128))), and their sum in block order.
 extern "C" int repro_lloyd_tc(const void* x, long long x_bs, int x_bf16,
                               const void* w, long long w_bs, int w_bf16,
                               const void* c, long long c_bs, int c_bf16,
-                              int B, int M, int K, int d, float* cpad,
-                              float* c2, int32_t* idx, float* dist,
+                              int B, int M, int K, int d, float* work,
+                              long long n_work, int32_t* idx, float* dist,
                               float* part_sse, float* sse, void* stream) {
   using namespace repro;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int64_t rows = static_cast<int64_t>(B) * K;
-  tc::centers_kernel<<<static_cast<unsigned>((rows + 7) / 8), 256, 0, s>>>(
-      c, c_bs, c_bf16, B, K, d, c2, cpad);
-  cudaError_t e = cudaGetLastError();
+  const cudaError_t e = tc::launch_argmin(
+      x, x_bs, x_bf16, w, w_bs, w_bf16, c, c_bs, c_bf16, B, M, K, d, work,
+      n_work, idx, dist, part_sse, s);
   if (e != cudaSuccess) return static_cast<int>(e);
-  const size_t smem = tc::smem_bytes(d);
-  e = allow_smem(tc::argmin_kernel, smem);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  const int G = (M + tc::kRows - 1) / tc::kRows;
-  tc::argmin_kernel<<<dim3(G, B), tc::kThreads, smem, s>>>(
-      x, x_bs, x_bf16, w, w_bs, w_bf16, cpad, c2, M, K, d, idx, dist,
-      part_sse);
-  e = cudaGetLastError();
-  if (e != cudaSuccess) return static_cast<int>(e);
-  return launch_reduce(nullptr, nullptr, part_sse, B, G, 0, d, nullptr,
+  return launch_reduce(nullptr, nullptr, part_sse, B,
+                       (M + tc::kRows - 1) / tc::kRows, 0, d, nullptr,
                        nullptr, sse, s);
 }
 

@@ -10,8 +10,9 @@ shape:
   * ``"simt"`` (small d): one fused pass, distances on the FP32 cores and
     per-block statistics reduced in block order;
   * ``"tc"`` (d >= 32): the distances on the tensor cores (three TF32
-    passes, ``csrc/tc_argmin.cuh``), then the statistics from the centroid
-    update's kernels (``centroid.launch``) on the labels.
+    passes, ``csrc/tc_argmin.cuh``: both operands split into TF32 planes in
+    device memory first, then streamed), then the statistics from the
+    centroid update's kernels (``centroid.launch``) on the labels.
 
 ``config`` (a ``kernels.autotune.TileConfig``, or ``None`` for the
 formulas of ``tiles.lloyd_plan``) sets the SIMT route's center tile and
@@ -35,7 +36,7 @@ from . import build, centroid
 from .ref import lloyd_step_ref
 from .tiles import (TC_ROWS, LloydPlan, acc_in_smem, center_tile,
                     check_inputs, lloyd_plan, lloyd_route, register_dim,
-                    tc_dims)
+                    tc_work_floats)
 
 launches = 0            # calls that launched this kernel since import/reset
 centroid_launches = 0   # centroid-update launches of the tensor-core route
@@ -60,7 +61,7 @@ def _lib() -> ctypes.CDLL:
             _I, _I, _I, _I, _I, _P, _P]             # K d dp bk acc_smem, out
         lib.repro_lloyd_tc.argtypes = [
             _P, _L, _I, _P, _L, _I, _P, _L, _I,     # x, w, c
-            _I, _I, _I, _I, _P, _P,                 # B M K d cpad c2
+            _I, _I, _I, _I, _P, _L,                 # B M K d work n_work
             _P, _P, _P, _P,                         # idx dist part_sse sse
             _P]                                     # stream
         for fn in (lib.repro_lloyd_step, lib.repro_lloyd_simt_occupancy,
@@ -133,8 +134,8 @@ def lloyd_step(x: torch.Tensor, w: torch.Tensor, c: torch.Tensor,
 def route_step(x: torch.Tensor, w: torch.Tensor, c: torch.Tensor,
                route: str, config=None) -> tuple[torch.Tensor, ...]:
     """:func:`lloyd_step` on CUDA inputs it accepts, on the given route
-    (``"simt"``, or ``"tc"`` where ``tiles.tc_smem_bytes(d)`` fits a
-    block) whatever the shape would pick; ``launches`` is not counted.
+    (``"simt"``, or ``"tc"`` at d >= ``tiles.TC_MIN_D``) whatever the
+    shape would pick; ``launches`` is not counted.
     Measurement compares the two routes through it."""
     with torch.cuda.device(x.device):
         if route == "tc":
@@ -178,14 +179,13 @@ def _tc_step(x, w, c):
     dist = torch.empty((b, m), **f32)
     part_sse = torch.empty((b, -(-m // TC_ROWS)), **f32)
     sse = torch.empty((b,), **f32)
-    c2 = torch.empty((b, k), **f32)
-    cpad = torch.empty((b, k, tc_dims(d)), **f32)
+    work = torch.empty((tc_work_floats(b, m, k, d, x.stride(0) == 0),), **f32)
     bf16 = torch.bfloat16
     err = _lib().repro_lloyd_tc(
         x.data_ptr(), x.stride(0), x.dtype == bf16,
         w.data_ptr(), w.stride(0), w.dtype == bf16,
         c.data_ptr(), c.stride(0), c.dtype == bf16,
-        b, m, k, d, cpad.data_ptr(), c2.data_ptr(), idx.data_ptr(),
+        b, m, k, d, work.data_ptr(), work.numel(), idx.data_ptr(),
         dist.data_ptr(),
         part_sse.data_ptr(), sse.data_ptr(),
         torch.cuda.current_stream(dev).cuda_stream)

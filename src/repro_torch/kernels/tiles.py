@@ -19,12 +19,13 @@ wrappers make before a launch.
     32 of them per lane at a time.
   * The Lloyd kernel (``lloyd.cu``) takes one of two routes,
     ``lloyd_route(k, d)``.  The tensor-core route (``"tc"``: d >=
-    ``TC_MIN_D`` with an accumulator too large for shared memory) gives
-    each block ``TC_ROWS`` points, split once into TF32 hi and lo planes,
-    and walks the lane's centers in tiles of ``TC_COLS``, staged
-    ``TC_CHUNK`` dims at a time in ``TC_BUFFERS`` buffers
-    (``tc_smem_bytes``), from an f32 copy of the centers in rows of
-    ``tc_dims(d)``.  The SIMT route (``"simt"``) runs
+    ``TC_MIN_D`` with an accumulator too large for shared memory, or a
+    point too wide for the registers) gives each block ``TC_ROWS`` points
+    and walks the lane's centers in tiles of ``TC_COLS``, ``TC_CHUNK``
+    dims at a time: a pre-pass writes both operands' TF32 hi and lo planes
+    to the device workspace (``tc_work_floats``) and ``TC_STAGES`` stages
+    stream them by bulk copies (``tc_smem_bytes``).  The SIMT route
+    (``"simt"``) runs
     ``lloyd_blocks(...)`` blocks per batch entry (as many as the card holds
     at once, capped by its scratch) and keeps each block's (K, d+1)
     accumulator in shared memory when ``acc_in_smem(k, d)``
@@ -86,8 +87,8 @@ WARPS = THREADS // 32
 TC_MIN_D = 32                     # narrowest d of the tensor-core route
 TC_ROWS = 128                     # points per tensor-core block
 TC_COLS = 128                     # centers per tensor-core tile
-TC_CHUNK = 32                     # dims per staged chunk of centers
-TC_BUFFERS = 3                    # staged chunks in shared memory
+TC_CHUNK = 32                     # dims per staged chunk
+TC_STAGES = 3                     # staged chunks in flight
 ASSIGN_POINTS = 4                 # points per thread of the SIMT assignment
 ASSIGN_TILE_MAX_DIM = 16          # widest register_dim that takes them
 ASSIGN_ITEMS_PER_SCHEDULER = 2    # 32-point-per-lane items that earn them
@@ -222,33 +223,49 @@ def tc_dims(d: int) -> int:
 
 
 def tc_smem_bytes(d: int) -> int:
-    """Shared memory of one tensor-core block (``tc::smem_bytes`` in
-    ``csrc/tc_argmin.cuh``): the points' hi and lo planes, the staged hi and
-    lo chunks of the centers, |x|^2 and two tiles of |c|^2."""
-    return 4 * (2 * TC_ROWS * tc_dims(d) + 2 * TC_BUFFERS * TC_COLS * TC_CHUNK
-                + TC_ROWS + 2 * TC_COLS)
+    """Shared memory of one tensor-core block (``tc::kSmem`` in
+    ``csrc/tc_argmin.cuh``), 199,248 bytes at any ``d``: ``TC_STAGES``
+    stages of the centers' and the points' hi and lo chunks with a tile's
+    |c|^2, their two mbarriers each, the rows' results and eight warp
+    sums."""
+    return TC_STAGES * 4 * (4 * TC_COLS * TC_CHUNK + TC_COLS) \
+        + 16 * TC_STAGES + 4 * (2 * TC_ROWS + 8)
+
+
+def tc_work_floats(b: int, m: int, k: int, d: int, shared_x: bool) -> int:
+    """Floats of the tensor-core route's device workspace
+    (``tc::work_floats``; the launch refuses a smaller one): the centers'
+    and the points' TF32 hi and lo planes in whole tiles of ``TC_ROWS``
+    rows (the points' once where the lanes share them, ``shared_x``),
+    their squared norms and each point tile's lo flag."""
+    x_tiles = (1 if shared_x else b) * -(-m // TC_ROWS)
+    return ((b * -(-k // TC_COLS) + x_tiles) * TC_ROWS * (2 * tc_dims(d) + 1)
+            + x_tiles)
 
 
 def lloyd_route(k: int, d: int) -> str:
     """The Lloyd kernel's route: ``"tc"`` (tensor cores, three TF32 passes,
     then the centroid update's sort path for the statistics) for d >=
-    ``TC_MIN_D`` where the SIMT kernel's (K, d+1) accumulator would not fit
-    shared memory, a block's points fit its own and the sort path takes K
-    clusters (``sort_clusters_fit``), else ``"simt"`` (one fused pass on
-    the FP32 cores).  Where the accumulator fits, the fused pass measured
-    faster on the H100 than the two passes of the tensor-core route
-    (index_200k's coarse merge, (4, 6554, 256, 64))."""
-    return ("tc" if d >= TC_MIN_D and not acc_in_smem(k, d)
-            and tc_smem_bytes(d) <= MAX_SMEM_BYTES and sort_clusters_fit(k)
+    ``TC_MIN_D`` where the sort path takes K clusters
+    (``sort_clusters_fit``) and either the SIMT kernel's (K, d+1)
+    accumulator would not fit shared memory or the point would not fit its
+    registers (``register_dim`` 0: its scan reads the point from device
+    memory for every center); else ``"simt"`` (one fused pass on the FP32
+    cores).  Where the accumulator fits at a register width, the fused pass
+    measured faster on the H100 than the two passes of the tensor-core
+    route (index_200k's coarse merge, (4, 6554, 256, 64)); past d = 128
+    the tensor-core route measured faster at small K too (16 x 16,384 x 64,
+    d = 256: PERF.md)."""
+    return ("tc" if d >= TC_MIN_D and sort_clusters_fit(k)
+            and (not acc_in_smem(k, d) or not register_dim(d))
             else "simt")
 
 
 def assign_route(k: int, d: int) -> str:
     """The assignment kernel's route: ``"tc"`` (the Lloyd kernel's
-    tensor-core argmin, three TF32 passes) for d >= ``TC_MIN_D`` where a
-    block's points fit its shared memory, else ``"simt"`` (FP32 cores)."""
-    return ("tc" if d >= TC_MIN_D and tc_smem_bytes(d) <= MAX_SMEM_BYTES
-            else "simt")
+    tensor-core argmin, three TF32 passes) for d >= ``TC_MIN_D``, else
+    ``"simt"`` (FP32 cores)."""
+    return "tc" if d >= TC_MIN_D else "simt"
 
 
 def assign_points(b: int, m: int, d: int, sm_count: int,

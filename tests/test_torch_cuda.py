@@ -30,7 +30,8 @@ def _inputs(dev, b, m, k, d, dtype=torch.float32, seed=0):
 
 SHAPES = [(1, 64, 3, 4), (3, 257, 7, 16), (2, 100, 17, 33),
           (1, 512, 300, 128), (2, 1024, 128, 2), (1, 300, 40, 200),
-          (5, 3000, 5000, 2)]
+          (5, 3000, 5000, 2), (2, 1000, 300, 256), (1, 777, 8193, 160),
+          (2, 300, 3000, 1024)]
 
 
 @pytest.mark.parametrize("b,m,k,d", SHAPES)
@@ -104,12 +105,16 @@ def _cancel(x, c):
 @pytest.mark.parametrize("b,m,k,d", [(2, 1000, 300, 128), (1, 777, 8193, 64),
                                      (3, 500, 129, 96), (2, 100, 17, 33),
                                      (2, 300, 3000, 33), (2, 300, 70, 31),
-                                     (1, 300, 65536, 64)])
+                                     (1, 300, 65536, 64),
+                                     (2, 1000, 300, 256),
+                                     (1, 777, 8193, 160),
+                                     (2, 300, 3000, 1024)])
 def test_lloyd_routes_match_plain(dev, b, m, k, d, dtype):
     """Shapes on both sides of the route threshold, ragged M and K, d not a
     multiple of 8, bf16 inputs, more clusters than the tensor-core route's
-    statistics take: through ``lloyd_step`` (the route its shape picks),
-    then on each route that takes the shape."""
+    statistics take, d past 128 (the tensor-core block streams its
+    points): through ``lloyd_step`` (the route its shape picks), then on
+    each route that takes the shape."""
     from repro_torch.kernels import tiles
     x, w, c = _inputs(dev, b, m, k, d, dtype=dtype, seed=21)
     cancel = _cancel(x, c)
@@ -197,7 +202,7 @@ def _assign_case(dev, case, b, m, k, d):
 @pytest.mark.parametrize("route,m,d", [("simt", 150_001, 2),
                                        ("simt", 1001, 8),
                                        ("simt", 777, 64), ("tc", 777, 64),
-                                       ("tc", 3001, 32)])
+                                       ("tc", 3001, 32), ("tc", 777, 256)])
 def test_assign_routes_match_plain(dev, case, route, m, d):
     """Both routes, with the SIMT route's register tile (150,001 points
     at d = 2) and without it: labels equal the plain version's but at

@@ -17,7 +17,7 @@ from repro_torch.kernels.ref import (assign_argmin_ref, centroid_update_ref,
 
 # ragged M / d / K on purpose (tests/test_lloyd.py's sweep)
 SHAPES = [(64, 4, 3), (257, 16, 7), (100, 33, 17), (512, 128, 300),
-          (1024, 2, 128)]
+          (1024, 2, 128), (300, 256, 40)]
 
 
 def _inputs(seed, m, d, k, b=1):
@@ -238,29 +238,58 @@ def test_centroid_warp_plan(b, m, k, d, warps, blocks):
     (8192, 128, "tc"),               # the KV-cache refresh
     (819, 64, "tc"), (256, 64, "simt"),  # index_200k's coarse local, merge
     (1638, 32, "tc"), (3000, 33, "tc"), (8193, 64, "tc"), (300, 128, "tc"),
-    (129, 96, "simt"), (17, 33, "simt"), (50, 200, "simt"),
+    (129, 96, "simt"), (17, 33, "simt"),
+    (50, 200, "tc"),                 # past d = 128: the point is no
+    #                                  register tile, the SIMT scan would
+    #                                  read it from device memory
     (1562, 2, "simt"), (1000, 2, "simt"),  # paper_500k local and merge
     (256, 1, "simt"),                # PQ codebooks
     (77, 16, "simt"), (3000, 31, "simt"),
-    (3000, 160, "simt"),             # the points outgrow a tc block
-    (1000, 400, "simt"),
+    (3000, 160, "tc"),               # the points streamed past d = 128
+    (1000, 400, "tc"),
+    (8192, 256, "tc"),               # gemma3-12b's KV-cache refresh
     (58079, 64, "tc"),               # the most clusters the sort path takes
-    (58080, 64, "simt"), (65536, 64, "simt")])
+    (58080, 64, "simt"), (65536, 64, "simt"),
+    (60000, 256, "simt")])           # the SIMT scan's point from memory
 def test_lloyd_route(k, d, route):
     """The Lloyd kernel's route by shape: the tensor cores where d >= 32,
-    the SIMT kernel's accumulator would not fit shared memory and the
-    centroid update's sort path (the route's statistics) takes K clusters;
-    the tensor-core block's shared memory stays within a block's (one
-    block per SM at the refresh's d = 128, the widest d it takes)."""
+    the centroid update's sort path (the route's statistics) takes K
+    clusters, and either the SIMT kernel's accumulator would not fit shared
+    memory or its point would not fit the registers (d > 128); the
+    tensor-core block's shared memory stays within a block's (one block per
+    SM)."""
     assert tiles.lloyd_route(k, d) == route
     assert (route == "tc") == (d >= tiles.TC_MIN_D
-                               and not tiles.acc_in_smem(k, d)
+                               and (not tiles.acc_in_smem(k, d)
+                                    or not tiles.register_dim(d))
                                and tiles.tc_smem_bytes(d)
                                <= tiles.MAX_SMEM_BYTES
                                and tiles.sort_clusters_fit(k))
     if (k, d) == (8192, 128):
-        assert tiles.tc_smem_bytes(d) == 230912
+        assert tiles.tc_smem_bytes(d) == 199248
         assert tiles.blocks_per_sm(tiles.tc_smem_bytes(d)) == 1
+
+
+@pytest.mark.parametrize("d", [129, 160, 256, 512, 1024])
+def test_tc_block_fits_past_d_128(d):
+    """A tensor-core block streams its points' chunks beside the centers':
+    its shared memory, 199,248 bytes, does not grow with d and fits a
+    block's."""
+    assert tiles.tc_smem_bytes(d) == 199248 <= tiles.MAX_SMEM_BYTES
+
+
+@pytest.mark.parametrize("b,m,k,d,shared,floats", [
+    # llama's and gemma's refresh: both operands' hi and lo planes in
+    # whole tiles of 128 rows, their norms, a lo flag a point tile
+    (256, 9216, 8192, 128, False,
+     (256 * 64 + 256 * 72) * 128 * 257 + 256 * 72),
+    (64, 9216, 8192, 256, False, (64 * 64 + 64 * 72) * 128 * 513 + 64 * 72),
+    (3, 300, 50, 200, True, (3 * 1 + 3) * 128 * 449 + 3),
+    (3, 300, 50, 200, False, (3 * 1 + 9) * 128 * 449 + 9)])
+def test_tc_work_floats(b, m, k, d, shared, floats):
+    """The tensor-core route's device workspace: the planes the pre-pass
+    writes (the points' once where the lanes share them)."""
+    assert tiles.tc_work_floats(b, m, k, d, shared) == floats
 
 
 @pytest.mark.parametrize("b,m,k,d,smem,per_sm,blocks", [
@@ -349,14 +378,15 @@ def _split(a):
     return hi, _truncate_tf32(a - hi)
 
 
-def test_three_tf32_passes_keep_fp32_class_distances():
-    """Why the tensor-core route splits both operands: at d = 128 on the
-    unit box, the expanded-form distance with the cross term in three TF32
-    passes (lo_x hi_c + hi_x lo_c + hi_x hi_c, f32 accumulation) stays
-    within the fp32 rounding bound that chip_smoke.py allows near-ties
-    (``dot_rounding_bound``) against f64; one TF32 pass does not."""
+@pytest.mark.parametrize("d", [128, 256])
+def test_three_tf32_passes_keep_fp32_class_distances(d):
+    """Why the tensor-core route splits both operands: at d = 128 (llama's
+    refresh) and 256 (gemma's) on the unit box, the expanded-form distance
+    with the cross term in three TF32 passes (lo_x hi_c + hi_x lo_c +
+    hi_x hi_c, f32 accumulation) stays within the fp32 rounding bound that
+    chip_smoke.py allows near-ties (``dot_rounding_bound``) against f64;
+    one TF32 pass does not."""
     rng = np.random.default_rng(41)
-    d = 128
     x = rng.random((256, d)).astype(np.float32)
     c = rng.random((512, d)).astype(np.float32)
     exact = ((x.astype(np.float64)[:, None, :] - c.astype(np.float64)[None])

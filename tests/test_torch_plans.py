@@ -137,7 +137,8 @@ def test_assign_points(b, m, d, points):
     (512, 32, "tc"),      # index_5m's
     (819, 64, "tc"), (1000, 2, "simt"), (1562, 2, "simt"), (256, 1, "simt"),
     (77, 16, "simt"), (50, 31, "simt"),
-    (50, 200, "simt")])   # a tensor-core block's points overflow its smem
+    (50, 200, "tc"),      # past d = 128 the block streams its points
+    (1000, 256, "tc")])   # the d = 256 assignment
 def test_assign_route(k, d, route):
     assert tiles.assign_route(k, d) == route
     if route == "tc":

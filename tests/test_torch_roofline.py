@@ -151,6 +151,10 @@ TABLE = [
      "operations"),
     ("lloyd", "simt", dict(b=64, m=9216, k=8192, d=256), "37.14",
      "operations"),
+    ("lloyd", "tc", dict(b=64, m=9216, k=8192, d=256), "14.99",
+     "operations"),
+    ("lloyd", "tc", dict(b=64, m=9216, k=8192, d=256, lo_rows=0), "9.996",
+     "operations"),
     ("lloyd", "tc", dict(b=192, m=9216, k=8192, d=80, lo_rows=0), "9.371",
      "operations"),
     ("lloyd", "simt", dict(b=1, m=4096, k=16, d=1), "0.0000196", "bytes"),
